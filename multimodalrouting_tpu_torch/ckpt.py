@@ -1,0 +1,52 @@
+"""The port's checkpoint: a directory holding
+
+- ``config.json`` — ``configs.to_dict(cfg)``;
+- ``meta.json`` — ``temperature`` and ``thresholds``, the keys the JAX
+  package's meta carries for serving;
+- ``weights.pt`` — the model's state_dict (serving weights: the EMA ones
+  where the run kept an EMA).
+"""
+from __future__ import annotations
+
+import json
+import os
+from typing import Any, Dict, Optional, Sequence
+
+import torch
+
+from multimodalrouting_tpu_torch.configs import Config, from_dict, to_dict
+
+
+def save_checkpoint(
+    ckpt_dir: str,
+    state_dict: Dict[str, torch.Tensor],
+    cfg: Config,
+    *,
+    temperature: float = 1.0,
+    thresholds: Optional[Sequence[float]] = None,
+) -> str:
+    os.makedirs(ckpt_dir, exist_ok=True)
+    with open(os.path.join(ckpt_dir, "config.json"), "w") as f:
+        json.dump(to_dict(cfg), f, indent=2)
+    meta = {
+        "temperature": float(temperature),
+        "thresholds": None if thresholds is None else [float(t) for t in thresholds],
+    }
+    with open(os.path.join(ckpt_dir, "meta.json"), "w") as f:
+        json.dump(meta, f, indent=2)
+    torch.save({k: v.detach().cpu() for k, v in state_dict.items()}, os.path.join(ckpt_dir, "weights.pt"))
+    return ckpt_dir
+
+
+def load_config(ckpt_dir: str) -> Config:
+    with open(os.path.join(ckpt_dir, "config.json")) as f:
+        return from_dict(json.load(f))
+
+
+def load_meta(ckpt_dir: str) -> Dict[str, Any]:
+    with open(os.path.join(ckpt_dir, "meta.json")) as f:
+        return json.load(f)
+
+
+def load_weights(ckpt_dir: str, device="cpu") -> Dict[str, torch.Tensor]:
+    return torch.load(os.path.join(ckpt_dir, "weights.pt"), map_location=device, weights_only=True)

@@ -1,0 +1,114 @@
+"""Multi-head attention with a float32 softmax, sinusoidal positions and the
+causal future mask (counterpart of multimodalrouting_tpu/models/attention.py).
+
+``attention`` is the one dispatch point. On projected q/k/v [N, T, H*dh] it
+takes the packed kernel K1 (``ops/flash_packed.py``) when there is no
+additive bias, q and k have one shape, no gradient flows through the caller
+(``frozen_fast_path``) or the packed backward would cover the shape, and
+``supports_packed`` holds — the JAX package's default dispatch. Everything
+else runs the eager path: fp32 logits, the key mask applied with
+where(..., -1e9), fp32 softmax, weights cast to the compute dtype.
+
+The port's modules are the inference forward of the JAX ones: dropout,
+batch-statistics BatchNorm and gradients come with the training path.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from multimodalrouting_tpu_torch.models.layers import Dense
+from multimodalrouting_tpu_torch.ops import flash_packed
+from multimodalrouting_tpu_torch.ops.masked import NEG_INF
+
+
+def sinusoidal_positions(
+    seq_len: int, dim: int, padding_idx: int = 0, dtype=torch.float32, quantized: bool = False
+) -> torch.Tensor:
+    """[T, dim] fairseq-style table for positions padding_idx+1 .. +T.
+    quantized=True truncates every value toward zero (the reference's
+    integer-cast defect, kept for bit-parity runs)."""
+    half = dim // 2
+    if half <= 0:
+        raise ValueError(f"dim must be >= 2, got {dim}")
+    positions = np.arange(padding_idx + 1, padding_idx + 1 + seq_len, dtype=np.float32)
+    if half == 1:
+        freqs = np.ones((1,), dtype=np.float32)
+    else:
+        freqs = np.exp(np.arange(half, dtype=np.float32) * -(np.log(10000.0) / (half - 1)))
+    args = positions[:, None] * freqs[None, :]
+    table = np.concatenate([np.sin(args), np.cos(args)], axis=1)
+    if dim % 2 == 1:
+        table = np.concatenate([table, np.zeros((seq_len, 1), dtype=np.float32)], axis=1)
+    if quantized:
+        table = np.trunc(table.astype(np.float32))
+    return torch.from_numpy(np.ascontiguousarray(table, dtype=np.float32)).to(dtype)
+
+
+def future_mask(tq: int, tk: int) -> torch.Tensor:
+    """Additive causal mask [Tq, Tk]: -1e9 strictly above the shifted diagonal."""
+    offset = 1 + abs(tk - tq)
+    i = np.arange(tq)[:, None]
+    j = np.arange(tk)[None, :]
+    return torch.from_numpy(np.where(j >= i + offset, NEG_INF, 0.0).astype(np.float32))
+
+
+def attention(
+    qh: torch.Tensor,  # [N, Tq, D] projected and scaled
+    kh: torch.Tensor,  # [N, Tk, D]
+    vh: torch.Tensor,
+    kv_mask: Optional[torch.Tensor],  # [N, Tk], 1 = keep
+    attn_bias: Optional[torch.Tensor],  # [Tq, Tk] additive
+    num_heads: int,
+    *,
+    frozen_fast_path: bool,
+    dtype: torch.dtype,
+) -> torch.Tensor:
+    """Attention core -> [N, Tq, D] in `dtype`, before the out-projection."""
+    n, tq, d = qh.shape
+    tk = kh.shape[1]
+    head_dim = d // num_heads
+    if (
+        attn_bias is None
+        and qh.shape == kh.shape
+        and (frozen_fast_path or flash_packed.supports_packed_bwd(tq, head_dim))
+        and flash_packed.supports_packed(tq, tk, head_dim, d, num_heads)
+    ):
+        return flash_packed.packed_attention(qh, kh, vh, kv_mask, num_heads).to(dtype)
+
+    q4 = qh.reshape(n, tq, num_heads, head_dim)
+    k4 = kh.reshape(n, tk, num_heads, head_dim)
+    v4 = vh.reshape(n, tk, num_heads, head_dim)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q4, k4).float()
+    if attn_bias is not None:
+        logits = logits + attn_bias.to(device=logits.device, dtype=torch.float32)[None, None]
+    if kv_mask is not None:
+        keep = kv_mask.bool()[:, None, None, :]
+        logits = torch.where(keep, logits, torch.full_like(logits, NEG_INF))
+    weights = torch.softmax(logits, dim=-1).to(dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", weights, v4).reshape(n, tq, d)
+
+
+class MultiheadAttention(nn.Module):
+    """Batch-first MHA: q [B,Tq,D], k/v [B,Tk,D], kv_mask [B,Tk] (1 = keep),
+    optional additive attn_bias [Tq,Tk]. q is scaled by head_dim**-0.5."""
+
+    def __init__(self, d: int, num_heads: int, frozen_fast_path: bool = False, dtype=torch.float32):
+        super().__init__()
+        if d % num_heads:
+            raise ValueError(f"d={d} not divisible by heads={num_heads}")
+        self.d, self.num_heads, self.dtype = d, num_heads, dtype
+        self.frozen_fast_path = frozen_fast_path
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            setattr(self, name, Dense(d, d, dtype=dtype))
+
+    def forward(self, q, k, v, kv_mask=None, attn_bias=None) -> torch.Tensor:
+        scaling = (self.d // self.num_heads) ** -0.5
+        out = attention(
+            self.q_proj(q) * scaling, self.k_proj(k), self.v_proj(v), kv_mask, attn_bias,
+            self.num_heads, frozen_fast_path=self.frozen_fast_path, dtype=self.dtype,
+        )
+        return self.out_proj(out)

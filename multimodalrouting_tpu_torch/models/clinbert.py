@@ -1,0 +1,147 @@
+"""Bio-ClinicalBERT note encoder over chunk stacks (counterpart of
+multimodalrouting_tpu/models/clinbert.py).
+
+All B*S note chunks [B,S,L] run as one batched BERT-base forward (post-LN,
+GELU FFN), aggregated per chunk (cls / masked mean / masked max), projected
+with LayerNorm + Linear(hidden -> d, no bias) when hidden != d, zeroed on
+padded chunks and pooled over chunks. Under the frozen-body default the BERT
+runs under ``torch.no_grad`` and every attention layer is eligible for the
+packed kernel K1. A ``chunk_embs`` input (precomputed per-chunk embeddings)
+skips the body.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+from torch import nn
+
+from multimodalrouting_tpu_torch.models.attention import MultiheadAttention
+from multimodalrouting_tpu_torch.models.layers import Dense, Embed
+from multimodalrouting_tpu_torch.ops.gelu import apply_gelu
+from multimodalrouting_tpu_torch.ops.layernorm import LayerNorm, bert_layer_norm
+from multimodalrouting_tpu_torch.ops.masked import masked_max, masked_mean
+
+
+class BertSelfAttentionBlock(nn.Module):
+    def __init__(self, hidden: int, heads: int, frozen_fast_path: bool, ln: str, dtype):
+        super().__init__()
+        self.attn = MultiheadAttention(hidden, heads, frozen_fast_path=frozen_fast_path, dtype=dtype)
+        self.ln = bert_layer_norm(ln, hidden, 1e-12, dtype)
+
+    def forward(self, x, attn_mask):
+        return self.ln(x + self.attn(x, x, x, kv_mask=attn_mask))
+
+
+class BertLayer(nn.Module):
+    def __init__(
+        self, hidden: int, heads: int, intermediate: int, frozen_fast_path: bool = False,
+        gelu: str = "erf", ln: str = "fp32", dtype=torch.float32,
+    ):
+        super().__init__()
+        self.gelu = gelu
+        self.attention = BertSelfAttentionBlock(hidden, heads, frozen_fast_path, ln, dtype)
+        self.intermediate = Dense(hidden, intermediate, dtype=dtype)
+        self.output = Dense(intermediate, hidden, dtype=dtype)
+        self.ln = bert_layer_norm(ln, hidden, 1e-12, dtype)
+
+    def forward(self, x, attn_mask):
+        x = self.attention(x, attn_mask)
+        h = self.output(apply_gelu(self.intermediate(x), self.gelu))
+        return self.ln(x + h)
+
+
+class BertEncoder(nn.Module):
+    """Token ids [N, L] -> hidden states [N, L, H]."""
+
+    def __init__(
+        self, vocab_size: int = 28996, hidden: int = 768, layers: int = 12, heads: int = 12,
+        intermediate: int = 3072, max_position: int = 512, type_vocab: int = 2,
+        frozen_fast_path: bool = False, gelu: str = "erf", ln: str = "fp32", dtype=torch.float32,
+    ):
+        super().__init__()
+        self.layers = layers
+        self.word_embeddings = Embed(vocab_size, hidden, dtype)
+        self.position_embeddings = Embed(max_position, hidden, dtype)
+        self.token_type_embeddings = Embed(type_vocab, hidden, dtype)
+        self.embed_ln = bert_layer_norm(ln, hidden, 1e-12, dtype)
+        for i in range(layers):
+            self.add_module(
+                f"layer_{i}",
+                BertLayer(hidden, heads, intermediate, frozen_fast_path, gelu, ln, dtype),
+            )
+
+    def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
+        _, length = input_ids.shape
+        pos_ids = torch.arange(length, device=input_ids.device)[None, :]
+        x = (
+            self.word_embeddings(input_ids)
+            + self.position_embeddings(pos_ids)
+            + self.token_type_embeddings(torch.zeros_like(input_ids))
+        )
+        x = self.embed_ln(x)
+        for i in range(self.layers):
+            x = getattr(self, f"layer_{i}")(x, attention_mask)
+        return x
+
+
+class BioClinBERTEncoder(nn.Module):
+    """notes {"input_ids" [B,S,L], "attention_mask" [B,S,L], "chunk_mask" [B,S],
+    optional "chunk_embs" [B,S,hidden]} -> (H [B,S,d], chunk_mask [B,S], pooled [B,d])."""
+
+    def __init__(
+        self, d: int = 256, note_agg: str = "cls", chunk_agg: str = "mean",
+        finetune_text: bool = False, gelu: str = "erf", ln: str = "fp32",
+        vocab_size: int = 28996, hidden: int = 768, layers: int = 12, heads: int = 12,
+        intermediate: int = 3072, max_position: int = 512, type_vocab: int = 2,
+        dtype=torch.float32,
+    ):
+        super().__init__()
+        self.d, self.hidden, self.dtype = d, hidden, dtype
+        self.note_agg, self.chunk_agg, self.finetune_text = note_agg, chunk_agg, finetune_text
+        self.bert = BertEncoder(
+            vocab_size, hidden, layers, heads, intermediate, max_position, type_vocab,
+            frozen_fast_path=not finetune_text, gelu=gelu, ln=ln, dtype=dtype,
+        )
+        if d != hidden:
+            self.proj_ln = LayerNorm(hidden, 1e-5, dtype)
+            self.proj = Dense(hidden, d, bias=False, dtype=dtype)
+
+    def forward(self, notes: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        input_ids = notes["input_ids"]
+        attn = notes["attention_mask"]
+        if input_ids.dim() == 2:
+            input_ids, attn = input_ids[:, None, :], attn[:, None, :]
+        b, s, length = input_ids.shape
+        chunk_mask = notes.get("chunk_mask")
+        if chunk_mask is None:
+            chunk_mask = attn.sum(dim=-1) > 0
+        chunk_mask = chunk_mask.float()
+
+        if notes.get("chunk_embs") is not None:
+            if self.finetune_text:
+                raise ValueError("notes['chunk_embs'] requires finetune_text=False")
+            emb = notes["chunk_embs"].to(self.dtype).reshape(b * s, -1)
+            return self._project_and_pool(emb, chunk_mask, b, s)
+
+        flat_ids = input_ids.reshape(b * s, length)
+        flat_attn = attn.reshape(b * s, length)
+        with torch.set_grad_enabled(self.finetune_text and torch.is_grad_enabled()):
+            hidden = self.bert(flat_ids, flat_attn)  # [B*S, L, H]
+            if self.note_agg == "cls":
+                emb = hidden[:, 0]
+            elif self.note_agg == "max":
+                emb = masked_max(hidden, flat_attn)
+            else:
+                emb = masked_mean(hidden, flat_attn)
+        return self._project_and_pool(emb, chunk_mask, b, s)
+
+    def _project_and_pool(self, emb, chunk_mask, b, s):
+        if not self.finetune_text:
+            emb = emb.detach()
+        if self.d != self.hidden:
+            emb = self.proj(self.proj_ln(emb))
+        h = emb.reshape(b, s, -1)
+        h = h * chunk_mask[..., None].to(h.dtype)
+        pooled = masked_max(h, chunk_mask) if self.chunk_agg == "max" else masked_mean(h, chunk_mask)
+        return h, chunk_mask, pooled

@@ -1,0 +1,186 @@
+"""The flagship model: encoders -> 10 MulT routes -> capsule head
+(counterpart of multimodalrouting_tpu/models/full.py, CapsuleRoutingModel on
+its MULTRouter branch). Encoder outputs are sanitized (nan_to_num and a row
+norm clamp at 20) and absent modalities are zeroed and masked.
+"""
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Optional
+
+import torch
+from torch import nn
+
+from multimodalrouting_tpu_torch.configs import Config
+from multimodalrouting_tpu_torch.data.batches import Batch
+from multimodalrouting_tpu_torch.models.behrt import BEHRTLabEncoder
+from multimodalrouting_tpu_torch.models.clinbert import BioClinBERTEncoder
+from multimodalrouting_tpu_torch.models.cxr import ImageEncoder, normalize_pixels
+from multimodalrouting_tpu_torch.models.mult import MULTRouter
+from multimodalrouting_tpu_torch.routes import get_routes, route_mask_from_presence
+from multimodalrouting_tpu_torch.routing.capsule_head import CapsuleHead, RoutePrimaryProjector, compose_priors
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+class EncodedModalities(NamedTuple):
+    l_seq: torch.Tensor
+    l_mask: torch.Tensor
+    l_pool: torch.Tensor
+    n_seq: torch.Tensor
+    n_mask: torch.Tensor
+    n_pool: torch.Tensor
+    i_seq: torch.Tensor
+    i_mask: torch.Tensor
+    i_pool: torch.Tensor
+    chexpert_logits: torch.Tensor
+
+
+class ModelOutput(NamedTuple):
+    logits: torch.Tensor  # [B,K]
+    alpha: Optional[torch.Tensor] = None  # [B,R]
+    r_matrix: Optional[torch.Tensor] = None  # [B,R,K]
+    route_embs: Optional[Dict[str, torch.Tensor]] = None
+    pooled: Optional[Dict[str, torch.Tensor]] = None
+    chexpert_logits: Optional[torch.Tensor] = None
+
+
+def _sanitize(x: torch.Tensor, max_norm: float = 20.0) -> torch.Tensor:
+    """NaN/Inf -> 0, then clamp each row's L2 norm at max_norm."""
+    x = torch.nan_to_num(x, nan=0.0, posinf=0.0, neginf=0.0)
+    norm = torch.sqrt(torch.clamp((x.float() ** 2).sum(dim=-1, keepdim=True), min=1e-12))
+    scale = torch.where(norm > max_norm, max_norm / norm, torch.ones_like(norm))
+    return x * scale.to(x.dtype)
+
+
+def compute_dtype(cfg: Config) -> torch.dtype:
+    return DTYPES[cfg.model.dtype]
+
+
+class TriEncoder(nn.Module):
+    """The three modality encoders, sanitized outputs, presence gating."""
+
+    def __init__(self, cfg: Config, dtype=torch.float32):
+        super().__init__()
+        e = cfg.encoder
+        self.behrt = BEHRTLabEncoder(
+            n_feats=e.structured_n_feats, d=e.d, seq_len=e.structured_seq_len,
+            n_layers=e.structured_layers, n_heads=e.structured_heads, pool=e.structured_pool,
+            dtype=dtype,
+        )
+        self.bbert = BioClinBERTEncoder(
+            d=e.d, note_agg=e.note_agg, chunk_agg=e.note_chunk_agg, finetune_text=e.finetune_text,
+            gelu=e.bert_gelu, ln=e.bert_ln, vocab_size=e.bert_vocab_size, hidden=e.bert_hidden,
+            layers=e.bert_layers, heads=e.bert_heads, intermediate=e.bert_intermediate,
+            max_position=e.bert_max_position, type_vocab=e.bert_type_vocab, dtype=dtype,
+        )
+        self.imgenc = ImageEncoder(
+            d=e.d, vision_backbone=e.vision_backbone, vision_num_classes=e.vision_num_classes,
+            norm_kind=e.vision_norm, dtype=dtype,
+        )
+
+    def forward(self, batch: Batch) -> EncodedModalities:
+        l_seq, l_mask, l_pool = self.behrt(batch.x_struct, batch.m_struct)
+        n_seq, n_mask, n_pool = self.bbert(batch.notes_dict())
+        i_seq, i_mask, i_pool, chexpert = self.imgenc(normalize_pixels(batch.image, batch.has_i))
+
+        def gate(seq, mask, pool, has):
+            h = has.to(seq.dtype)
+            return seq * h[:, None, None], mask * has.to(mask.dtype)[:, None], pool * h[:, None]
+
+        n_seq, n_mask, n_pool = gate(n_seq, n_mask, n_pool, batch.has_n)
+        i_seq, i_mask, i_pool = gate(i_seq, i_mask, i_pool, batch.has_i)
+        return EncodedModalities(
+            l_seq=_sanitize(l_seq), l_mask=l_mask, l_pool=_sanitize(l_pool),
+            n_seq=_sanitize(n_seq), n_mask=n_mask, n_pool=_sanitize(n_pool),
+            i_seq=_sanitize(i_seq), i_mask=i_mask, i_pool=_sanitize(i_pool),
+            chexpert_logits=chexpert,
+        )
+
+
+class CapsuleRoutingModel(nn.Module):
+    """Flagship: TriEncoder -> MULTRouter (10 routes) -> projector -> priors -> CapsuleHead."""
+
+    def __init__(self, cfg: Config):
+        super().__init__()
+        m = cfg.model
+        if m.routes != "10":
+            raise NotImplementedError(
+                "the 7-route fusion branch is not ported yet (ROADMAP.md, modules still to port)"
+            )
+        if m.bi_fusion_mode == "mult":
+            raise NotImplementedError(
+                "the per-route MulT family (bi_fusion_mode=mult) is not ported yet "
+                "(ROADMAP.md, modules still to port)"
+            )
+        self.cfg = cfg
+        dtype = compute_dtype(cfg)
+        self.routes = get_routes(m.routes)
+        self.encoders = TriEncoder(cfg, dtype)
+        d_enc = cfg.encoder.d
+        self.mult = MULTRouter(
+            d_enc, d_enc, d_enc, d=m.d, num_heads=m.mult_heads, layers=m.mult_layers,
+            self_layers=m.mult_self_layers, attn_mask=m.attn_mask, pool=m.mult_pool,
+            positions=m.mult_positions, dtype=dtype,
+        )
+        self.projector = RoutePrimaryProjector(
+            self.routes, d_in=m.d, pc_dim=m.pc_dim,
+            use_route_logit_bias=m.route_logit_bias_init != 0.0,
+            interaction_bias_init=m.interaction_bias_init, prior_floor=m.projector_prior_floor,
+            dtype=dtype,
+        )
+        self.capsule_head = CapsuleHead(
+            num_routes=len(self.routes), pc_dim=m.pc_dim, mc_caps_dim=m.mc_caps_dim,
+            num_classes=m.num_classes, num_routing=m.num_routing, head_style=m.head_style,
+            routing_mode="sigmoid_routes" if m.capsule_act_type == "sigmoid_gate" else "softmax_out",
+            act_type="ONES" if m.capsule_act_type != "EM" else "EM",
+            uniform_routing=m.uniform_routing, gate_temp=m.gate_temp, gate_min=m.gate_min,
+            gate_max=m.gate_max, dtype=dtype,
+        )
+
+    def forward(self, batch: Batch, route_mask: Optional[torch.Tensor] = None) -> ModelOutput:
+        """Inference forward; the route mask defaults to modality presence."""
+        m = self.cfg.model
+        enc = self.encoders(batch)
+        if route_mask is None:
+            route_mask = route_mask_from_presence(batch.has_l, batch.has_n, batch.has_i, self.routes)
+        route_embs = self.mult(enc.l_seq, enc.n_seq, enc.i_seq, enc.l_mask, enc.n_mask, enc.i_mask)
+        poses, acts = self.projector(route_embs)
+        priors = compose_priors(
+            acts, route_mask=route_mask, act_temperature=m.act_temperature,
+            prior_floor=m.route_prior_floor, prior_ceiling=m.route_prior_ceiling,
+            detach=m.detach_priors,
+        )
+        out = self.capsule_head(poses, priors, route_mask=route_mask)
+        return ModelOutput(
+            logits=out.logits.float(),
+            alpha=out.alpha.float(),
+            r_matrix=out.r_matrix.float(),
+            route_embs=route_embs,
+            pooled={"L": enc.l_pool, "N": enc.n_pool, "I": enc.i_pool},
+            chexpert_logits=enc.chexpert_logits.float(),
+        )
+
+
+def resolve_device(device) -> torch.device:
+    """The entry points' device rule: CUDA unless the caller asks for the CPU;
+    asking for CUDA without a card raises instead of falling back."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' to run on the CPU")
+    return dev
+
+
+def build_model(cfg: Config, family: str = "capsule", *, device="cuda") -> CapsuleRoutingModel:
+    """The inference model on `device`, in eval mode. Under the frozen-text
+    default with bf16 compute the BERT body is held in bf16 (output-identical:
+    the compute casts it to bf16 at every use anyway)."""
+    if family != "capsule":
+        raise NotImplementedError(f"family {family!r} is not ported yet (ROADMAP.md, modules still to port)")
+    e = cfg.encoder
+    if e.int8_text or cfg.train.pipeline_parallel:
+        raise NotImplementedError("int8 and pipelined BERT bodies are not ported yet (ROADMAP.md)")
+    dev = resolve_device(device)
+    model = CapsuleRoutingModel(cfg)
+    if e.frozen_text_bf16 and not e.finetune_text and compute_dtype(cfg) == torch.bfloat16:
+        model.encoders.bbert.bert.to(torch.bfloat16)
+    return model.to(dev).eval()

@@ -1,0 +1,57 @@
+"""Linear layers with the flax modules' precision rules.
+
+flax's nn.Dense / nn.Embed / nn.Conv keep float32 parameters and cast them,
+and the input, to the compute dtype at every use. These modules do the same,
+so a float32 model and a bfloat16 one share one state_dict; a parameter
+stored in the compute dtype already (the frozen BERT body) is used as is.
+``StackedDense`` holds G independent Dense layers as one [G, in, out] weight
+in the JAX layout, applied to a leading stream axis with one batched matmul.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+class Dense(nn.Module):
+    def __init__(self, d_in: int, d_out: int, bias: bool = True, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(d_out, d_in))
+        self.bias = nn.Parameter(torch.zeros(d_out)) if bias else None
+        self.dtype = dtype
+        nn.init.xavier_uniform_(self.weight)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        b = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), b)
+
+
+class Embed(nn.Module):
+    def __init__(self, num: int, features: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.weight = nn.Parameter(torch.randn(num, features) * features**-0.5)
+        self.dtype = dtype
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return F.embedding(ids.long(), self.weight).to(self.dtype)
+
+
+class StackedDense(nn.Module):
+    """G Dense layers: x [G, ..., in] -> [G, ..., out]."""
+
+    def __init__(self, g: int, d_in: int, d_out: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.empty(g, d_in, d_out))
+        self.bias = nn.Parameter(torch.zeros(g, d_out))
+        self.dtype = dtype
+        for w in self.kernel.data:
+            nn.init.xavier_uniform_(w)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        g = x.shape[0]
+        flat = x.to(dt).reshape(g, -1, x.shape[-1])
+        y = torch.baddbmm(self.bias.to(dt)[:, None, :], flat, self.kernel.to(dt))
+        return y.reshape(*x.shape[:-1], -1)

@@ -1,0 +1,130 @@
+"""Pre-LN (MulT-style) transformer streams, G at a time (counterpart of
+multimodalrouting_tpu/models/transformer.py).
+
+The JAX package vmaps G parameter-independent MulT stacks into one program.
+Here the G streams are one module whose parameters carry the same leading
+[G] axis: projections are batched matmuls over the stream axis, and the
+attention core runs on the flattened [G*B] batch through the shared dispatch
+point. Per stream: inputs scaled by sqrt(d) plus sinusoidal positions,
+pre-LN layers whose query LayerNorm is reused on cross keys/values, rows
+under the query mask zeroed after every block, ReLU FFN of width 4d, final
+LayerNorm.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from multimodalrouting_tpu_torch.models.attention import attention, future_mask, sinusoidal_positions
+from multimodalrouting_tpu_torch.models.layers import StackedDense
+from multimodalrouting_tpu_torch.ops.layernorm import layer_norm
+
+
+class StackedLayerNorm(nn.Module):
+    """G flax LayerNorms over x [G, ..., d] (parameters [G, d], JAX names)."""
+
+    def __init__(self, g: int, d: int, dtype, eps: float = 1e-5):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(g, d))
+        self.bias = nn.Parameter(torch.zeros(g, d))
+        self.eps, self.dtype = eps, dtype
+
+    def forward(self, x):
+        shape = (x.shape[0],) + (1,) * (x.dim() - 2) + (x.shape[-1],)
+        return layer_norm(x, self.scale.view(shape), self.bias.view(shape), self.eps, self.dtype)
+
+
+class StackedMultiheadAttention(nn.Module):
+    def __init__(self, g: int, d: int, num_heads: int, dtype):
+        super().__init__()
+        self.d, self.num_heads, self.dtype = d, num_heads, dtype
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            setattr(self, name, StackedDense(g, d, d, dtype))
+
+    def forward(self, q, k, v, kv_mask=None, attn_bias=None):
+        """q [G,B,Tq,d], k/v [G,B,Tk,d], kv_mask [G,B,Tk]."""
+        g, b, tq, d = q.shape
+        tk = k.shape[2]
+        qh = self.q_proj(q) * (d // self.num_heads) ** -0.5
+        out = attention(
+            qh.reshape(g * b, tq, d),
+            self.k_proj(k).reshape(g * b, tk, d),
+            self.v_proj(v).reshape(g * b, tk, d),
+            None if kv_mask is None else kv_mask.reshape(g * b, tk),
+            attn_bias, self.num_heads, frozen_fast_path=False, dtype=self.dtype,
+        )
+        return self.out_proj(out.reshape(g, b, tq, d))
+
+
+class StackedMulTEncoderLayer(nn.Module):
+    def __init__(self, g: int, d: int, num_heads: int, causal: bool, dtype):
+        super().__init__()
+        self.causal = causal
+        self.ln0 = StackedLayerNorm(g, d, dtype)
+        self.ln1 = StackedLayerNorm(g, d, dtype)
+        self.attn = StackedMultiheadAttention(g, d, num_heads, dtype)
+        self.fc1 = StackedDense(g, d, 4 * d, dtype)
+        self.fc2 = StackedDense(g, 4 * d, d, dtype)
+
+    def forward(self, x, x_k=None, x_v=None, q_mask=None, kv_mask=None):
+        q_keep = None if q_mask is None else q_mask.to(x.dtype)[..., None]
+        cross = x_k is not None
+        key_mask = kv_mask if cross else q_mask
+
+        residual = x
+        h = self.ln0(x)
+        if q_keep is not None:
+            h = h * q_keep
+        if cross:
+            k, v = self.ln0(x_k), self.ln0(x_v)  # the query block's LN, reused
+        else:
+            k = v = h
+        bias = future_mask(h.shape[-2], k.shape[-2]) if self.causal else None
+        x = residual + self.attn(h, k, v, kv_mask=key_mask, attn_bias=bias)
+        if q_keep is not None:
+            x = x * q_keep
+
+        residual = x
+        h = self.ln1(x)
+        if q_keep is not None:
+            h = h * q_keep
+        x = residual + self.fc2(F.relu(self.fc1(h)))
+        if q_keep is not None:
+            x = x * q_keep
+        return x
+
+
+class StackedMulTEncoder(nn.Module):
+    """G MulT stacks over [G, B, T, d] streams (self- or cross-attention)."""
+
+    def __init__(self, g: int, d: int, num_heads: int, layers: int, causal: bool = False,
+                 positions: str = "sinusoidal", dtype=torch.float32):
+        super().__init__()
+        self.d, self.layers, self.dtype, self.positions = d, layers, dtype, positions
+        for i in range(layers):
+            self.add_module(f"layer_{i}", StackedMulTEncoderLayer(g, d, num_heads, causal, dtype))
+        self.final_ln = StackedLayerNorm(g, d, dtype)
+
+    def _embed(self, seq):
+        h = (math.sqrt(self.d) * seq.float()).to(self.dtype)
+        pos = sinusoidal_positions(seq.shape[-2], self.d, dtype=self.dtype, quantized=self.positions == "ref_quantized")
+        return h + pos.to(h.device)
+
+    def forward(self, x_in, x_in_k=None, x_in_v=None, q_mask=None, kv_mask=None):
+        x = self._embed(x_in)
+        if q_mask is not None:
+            x = x * q_mask.to(x.dtype)[..., None]
+        cross = x_in_k is not None and x_in_v is not None
+        x_k = self._embed(x_in_k) if cross else None
+        x_v = self._embed(x_in_v) if cross else None
+        for i in range(self.layers):
+            x = getattr(self, f"layer_{i}")(
+                x, x_k, x_v, q_mask=q_mask, kv_mask=kv_mask if cross else q_mask
+            )
+        x = self.final_ln(x)
+        if q_mask is not None:
+            x = x * q_mask.to(x.dtype)[..., None]
+        return x

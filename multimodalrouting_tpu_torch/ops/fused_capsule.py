@@ -1,0 +1,62 @@
+"""Fused capsule routing (K3): all iterations in one Hopper kernel.
+
+Counterpart of multimodalrouting_tpu/ops/pallas_capsule.py. The kernel
+(``csrc/capsule_routing.cu``) computes ``ops/capsule.py:capsule_routing`` in
+its softmax_out / ONES mode with the votes of a batch row resident in shared
+memory across iterations. ``capsule_routing_fused`` launches it on CUDA
+tensors (or raises) and runs ``capsule_routing_reference``, the plain
+version, on CPU tensors. Forward-only: the gradient comes with the training
+path.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from multimodalrouting_tpu_torch.ops import hopper
+from multimodalrouting_tpu_torch.ops.capsule import routing_plain
+
+
+def capsule_routing_reference(pose, act, w, num_iters: int) -> Tuple[torch.Tensor, ...]:
+    """Plain version of K3: the routing program in softmax_out / ONES mode."""
+    return routing_plain(pose, act, w, num_iters, mode="softmax_out", act_type="ONES")
+
+
+def capsule_routing_fused(
+    pose: torch.Tensor,  # [B, N, A]
+    act: torch.Tensor,  # [B, N]
+    w: torch.Tensor,  # [N, A, M, D]
+    num_iters: int = 3,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """-> (decision pose [B,M,D], decision act [B,M], coef [B,N,M]), fp32."""
+    if pose.device.type == "cpu":
+        return capsule_routing_reference(pose, act, w, num_iters)
+    if not pose.is_cuda:
+        raise ValueError(f"capsule routing runs on CUDA or CPU tensors, got {pose.device}")
+    if torch.is_grad_enabled() and (pose.requires_grad or act.requires_grad or w.requires_grad):
+        raise RuntimeError("the fused capsule kernel is forward-only: call it under torch.no_grad()")
+    b, n, a = pose.shape
+    n_w, a_w, m, d = w.shape
+    if (n_w, a_w) != (n, a) or tuple(act.shape) != (b, n):
+        raise ValueError(f"shape mismatch: pose {tuple(pose.shape)}, act {tuple(act.shape)}, w {tuple(w.shape)}")
+    lib = hopper.library("capsule_routing")
+    dev = pose.device
+    pose32 = pose.to(torch.float32).contiguous()
+    act32 = act.to(device=dev, dtype=torch.float32).contiguous()
+    w32 = w.to(device=dev, dtype=torch.float32).contiguous()
+    pose_out = torch.empty((b, m, d), dtype=torch.float32, device=dev)
+    act_out = torch.empty((b, m), dtype=torch.float32, device=dev)
+    coef_out = torch.empty((b, n, m), dtype=torch.float32, device=dev)
+    rc = lib.capsule_routing_f32(
+        pose32.data_ptr(), act32.data_ptr(), w32.data_ptr(),
+        pose_out.data_ptr(), act_out.data_ptr(), coef_out.data_ptr(),
+        b, n, a, m, d, int(num_iters), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    # cudaErrorInvalidValue: one row's votes exceed a block's 48 KB of shared memory
+    hopper.check(rc, f"capsule_routing of N={n}, A={a}, M={m}, D={d}")
+    capsule_routing_fused.launches += 1
+    return pose_out, act_out, coef_out
+
+
+capsule_routing_fused.launches = 0

@@ -1,0 +1,111 @@
+"""The Hopper kernels against their plain versions, on the card.
+
+These need a CUDA card and the CUDA toolkit (the kernels are built from
+multimodalrouting_tpu_torch/csrc/ at first use) and skip elsewhere. They
+import neither JAX nor the JAX package, so they run where only PyTorch is
+installed:
+
+    python -m pytest tests/test_torch_kernels.py -m cuda --noconftest -q
+"""
+import numpy as np
+import pytest
+import torch
+
+from chip_smoke import K1_FP32_TOL, bf16_errors, describe_bf16, within_bf16_limits
+from multimodalrouting_tpu_torch.ops.capsule import capsule_weight_init
+from multimodalrouting_tpu_torch.ops.flash_packed import packed_attention, packed_attention_reference
+from multimodalrouting_tpu_torch.ops.fused_capsule import capsule_routing_fused, capsule_routing_reference
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the Hopper kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions in full fp32
+    return torch.device("cuda")
+
+
+def _attn_inputs(n, t, h, dh, dtype, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    shape = (n, t, h * dh)
+    q = (torch.randn(shape, generator=g, device=dev) * dh**-0.5).to(dtype)
+    k = torch.randn(shape, generator=g, device=dev).to(dtype)
+    v = torch.randn(shape, generator=g, device=dev).to(dtype)
+    valid = torch.ones((n, t), device=dev)
+    valid[0, 190:] = 0.0  # ragged pad tail
+    valid[1] = 0.0  # all-pad chunk: uniform attention, finite
+    return q, k, v, valid
+
+
+def _assert_close(got, ref, q, k, v, m, h):
+    """K1's limits in chip_smoke.py, which says why they are what they are."""
+    if q.dtype == torch.float32:
+        atol, rtol = K1_FP32_TOL
+        torch.testing.assert_close(got, ref, rtol=rtol, atol=atol)
+        return
+    exact = packed_attention_reference(q.float(), k.float(), v.float(), m, h)
+    errors = bf16_errors(got, ref, exact)
+    assert within_bf16_limits(errors), describe_bf16(errors)
+
+
+@pytest.mark.parametrize(
+    "dtype,h,dh",
+    [(torch.bfloat16, 12, 64), (torch.float32, 4, 64), (torch.bfloat16, 2, 128), (torch.float32, 2, 128)],
+)
+@pytest.mark.parametrize("t", [256, 512, 1024])
+def test_packed_attention_kernel_matches_plain(cuda, dtype, h, dh, t):
+    q, k, v, m = _attn_inputs(4, t, h, dh, dtype, cuda)
+    before = packed_attention.launches
+    with torch.no_grad():
+        got = packed_attention(q, k, v, m, h)
+    torch.cuda.synchronize()
+    assert packed_attention.launches == before + 1
+    assert torch.isfinite(got).all()
+    _assert_close(got, packed_attention_reference(q, k, v, m, h), q, k, v, m, h)
+
+
+def test_packed_attention_kernel_reads_strided_views(cuda):
+    """q, k, v as column slices of one fused [N, T, 3D] projection: the
+    kernel reads the row-strided views in place."""
+    n, t, h, dh = 3, 256, 4, 64
+    d = h * dh
+    g = torch.Generator(device=cuda).manual_seed(1)
+    qkv = torch.randn((n, t, 3 * d), generator=g, device=cuda).to(torch.bfloat16)
+    q, k, v = qkv.split(d, dim=-1)
+    m = torch.ones((n, t), device=cuda)
+    with torch.no_grad():
+        got = packed_attention(q, k, v, m, h)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    _assert_close(got, packed_attention_reference(q, k, v, m, h), q, k, v, m, h)
+
+
+def test_packed_attention_kernel_refuses_grad(cuda):
+    q, k, v, m = _attn_inputs(2, 256, 2, 64, torch.bfloat16, cuda)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        packed_attention(q.requires_grad_(), k, v, m, 2)
+
+
+@pytest.mark.parametrize("b,n,a,m,d", [(16, 10, 32, 2, 64), (5, 7, 8, 25, 16), (3, 10, 32, 1, 64)])
+def test_capsule_kernel_matches_plain(cuda, b, n, a, m, d):
+    rng = np.random.default_rng(2)
+    pose = torch.from_numpy(rng.normal(size=(b, n, a)).astype(np.float32)).to(cuda)
+    act = torch.from_numpy((rng.random((b, n)) > 0.3).astype(np.float32)).to(cuda)
+    w = capsule_weight_init(n, a, m, d, torch.Generator().manual_seed(2)).to(cuda)
+    before = capsule_routing_fused.launches
+    with torch.no_grad():
+        got = capsule_routing_fused(pose, act, w, 3)
+    torch.cuda.synchronize()
+    assert capsule_routing_fused.launches == before + 1
+    for x, y in zip(got, capsule_routing_reference(pose, act, w, 3)):
+        torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-5)
+
+
+def test_capsule_kernel_refuses_rows_beyond_shared_memory(cuda):
+    """One row's votes must fit a block's 48 KB of shared memory."""
+    pose = torch.zeros((2, 10, 32), device=cuda)
+    act = torch.ones((2, 10), device=cuda)
+    w = torch.zeros((10, 32, 25, 64), device=cuda)  # 10 x 25 x 64 fp32 votes = 64 KB
+    with torch.no_grad(), pytest.raises(RuntimeError, match="capsule_routing of N=10, A=32, M=25, D=64"):
+        capsule_routing_fused(pose, act, w, 3)
