@@ -15,11 +15,18 @@ flax leaf path maps onto a state_dict key mechanically:
 Every key of the target state_dict must be filled exactly once, with its
 shape; values are cast to the target's dtype (the frozen BERT body is held
 in bf16 under bf16 compute, as the JAX train state holds it). When the JAX
-state carries ``ema_params``, those are the serving weights.
+state carries ``ema_params``, those are the serving weights
+(``state_dict_from_jax``).
+
+``train_state_from_jax`` carries a whole JAX ``TrainState`` for resuming
+training: ``params`` into the model, ``batch_stats`` into its buffers,
+``ema_params`` into the EMA, and the Adam moments and count out of the optax
+state (found by their ``mu`` / ``nu`` / ``count`` fields, frozen leaves
+masked out), all as numpy.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Mapping, Tuple
+from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,6 +39,14 @@ def _leaves(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()) -> Iterator[T
         if isinstance(v, Mapping):
             yield from _leaves(v, prefix + (str(k),))
         else:
+            yield prefix + (str(k),), np.asarray(v)
+
+
+def _array_leaves(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()):
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _array_leaves(v, prefix + (str(k),))
+        elif hasattr(v, "shape"):
             yield prefix + (str(k),), np.asarray(v)
 
 
@@ -72,6 +87,57 @@ def state_dict_from_jax(variables: Mapping[str, Any], model: torch.nn.Module) ->
     if missing:
         raise KeyError(f"model keys with no JAX leaf: {missing[:8]}{' ...' if len(missing) > 8 else ''}")
     return out
+
+
+def _converted(tree: Mapping[str, Any], target: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A parameter tree (EMA or an Adam moment) by state_dict key, fp32 on
+    the target's device; leaves that are not arrays (optax's masked frozen
+    leaves) are skipped."""
+    out = {}
+    for path, value in _array_leaves(tree):
+        key, value = _param_key(path, value, target)
+        ref = target[key]
+        out[key] = torch.from_numpy(np.ascontiguousarray(value)).to(device=ref.device, dtype=torch.float32)
+    return out
+
+
+def _adam_state(opt_state) -> Optional[Any]:
+    """The optax ScaleByAdamState inside a (multi_transform, chain, masked)
+    state tree, or None."""
+    if hasattr(opt_state, "mu") and hasattr(opt_state, "nu") and hasattr(opt_state, "count"):
+        return opt_state
+    children = opt_state.values() if isinstance(opt_state, Mapping) else (
+        opt_state if isinstance(opt_state, (tuple, list)) else ()
+    )
+    for child in children:
+        found = _adam_state(child)
+        if found is not None:
+            return found
+    return None
+
+
+def train_state_from_jax(cfg, model: torch.nn.Module, jax_state: Mapping[str, Any]):
+    """A port TrainState from a JAX TrainState's fields as numpy trees:
+    {"params", "batch_stats", "ema_params", "opt_state", "step"}."""
+    from multimodalrouting_tpu_torch.train.state import create_train_state
+
+    model.load_state_dict(
+        state_dict_from_jax({"params": jax_state["params"], "batch_stats": jax_state.get("batch_stats")}, model)
+    )
+    state = create_train_state(cfg, model)
+    target = dict(model.named_parameters())
+    adam = _adam_state(jax_state["opt_state"])
+    for name, tree in (("mu", adam.mu), ("nu", adam.nu)):
+        moments = _converted(tree, target)
+        if sorted(moments) != sorted(state.names):
+            raise KeyError(f"JAX Adam {name} covers {len(moments)} leaves, the port trains {len(state.names)}")
+        getattr(state, name).update(moments)
+    state.count = int(np.asarray(adam.count))
+    state.step = int(np.asarray(jax_state.get("step", state.count)))
+    if state.ema is not None and jax_state.get("ema_params") is not None:
+        ema = _converted(jax_state["ema_params"], target)
+        state.ema.update({n: ema[n] for n in state.names})
+    return state
 
 
 def load_jax_variables(model: torch.nn.Module, variables: Mapping[str, Any]) -> torch.nn.Module:

@@ -5,6 +5,11 @@
   package's meta carries for serving;
 - ``weights.pt`` — the model's state_dict (serving weights: the EMA ones
   where the run kept an EMA).
+
+``train/loop.py:train_model`` writes one such directory per checkpoint name
+under its ``ckpt_dir`` (``best``, ``best_f1``, ``last``, ``final``); ``final``
+carries the fitted temperature and thresholds, and ``serve.Predictor`` loads
+any of them.
 """
 from __future__ import annotations
 

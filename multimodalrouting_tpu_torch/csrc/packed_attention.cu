@@ -30,11 +30,18 @@
 // The online softmax rounds p to bf16 before it is normalised, where the TPU
 // kernel rounds the normalised p; bf16 results therefore differ from the
 // plain version by a few bf16 ulps of the output (tolerance in the tests).
+//
+// Under a gradient the wrapper also asks for each row's log-sum-exp
+// (lse = m + log l of the online softmax, fp32 [N, H, T]), which the backward
+// K2 (packed_attention_bwd.cu) uses to recompute p; serving passes a null
+// pointer and writes nothing more.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -46,30 +53,11 @@ constexpr int kBQ = 64;   // query rows per block (4 warps x 16)
 constexpr int kBK = 64;   // keys per shared-memory tile
 constexpr int kPad = 8;   // bf16 padding per shared row: conflict-free fragment loads
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// c += a * b for one m16n8k16 tile, bf16 inputs, fp32 accumulators.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 template <int DH>
 __global__ void __launch_bounds__(128) packed_attention_bf16_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const float* __restrict__ mask,
-    __nv_bfloat16* __restrict__ out, int t, long long q_sn, long long q_st,
+    __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int t, long long q_sn, long long q_st,
     long long k_sn, long long k_st, long long v_sn, long long v_st,
     long long o_sn, long long o_st) {
   __shared__ __align__(16) __nv_bfloat16 ks[kBK][DH + kPad];   // K tile [key][dim]
@@ -214,6 +202,11 @@ __global__ void __launch_bounds__(128) packed_attention_bf16_kernel(
     *reinterpret_cast<uint32_t*>(ob + r0 * o_st + col) = pack_bf16(o[dn][0] * inv0, o[dn][1] * inv0);
     *reinterpret_cast<uint32_t*>(ob + r1 * o_st + col) = pack_bf16(o[dn][2] * inv1, o[dn][3] * inv1);
   }
+  if (lse != nullptr && (lane & 3) == 0) {  // the quad holds one row's m and l
+    float* lb = lse + ((long long)n * gridDim.y + head) * t;
+    lb[r0] = m_run[0] + logf(l_run[0]);
+    lb[r1] = m_run[1] + logf(l_run[1]);
+  }
 }
 
 // ----------------------------------------------------------------- fp32 path
@@ -225,7 +218,7 @@ template <int DH>
 __global__ void __launch_bounds__(128) packed_attention_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const float* __restrict__ mask,
-    float* __restrict__ out, int t, long long q_sn, long long q_st,
+    float* __restrict__ out, float* __restrict__ lse, int t, long long q_sn, long long q_st,
     long long k_sn, long long k_st, long long v_sn, long long v_st,
     long long o_sn, long long o_st) {
   __shared__ float qs[kFQ][DH];
@@ -303,6 +296,9 @@ __global__ void __launch_bounds__(128) packed_attention_f32_kernel(
     const float inv = 1.f / l_run[rr];
 #pragma unroll
     for (int e = 0; e < kPer; ++e) ob[row * o_st + lane + 32 * e] = acc[rr][e] * inv;
+    if (lse != nullptr && lane == 0) {
+      lse[((long long)n * gridDim.y + head) * t + row] = m_run[rr] + logf(l_run[rr]);
+    }
   }
 }
 
@@ -310,9 +306,10 @@ __global__ void __launch_bounds__(128) packed_attention_f32_kernel(
 
 // The wrapper (ops/flash_packed.py) has checked: t % 64 == 0, dh in {64, 128},
 // inner dimension contiguous, row strides and base pointers 16-byte aligned,
-// mask a contiguous fp32 [n, t]. Returns the cudaError_t of the launch.
+// mask a contiguous fp32 [n, t]; lse is null or a contiguous fp32 [n, heads, t].
+// Returns the cudaError_t of the launch.
 extern "C" int packed_attention_bf16(const void* q, const void* k, const void* v,
-                                     const float* mask, void* out, int n, int t,
+                                     const float* mask, void* out, float* lse, int n, int t,
                                      int heads, int dh, long long q_sn, long long q_st,
                                      long long k_sn, long long k_st, long long v_sn,
                                      long long v_st, long long o_sn, long long o_st,
@@ -323,11 +320,11 @@ extern "C" int packed_attention_bf16(const void* q, const void* k, const void* v
   if (dh == 64) {
     packed_attention_bf16_kernel<64><<<grid, 128, 0, s>>>(
         static_cast<const B*>(q), static_cast<const B*>(k), static_cast<const B*>(v), mask,
-        static_cast<B*>(out), t, q_sn, q_st, k_sn, k_st, v_sn, v_st, o_sn, o_st);
+        static_cast<B*>(out), lse, t, q_sn, q_st, k_sn, k_st, v_sn, v_st, o_sn, o_st);
   } else if (dh == 128) {
     packed_attention_bf16_kernel<128><<<grid, 128, 0, s>>>(
         static_cast<const B*>(q), static_cast<const B*>(k), static_cast<const B*>(v), mask,
-        static_cast<B*>(out), t, q_sn, q_st, k_sn, k_st, v_sn, v_st, o_sn, o_st);
+        static_cast<B*>(out), lse, t, q_sn, q_st, k_sn, k_st, v_sn, v_st, o_sn, o_st);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -335,7 +332,7 @@ extern "C" int packed_attention_bf16(const void* q, const void* k, const void* v
 }
 
 extern "C" int packed_attention_f32(const void* q, const void* k, const void* v,
-                                    const float* mask, void* out, int n, int t,
+                                    const float* mask, void* out, float* lse, int n, int t,
                                     int heads, int dh, long long q_sn, long long q_st,
                                     long long k_sn, long long k_st, long long v_sn,
                                     long long v_st, long long o_sn, long long o_st,
@@ -347,10 +344,10 @@ extern "C" int packed_attention_f32(const void* q, const void* k, const void* v,
   const float* vf = static_cast<const float*>(v);
   float* of = static_cast<float*>(out);
   if (dh == 64) {
-    packed_attention_f32_kernel<64><<<grid, 128, 0, s>>>(qf, kf, vf, mask, of, t, q_sn, q_st,
+    packed_attention_f32_kernel<64><<<grid, 128, 0, s>>>(qf, kf, vf, mask, of, lse, t, q_sn, q_st,
                                                          k_sn, k_st, v_sn, v_st, o_sn, o_st);
   } else if (dh == 128) {
-    packed_attention_f32_kernel<128><<<grid, 128, 0, s>>>(qf, kf, vf, mask, of, t, q_sn, q_st,
+    packed_attention_f32_kernel<128><<<grid, 128, 0, s>>>(qf, kf, vf, mask, of, lse, t, q_sn, q_st,
                                                           k_sn, k_st, v_sn, v_st, o_sn, o_st);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);

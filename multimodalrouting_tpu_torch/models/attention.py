@@ -2,15 +2,17 @@
 causal future mask (counterpart of multimodalrouting_tpu/models/attention.py).
 
 ``attention`` is the one dispatch point. On projected q/k/v [N, T, H*dh] it
-takes the packed kernel K1 (``ops/flash_packed.py``) when there is no
-additive bias, q and k have one shape, no gradient flows through the caller
-(``frozen_fast_path``) or the packed backward would cover the shape, and
+takes the packed kernels (``ops/flash_packed.py``: K1 forward, K2 backward)
+when there is no additive bias, no attention-weight dropout is drawn, q and
+k have one shape, no gradient flows through the caller
+(``frozen_fast_path``) or the packed backward covers the shape, and
 ``supports_packed`` holds — the JAX package's default dispatch. Everything
 else runs the eager path: fp32 logits, the key mask applied with
-where(..., -1e9), fp32 softmax, weights cast to the compute dtype.
+where(..., -1e9), fp32 softmax, weights cast to the compute dtype, then
+dropout on the weights in training.
 
-The port's modules are the inference forward of the JAX ones: dropout,
-batch-statistics BatchNorm and gradients come with the training path.
+Dropout runs where a ``generator`` is passed (training) and its rate is
+above 0, as flax's runs with a dropout key and ``deterministic=False``.
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from multimodalrouting_tpu_torch.models.layers import Dense
+from multimodalrouting_tpu_torch.models.layers import Dense, dropout
 from multimodalrouting_tpu_torch.ops import flash_packed
 from multimodalrouting_tpu_torch.ops.masked import NEG_INF
 
@@ -66,6 +68,8 @@ def attention(
     *,
     frozen_fast_path: bool,
     dtype: torch.dtype,
+    dropout_rate: float = 0.0,
+    generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
     """Attention core -> [N, Tq, D] in `dtype`, before the out-projection."""
     n, tq, d = qh.shape
@@ -73,6 +77,7 @@ def attention(
     head_dim = d // num_heads
     if (
         attn_bias is None
+        and (generator is None or dropout_rate == 0.0)
         and qh.shape == kh.shape
         and (frozen_fast_path or flash_packed.supports_packed_bwd(tq, head_dim))
         and flash_packed.supports_packed(tq, tk, head_dim, d, num_heads)
@@ -88,7 +93,7 @@ def attention(
     if kv_mask is not None:
         keep = kv_mask.bool()[:, None, None, :]
         logits = torch.where(keep, logits, torch.full_like(logits, NEG_INF))
-    weights = torch.softmax(logits, dim=-1).to(dtype)
+    weights = dropout(torch.softmax(logits, dim=-1).to(dtype), dropout_rate, generator)
     return torch.einsum("bhqk,bkhd->bqhd", weights, v4).reshape(n, tq, d)
 
 
@@ -96,19 +101,21 @@ class MultiheadAttention(nn.Module):
     """Batch-first MHA: q [B,Tq,D], k/v [B,Tk,D], kv_mask [B,Tk] (1 = keep),
     optional additive attn_bias [Tq,Tk]. q is scaled by head_dim**-0.5."""
 
-    def __init__(self, d: int, num_heads: int, frozen_fast_path: bool = False, dtype=torch.float32):
+    def __init__(self, d: int, num_heads: int, frozen_fast_path: bool = False, dropout: float = 0.0,
+                 dtype=torch.float32):
         super().__init__()
         if d % num_heads:
             raise ValueError(f"d={d} not divisible by heads={num_heads}")
         self.d, self.num_heads, self.dtype = d, num_heads, dtype
-        self.frozen_fast_path = frozen_fast_path
+        self.frozen_fast_path, self.dropout = frozen_fast_path, dropout
         for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
             setattr(self, name, Dense(d, d, dtype=dtype))
 
-    def forward(self, q, k, v, kv_mask=None, attn_bias=None) -> torch.Tensor:
+    def forward(self, q, k, v, kv_mask=None, attn_bias=None, generator=None) -> torch.Tensor:
         scaling = (self.d // self.num_heads) ** -0.5
         out = attention(
             self.q_proj(q) * scaling, self.k_proj(k), self.v_proj(v), kv_mask, attn_bias,
             self.num_heads, frozen_fast_path=self.frozen_fast_path, dtype=self.dtype,
+            dropout_rate=self.dropout, generator=generator,
         )
         return self.out_proj(out)

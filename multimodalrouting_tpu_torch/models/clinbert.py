@@ -6,49 +6,61 @@ GELU FFN), aggregated per chunk (cls / masked mean / masked max), projected
 with LayerNorm + Linear(hidden -> d, no bias) when hidden != d, zeroed on
 padded chunks and pooled over chunks. Under the frozen-body default the BERT
 runs under ``torch.no_grad`` and every attention layer is eligible for the
-packed kernel K1. A ``chunk_embs`` input (precomputed per-chunk embeddings)
-skips the body.
+packed kernel K1. Fine-tuned (``finetune_text``), the body trains through
+K1 and its backward K2 where the shape allows, with ``encoder.dropout``
+after the embeddings, the attention and the FFN in training (a
+``generator`` passed). A ``chunk_embs`` input (precomputed per-chunk
+embeddings) skips the body.
+
+Chunk packing (``note_pack`` > 0, the capacity the train loop computes,
+``train/loop.py:note_pack_bucket``): BERT sees only the valid chunks,
+gathered to a [note_pack, L] buffer, and their embeddings are scattered back
+to the [B*S] grid, where padded chunks are zeroed either way — the output is
+the same as without packing. The JAX package passes the capacity through a
+global context manager; here it is an argument.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
 from multimodalrouting_tpu_torch.models.attention import MultiheadAttention
-from multimodalrouting_tpu_torch.models.layers import Dense, Embed
+from multimodalrouting_tpu_torch.models.layers import Dense, Embed, dropout
 from multimodalrouting_tpu_torch.ops.gelu import apply_gelu
 from multimodalrouting_tpu_torch.ops.layernorm import LayerNorm, bert_layer_norm
 from multimodalrouting_tpu_torch.ops.masked import masked_max, masked_mean
 
 
 class BertSelfAttentionBlock(nn.Module):
-    def __init__(self, hidden: int, heads: int, frozen_fast_path: bool, ln: str, dtype):
+    def __init__(self, hidden: int, heads: int, frozen_fast_path: bool, ln: str, dtype, dropout: float = 0.0):
         super().__init__()
-        self.attn = MultiheadAttention(hidden, heads, frozen_fast_path=frozen_fast_path, dtype=dtype)
+        self.dropout = dropout
+        self.attn = MultiheadAttention(hidden, heads, frozen_fast_path=frozen_fast_path, dropout=dropout, dtype=dtype)
         self.ln = bert_layer_norm(ln, hidden, 1e-12, dtype)
 
-    def forward(self, x, attn_mask):
-        return self.ln(x + self.attn(x, x, x, kv_mask=attn_mask))
+    def forward(self, x, attn_mask, generator=None):
+        h = self.attn(x, x, x, kv_mask=attn_mask, generator=generator)
+        return self.ln(x + dropout(h, self.dropout, generator))
 
 
 class BertLayer(nn.Module):
     def __init__(
         self, hidden: int, heads: int, intermediate: int, frozen_fast_path: bool = False,
-        gelu: str = "erf", ln: str = "fp32", dtype=torch.float32,
+        gelu: str = "erf", ln: str = "fp32", dtype=torch.float32, dropout: float = 0.0,
     ):
         super().__init__()
-        self.gelu = gelu
-        self.attention = BertSelfAttentionBlock(hidden, heads, frozen_fast_path, ln, dtype)
+        self.gelu, self.dropout = gelu, dropout
+        self.attention = BertSelfAttentionBlock(hidden, heads, frozen_fast_path, ln, dtype, dropout)
         self.intermediate = Dense(hidden, intermediate, dtype=dtype)
         self.output = Dense(intermediate, hidden, dtype=dtype)
         self.ln = bert_layer_norm(ln, hidden, 1e-12, dtype)
 
-    def forward(self, x, attn_mask):
-        x = self.attention(x, attn_mask)
+    def forward(self, x, attn_mask, generator=None):
+        x = self.attention(x, attn_mask, generator)
         h = self.output(apply_gelu(self.intermediate(x), self.gelu))
-        return self.ln(x + h)
+        return self.ln(x + dropout(h, self.dropout, generator))
 
 
 class BertEncoder(nn.Module):
@@ -58,9 +70,10 @@ class BertEncoder(nn.Module):
         self, vocab_size: int = 28996, hidden: int = 768, layers: int = 12, heads: int = 12,
         intermediate: int = 3072, max_position: int = 512, type_vocab: int = 2,
         frozen_fast_path: bool = False, gelu: str = "erf", ln: str = "fp32", dtype=torch.float32,
+        dropout: float = 0.0,
     ):
         super().__init__()
-        self.layers = layers
+        self.layers, self.dropout = layers, dropout
         self.word_embeddings = Embed(vocab_size, hidden, dtype)
         self.position_embeddings = Embed(max_position, hidden, dtype)
         self.token_type_embeddings = Embed(type_vocab, hidden, dtype)
@@ -68,10 +81,10 @@ class BertEncoder(nn.Module):
         for i in range(layers):
             self.add_module(
                 f"layer_{i}",
-                BertLayer(hidden, heads, intermediate, frozen_fast_path, gelu, ln, dtype),
+                BertLayer(hidden, heads, intermediate, frozen_fast_path, gelu, ln, dtype, dropout),
             )
 
-    def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor, generator=None) -> torch.Tensor:
         _, length = input_ids.shape
         pos_ids = torch.arange(length, device=input_ids.device)[None, :]
         x = (
@@ -79,9 +92,9 @@ class BertEncoder(nn.Module):
             + self.position_embeddings(pos_ids)
             + self.token_type_embeddings(torch.zeros_like(input_ids))
         )
-        x = self.embed_ln(x)
+        x = dropout(self.embed_ln(x), self.dropout, generator)
         for i in range(self.layers):
-            x = getattr(self, f"layer_{i}")(x, attention_mask)
+            x = getattr(self, f"layer_{i}")(x, attention_mask, generator)
         return x
 
 
@@ -94,20 +107,22 @@ class BioClinBERTEncoder(nn.Module):
         finetune_text: bool = False, gelu: str = "erf", ln: str = "fp32",
         vocab_size: int = 28996, hidden: int = 768, layers: int = 12, heads: int = 12,
         intermediate: int = 3072, max_position: int = 512, type_vocab: int = 2,
-        dtype=torch.float32,
+        dtype=torch.float32, dropout: float = 0.0,
     ):
         super().__init__()
         self.d, self.hidden, self.dtype = d, hidden, dtype
         self.note_agg, self.chunk_agg, self.finetune_text = note_agg, chunk_agg, finetune_text
         self.bert = BertEncoder(
             vocab_size, hidden, layers, heads, intermediate, max_position, type_vocab,
-            frozen_fast_path=not finetune_text, gelu=gelu, ln=ln, dtype=dtype,
+            frozen_fast_path=not finetune_text, gelu=gelu, ln=ln, dtype=dtype, dropout=dropout,
         )
         if d != hidden:
             self.proj_ln = LayerNorm(hidden, 1e-5, dtype)
             self.proj = Dense(hidden, d, bias=False, dtype=dtype)
 
-    def forward(self, notes: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    def forward(
+        self, notes: Dict[str, torch.Tensor], generator: Optional[torch.Generator] = None, note_pack: int = 0,
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         input_ids = notes["input_ids"]
         attn = notes["attention_mask"]
         if input_ids.dim() == 2:
@@ -126,21 +141,28 @@ class BioClinBERTEncoder(nn.Module):
 
         flat_ids = input_ids.reshape(b * s, length)
         flat_attn = attn.reshape(b * s, length)
+        pack_idx = None
+        if 0 < note_pack < b * s:
+            # valid chunks first (stable), then the capacity's padded slots
+            pack_idx = torch.argsort(-chunk_mask.reshape(b * s), stable=True)[:note_pack]
+            flat_ids, flat_attn = flat_ids[pack_idx], flat_attn[pack_idx]
         with torch.set_grad_enabled(self.finetune_text and torch.is_grad_enabled()):
-            hidden = self.bert(flat_ids, flat_attn)  # [B*S, L, H]
+            hidden = self.bert(flat_ids, flat_attn, generator)  # [B*S or note_pack, L, H]
             if self.note_agg == "cls":
                 emb = hidden[:, 0]
             elif self.note_agg == "max":
                 emb = masked_max(hidden, flat_attn)
             else:
                 emb = masked_mean(hidden, flat_attn)
-        return self._project_and_pool(emb, chunk_mask, b, s)
+        return self._project_and_pool(emb, chunk_mask, b, s, pack_idx)
 
-    def _project_and_pool(self, emb, chunk_mask, b, s):
+    def _project_and_pool(self, emb, chunk_mask, b, s, pack_idx=None):
         if not self.finetune_text:
             emb = emb.detach()
         if self.d != self.hidden:
             emb = self.proj(self.proj_ln(emb))
+        if pack_idx is not None:  # back to the [B*S] grid; unwritten slots stay zero
+            emb = emb.new_zeros((b * s, emb.shape[-1])).index_copy(0, pack_idx, emb)
         h = emb.reshape(b, s, -1)
         h = h * chunk_mask[..., None].to(h.dtype)
         pooled = masked_max(h, chunk_mask) if self.chunk_agg == "max" else masked_mean(h, chunk_mask)

@@ -1,9 +1,17 @@
 """Chest X-ray image encoder (counterpart of multimodalrouting_tpu/models/cxr.py).
 
-ResNet-18/34 (BasicBlock) with BatchNorm (eval: running statistics, eps
-1e-5) or GroupNorm(32), a 14-class CheXpert head, the pooled projection and
-layer4 spatial tokens. Images enter NHWC [B,H,W,3] as in the JAX package;
-the convolutions run on the channels_last NCHW view of the same memory.
+ResNet-18/34 (BasicBlock) with BatchNorm or GroupNorm(32), a 14-class
+CheXpert head, the pooled projection and layer4 spatial tokens. Images enter
+NHWC [B,H,W,3] as in the JAX package; the convolutions run on the
+channels_last NCHW view of the same memory.
+
+BatchNorm follows flax's: at inference it normalises with the running
+statistics; in training with the batch's (float32, E[x^2] - E[x]^2 clipped
+at 0, eps 1e-5), and it computes the new running statistics with flax's rule
+(momentum 0.9 on the old value, the biased batch variance). Those are not
+written into the buffers during the forward: the module keeps them in
+``batch_update`` for the train step, which commits them only when the
+gradient is finite (``train/state.py:apply_gradients``).
 """
 from __future__ import annotations
 
@@ -46,8 +54,11 @@ class Conv(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """flax BatchNorm at inference: (x - mean) * (rsqrt(var + eps) * scale) + bias
-    in float32, cast to the compute dtype."""
+    """flax BatchNorm: (x - mean) * (rsqrt(var + eps) * scale) + bias in
+    float32, cast to the compute dtype; running statistics at inference,
+    batch statistics in training."""
+
+    MOMENTUM = 0.9
 
     def __init__(self, c: int, dtype, eps: float = 1e-5):
         super().__init__()
@@ -56,11 +67,21 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(c))
         self.register_buffer("running_var", torch.ones(c))
         self.eps, self.dtype = eps, dtype
+        self.batch_update = None  # (running_mean, running_var) after the last training forward
 
-    def forward(self, x):
-        return F.batch_norm(
-            x.float(), self.running_mean, self.running_var, self.weight, self.bias, False, 0.0, self.eps
-        ).to(self.dtype)
+    def forward(self, x, train: bool = False):
+        if not train:
+            return F.batch_norm(
+                x.float(), self.running_mean, self.running_var, self.weight, self.bias, False, 0.0, self.eps
+            ).to(self.dtype)
+        xf = x.float()
+        mean = xf.mean(dim=(0, 2, 3))
+        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        m = self.MOMENTUM
+        with torch.no_grad():
+            self.batch_update = (m * self.running_mean + (1 - m) * mean, m * self.running_var + (1 - m) * var)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return ((xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]).to(self.dtype)
 
 
 class GroupNorm(nn.Module):
@@ -73,7 +94,7 @@ class GroupNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(c))
         self.groups, self.eps, self.dtype = groups, eps, dtype
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         b, c, h, w = x.shape
         xf = x.float().reshape(b, self.groups, c // self.groups, h, w)
         mean = xf.mean(dim=(2, 3, 4), keepdim=True)
@@ -97,12 +118,12 @@ class BasicBlock(nn.Module):
             self.downsample_conv = Conv(c_in, filters, 1, stride, dtype)
             self.downsample_bn = _norm(norm, filters, dtype)
 
-    def forward(self, x):
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = self.bn2(self.conv2(y))
+    def forward(self, x, train: bool = False):
+        y = F.relu(self.bn1(self.conv1(x), train))
+        y = self.bn2(self.conv2(y), train)
         residual = x
         if hasattr(self, "downsample_conv"):
-            residual = self.downsample_bn(self.downsample_conv(x))
+            residual = self.downsample_bn(self.downsample_conv(x), train)
         return F.relu(residual + y)
 
 
@@ -125,11 +146,11 @@ class ResNet(nn.Module):
                 self.blocks.append(name)
                 c_in = filters
 
-    def forward(self, x):
-        x = F.relu(self.bn1(self.conv1(x.to(self.dtype))))
+    def forward(self, x, train: bool = False):
+        x = F.relu(self.bn1(self.conv1(x.to(self.dtype)), train))
         x = F.max_pool2d(x, 3, stride=2, padding=1)
         for name in self.blocks:
-            x = getattr(self, name)(x)
+            x = getattr(self, name)(x, train)
         return x.mean(dim=(2, 3)), x
 
 
@@ -149,9 +170,9 @@ class ImageEncoder(nn.Module):
         self.proj = Dense(c, d, dtype=dtype)
         self.token_proj = Dense(c, d, bias=False, dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    def forward(self, x: torch.Tensor, train: bool = False) -> Tuple[torch.Tensor, ...]:
         nchw = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-        feats, fmap = self.backbone(nchw)
+        feats, fmap = self.backbone(nchw, train)
         chexpert = self.chexpert_head(feats)
         pooled = self.proj(feats)
         b, c, h, w = fmap.shape

@@ -2,6 +2,11 @@
 (counterpart of multimodalrouting_tpu/models/full.py, CapsuleRoutingModel on
 its MULTRouter branch). Encoder outputs are sanitized (nan_to_num and a row
 norm clamp at 20) and absent modalities are zeroed and masked.
+
+``forward(batch, train=...)`` is JAX's ``apply(..., train=...)``: in training
+the dropouts draw from the ``generator`` it is given, BatchNorm uses batch
+statistics and the output carries the new running statistics in
+``batch_stats`` (state_dict keys), for the train step to commit.
 """
 from __future__ import annotations
 
@@ -42,6 +47,7 @@ class ModelOutput(NamedTuple):
     route_embs: Optional[Dict[str, torch.Tensor]] = None
     pooled: Optional[Dict[str, torch.Tensor]] = None
     chexpert_logits: Optional[torch.Tensor] = None
+    batch_stats: Optional[Dict[str, torch.Tensor]] = None  # training: new BatchNorm running statistics
 
 
 def _sanitize(x: torch.Tensor, max_norm: float = 20.0) -> torch.Tensor:
@@ -72,16 +78,17 @@ class TriEncoder(nn.Module):
             gelu=e.bert_gelu, ln=e.bert_ln, vocab_size=e.bert_vocab_size, hidden=e.bert_hidden,
             layers=e.bert_layers, heads=e.bert_heads, intermediate=e.bert_intermediate,
             max_position=e.bert_max_position, type_vocab=e.bert_type_vocab, dtype=dtype,
+            dropout=e.dropout,
         )
         self.imgenc = ImageEncoder(
             d=e.d, vision_backbone=e.vision_backbone, vision_num_classes=e.vision_num_classes,
             norm_kind=e.vision_norm, dtype=dtype,
         )
 
-    def forward(self, batch: Batch) -> EncodedModalities:
-        l_seq, l_mask, l_pool = self.behrt(batch.x_struct, batch.m_struct)
-        n_seq, n_mask, n_pool = self.bbert(batch.notes_dict())
-        i_seq, i_mask, i_pool, chexpert = self.imgenc(normalize_pixels(batch.image, batch.has_i))
+    def forward(self, batch: Batch, train: bool = False, generator=None, note_pack: int = 0) -> EncodedModalities:
+        l_seq, l_mask, l_pool = self.behrt(batch.x_struct, batch.m_struct, generator)
+        n_seq, n_mask, n_pool = self.bbert(batch.notes_dict(), generator, note_pack)
+        i_seq, i_mask, i_pool, chexpert = self.imgenc(normalize_pixels(batch.image, batch.has_i), train)
 
         def gate(seq, mask, pool, has):
             h = has.to(seq.dtype)
@@ -120,7 +127,8 @@ class CapsuleRoutingModel(nn.Module):
         self.mult = MULTRouter(
             d_enc, d_enc, d_enc, d=m.d, num_heads=m.mult_heads, layers=m.mult_layers,
             self_layers=m.mult_self_layers, attn_mask=m.attn_mask, pool=m.mult_pool,
-            positions=m.mult_positions, dtype=dtype,
+            positions=m.mult_positions, dtype=dtype, attn_dropout=m.attn_dropout,
+            relu_dropout=m.relu_dropout, res_dropout=m.res_dropout, embed_dropout=m.embed_dropout,
         )
         self.projector = RoutePrimaryProjector(
             self.routes, d_in=m.d, pc_dim=m.pc_dim,
@@ -134,23 +142,37 @@ class CapsuleRoutingModel(nn.Module):
             routing_mode="sigmoid_routes" if m.capsule_act_type == "sigmoid_gate" else "softmax_out",
             act_type="ONES" if m.capsule_act_type != "EM" else "EM",
             uniform_routing=m.uniform_routing, gate_temp=m.gate_temp, gate_min=m.gate_min,
-            gate_max=m.gate_max, dtype=dtype,
+            gate_max=m.gate_max, dropout_rate=m.capsule_dropout, dtype=dtype,
         )
 
-    def forward(self, batch: Batch, route_mask: Optional[torch.Tensor] = None) -> ModelOutput:
-        """Inference forward; the route mask defaults to modality presence."""
+    def forward(
+        self,
+        batch: Batch,
+        train: bool = False,
+        route_mask: Optional[torch.Tensor] = None,
+        detach_priors: Optional[bool] = None,
+        act_temperature=None,
+        generator: Optional[torch.Generator] = None,
+        note_pack: int = 0,
+    ) -> ModelOutput:
+        """`train` selects the training forward (as JAX's apply); the route
+        mask defaults to modality presence; `detach_priors` and `act_temperature` override the config
+        (the train loop's warm-up and anneal); `note_pack` is the chunk-packing
+        capacity (0: off). Dropout draws from `generator` in training only."""
         m = self.cfg.model
-        enc = self.encoders(batch)
+        gen = generator if train else None
+        enc = self.encoders(batch, train, gen, note_pack)
         if route_mask is None:
             route_mask = route_mask_from_presence(batch.has_l, batch.has_n, batch.has_i, self.routes)
-        route_embs = self.mult(enc.l_seq, enc.n_seq, enc.i_seq, enc.l_mask, enc.n_mask, enc.i_mask)
+        route_embs = self.mult(enc.l_seq, enc.n_seq, enc.i_seq, enc.l_mask, enc.n_mask, enc.i_mask, generator=gen)
         poses, acts = self.projector(route_embs)
         priors = compose_priors(
-            acts, route_mask=route_mask, act_temperature=m.act_temperature,
+            acts, route_mask=route_mask,
+            act_temperature=m.act_temperature if act_temperature is None else act_temperature,
             prior_floor=m.route_prior_floor, prior_ceiling=m.route_prior_ceiling,
-            detach=m.detach_priors,
+            detach=m.detach_priors if detach_priors is None else detach_priors,
         )
-        out = self.capsule_head(poses, priors, route_mask=route_mask)
+        out = self.capsule_head(poses, priors, route_mask=route_mask, generator=gen)
         return ModelOutput(
             logits=out.logits.float(),
             alpha=out.alpha.float(),
@@ -158,7 +180,20 @@ class CapsuleRoutingModel(nn.Module):
             route_embs=route_embs,
             pooled={"L": enc.l_pool, "N": enc.n_pool, "I": enc.i_pool},
             chexpert_logits=enc.chexpert_logits.float(),
+            batch_stats=collect_batch_stats(self) if train else None,
         )
+
+
+def collect_batch_stats(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """The new BatchNorm running statistics of the last training forward,
+    by state_dict key (empty for GroupNorm models)."""
+    out = {}
+    for name, mod in model.named_modules():
+        update = getattr(mod, "batch_update", None)
+        if update is not None:
+            out[f"{name}.running_mean"], out[f"{name}.running_var"] = update
+            mod.batch_update = None
+    return out
 
 
 def resolve_device(device) -> torch.device:
@@ -170,10 +205,12 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def build_model(cfg: Config, family: str = "capsule", *, device="cuda") -> CapsuleRoutingModel:
-    """The inference model on `device`, in eval mode. Under the frozen-text
-    default with bf16 compute the BERT body is held in bf16 (output-identical:
-    the compute casts it to bf16 at every use anyway)."""
+def build_model(cfg: Config, family: str = "capsule", *, device="cuda", train: bool = False) -> CapsuleRoutingModel:
+    """The model on `device`, in eval mode, or in train mode with `train`.
+    Parameters are fp32 masters; only under the frozen-text default with bf16
+    compute is the BERT body held in bf16 (output-identical: the compute casts
+    it to bf16 at every use anyway), and it then takes no gradient (JAX
+    state.py:151-168)."""
     if family != "capsule":
         raise NotImplementedError(f"family {family!r} is not ported yet (ROADMAP.md, modules still to port)")
     e = cfg.encoder
@@ -181,6 +218,8 @@ def build_model(cfg: Config, family: str = "capsule", *, device="cuda") -> Capsu
         raise NotImplementedError("int8 and pipelined BERT bodies are not ported yet (ROADMAP.md)")
     dev = resolve_device(device)
     model = CapsuleRoutingModel(cfg)
-    if e.frozen_text_bf16 and not e.finetune_text and compute_dtype(cfg) == torch.bfloat16:
-        model.encoders.bbert.bert.to(torch.bfloat16)
-    return model.to(dev).eval()
+    if not e.finetune_text:
+        model.encoders.bbert.bert.requires_grad_(False)
+        if e.frozen_text_bf16 and compute_dtype(cfg) == torch.bfloat16:
+            model.encoders.bbert.bert.to(torch.bfloat16)
+    return model.to(dev).train(train)

@@ -6,8 +6,11 @@ so a float32 model and a bfloat16 one share one state_dict; a parameter
 stored in the compute dtype already (the frozen BERT body) is used as is.
 ``StackedDense`` holds G independent Dense layers as one [G, in, out] weight
 in the JAX layout, applied to a leading stream axis with one batched matmul.
+``dropout`` is flax's nn.Dropout, drawing from an explicit generator.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -55,3 +58,16 @@ class StackedDense(nn.Module):
         flat = x.to(dt).reshape(g, -1, x.shape[-1])
         y = torch.baddbmm(self.bias.to(dt)[:, None, :], flat, self.kernel.to(dt))
         return y.reshape(*x.shape[:-1], -1)
+
+
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax nn.Dropout in train mode: keep each value with probability
+    1 - rate and scale the kept ones by 1 / (1 - rate), in x's dtype. The
+    identity when rate is 0 or no generator is given (inference)."""
+    if rate <= 0.0 or generator is None:
+        return x
+    keep_p = 1.0 - rate
+    if keep_p <= 0.0:
+        return torch.zeros_like(x)
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_p
+    return torch.where(keep, x / keep_p, torch.zeros_like(x))

@@ -8,7 +8,10 @@ attention core runs on the flattened [G*B] batch through the shared dispatch
 point. Per stream: inputs scaled by sqrt(d) plus sinusoidal positions,
 pre-LN layers whose query LayerNorm is reused on cross keys/values, rows
 under the query mask zeroed after every block, ReLU FFN of width 4d, final
-LayerNorm.
+LayerNorm. In training (a ``generator`` passed) the MulT dropouts run at
+the JAX package's sites: embed_dropout on the embedded inputs,
+attn_dropout on the attention weights, res_dropout on each block's output
+before the residual add, relu_dropout after the FFN's ReLU.
 """
 from __future__ import annotations
 
@@ -19,7 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from multimodalrouting_tpu_torch.models.attention import attention, future_mask, sinusoidal_positions
-from multimodalrouting_tpu_torch.models.layers import StackedDense
+from multimodalrouting_tpu_torch.models.layers import StackedDense, dropout
 from multimodalrouting_tpu_torch.ops.layernorm import layer_norm
 
 
@@ -38,13 +41,13 @@ class StackedLayerNorm(nn.Module):
 
 
 class StackedMultiheadAttention(nn.Module):
-    def __init__(self, g: int, d: int, num_heads: int, dtype):
+    def __init__(self, g: int, d: int, num_heads: int, dtype, attn_dropout: float = 0.0):
         super().__init__()
-        self.d, self.num_heads, self.dtype = d, num_heads, dtype
+        self.d, self.num_heads, self.dtype, self.attn_dropout = d, num_heads, dtype, attn_dropout
         for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
             setattr(self, name, StackedDense(g, d, d, dtype))
 
-    def forward(self, q, k, v, kv_mask=None, attn_bias=None):
+    def forward(self, q, k, v, kv_mask=None, attn_bias=None, generator=None):
         """q [G,B,Tq,d], k/v [G,B,Tk,d], kv_mask [G,B,Tk]."""
         g, b, tq, d = q.shape
         tk = k.shape[2]
@@ -55,21 +58,23 @@ class StackedMultiheadAttention(nn.Module):
             self.v_proj(v).reshape(g * b, tk, d),
             None if kv_mask is None else kv_mask.reshape(g * b, tk),
             attn_bias, self.num_heads, frozen_fast_path=False, dtype=self.dtype,
+            dropout_rate=self.attn_dropout, generator=generator,
         )
         return self.out_proj(out.reshape(g, b, tq, d))
 
 
 class StackedMulTEncoderLayer(nn.Module):
-    def __init__(self, g: int, d: int, num_heads: int, causal: bool, dtype):
+    def __init__(self, g: int, d: int, num_heads: int, causal: bool, dtype, attn_dropout: float = 0.0,
+                 relu_dropout: float = 0.0, res_dropout: float = 0.0):
         super().__init__()
-        self.causal = causal
+        self.causal, self.relu_dropout, self.res_dropout = causal, relu_dropout, res_dropout
         self.ln0 = StackedLayerNorm(g, d, dtype)
         self.ln1 = StackedLayerNorm(g, d, dtype)
-        self.attn = StackedMultiheadAttention(g, d, num_heads, dtype)
+        self.attn = StackedMultiheadAttention(g, d, num_heads, dtype, attn_dropout)
         self.fc1 = StackedDense(g, d, 4 * d, dtype)
         self.fc2 = StackedDense(g, 4 * d, d, dtype)
 
-    def forward(self, x, x_k=None, x_v=None, q_mask=None, kv_mask=None):
+    def forward(self, x, x_k=None, x_v=None, q_mask=None, kv_mask=None, generator=None):
         q_keep = None if q_mask is None else q_mask.to(x.dtype)[..., None]
         cross = x_k is not None
         key_mask = kv_mask if cross else q_mask
@@ -83,7 +88,8 @@ class StackedMulTEncoderLayer(nn.Module):
         else:
             k = v = h
         bias = future_mask(h.shape[-2], k.shape[-2]) if self.causal else None
-        x = residual + self.attn(h, k, v, kv_mask=key_mask, attn_bias=bias)
+        h = self.attn(h, k, v, kv_mask=key_mask, attn_bias=bias, generator=generator)
+        x = residual + dropout(h, self.res_dropout, generator)
         if q_keep is not None:
             x = x * q_keep
 
@@ -91,7 +97,8 @@ class StackedMulTEncoderLayer(nn.Module):
         h = self.ln1(x)
         if q_keep is not None:
             h = h * q_keep
-        x = residual + self.fc2(F.relu(self.fc1(h)))
+        h = dropout(F.relu(self.fc1(h)), self.relu_dropout, generator)
+        x = residual + dropout(self.fc2(h), self.res_dropout, generator)
         if q_keep is not None:
             x = x * q_keep
         return x
@@ -101,28 +108,33 @@ class StackedMulTEncoder(nn.Module):
     """G MulT stacks over [G, B, T, d] streams (self- or cross-attention)."""
 
     def __init__(self, g: int, d: int, num_heads: int, layers: int, causal: bool = False,
-                 positions: str = "sinusoidal", dtype=torch.float32):
+                 positions: str = "sinusoidal", dtype=torch.float32, attn_dropout: float = 0.0,
+                 relu_dropout: float = 0.0, res_dropout: float = 0.0, embed_dropout: float = 0.0):
         super().__init__()
         self.d, self.layers, self.dtype, self.positions = d, layers, dtype, positions
+        self.embed_dropout = embed_dropout
         for i in range(layers):
-            self.add_module(f"layer_{i}", StackedMulTEncoderLayer(g, d, num_heads, causal, dtype))
+            self.add_module(
+                f"layer_{i}",
+                StackedMulTEncoderLayer(g, d, num_heads, causal, dtype, attn_dropout, relu_dropout, res_dropout),
+            )
         self.final_ln = StackedLayerNorm(g, d, dtype)
 
-    def _embed(self, seq):
+    def _embed(self, seq, generator):
         h = (math.sqrt(self.d) * seq.float()).to(self.dtype)
         pos = sinusoidal_positions(seq.shape[-2], self.d, dtype=self.dtype, quantized=self.positions == "ref_quantized")
-        return h + pos.to(h.device)
+        return dropout(h + pos.to(h.device), self.embed_dropout, generator)
 
-    def forward(self, x_in, x_in_k=None, x_in_v=None, q_mask=None, kv_mask=None):
-        x = self._embed(x_in)
+    def forward(self, x_in, x_in_k=None, x_in_v=None, q_mask=None, kv_mask=None, generator=None):
+        x = self._embed(x_in, generator)
         if q_mask is not None:
             x = x * q_mask.to(x.dtype)[..., None]
         cross = x_in_k is not None and x_in_v is not None
-        x_k = self._embed(x_in_k) if cross else None
-        x_v = self._embed(x_in_v) if cross else None
+        x_k = self._embed(x_in_k, generator) if cross else None
+        x_v = self._embed(x_in_v, generator) if cross else None
         for i in range(self.layers):
             x = getattr(self, f"layer_{i}")(
-                x, x_k, x_v, q_mask=q_mask, kv_mask=kv_mask if cross else q_mask
+                x, x_k, x_v, q_mask=q_mask, kv_mask=kv_mask if cross else q_mask, generator=generator
             )
         x = self.final_ln(x)
         if q_mask is not None:

@@ -5,8 +5,10 @@ Counterpart of multimodalrouting_tpu/ops/pallas_capsule.py. The kernel
 its softmax_out / ONES mode with the votes of a batch row resident in shared
 memory across iterations. ``capsule_routing_fused`` launches it on CUDA
 tensors (or raises) and runs ``capsule_routing_reference``, the plain
-version, on CPU tensors. Forward-only: the gradient comes with the training
-path.
+version, on CPU tensors. Under a gradient it goes through
+``FusedCapsuleRouting``, an autograd Function with that forward whose
+backward recomputes the plain program under autograd and returns its VJP,
+as pallas_capsule.py does: the JAX package has no backward kernel for K3.
 """
 from __future__ import annotations
 
@@ -23,6 +25,29 @@ def capsule_routing_reference(pose, act, w, num_iters: int) -> Tuple[torch.Tenso
     return routing_plain(pose, act, w, num_iters, mode="softmax_out", act_type="ONES")
 
 
+class FusedCapsuleRouting(torch.autograd.Function):
+    """K3 forward; backward = the VJP of the plain program, recomputed."""
+
+    @staticmethod
+    def forward(ctx, pose, act, w, num_iters: int):
+        ctx.save_for_backward(pose, act, w)
+        ctx.num_iters = num_iters
+        if pose.device.type == "cpu":
+            return capsule_routing_reference(pose, act, w, num_iters)
+        return _launch(pose, act, w, num_iters)
+
+    @staticmethod
+    def backward(ctx, *cotangents):
+        inputs = [x.detach().requires_grad_(x.requires_grad) for x in ctx.saved_tensors]
+        wanted = [x for x in inputs if x.requires_grad]
+        with torch.enable_grad():
+            outs = capsule_routing_reference(*inputs, ctx.num_iters)
+            # the decision act (all ones under ONES) depends on no input
+            live = [(o, c) for o, c in zip(outs, cotangents) if o.requires_grad]
+            grads = iter(torch.autograd.grad([o for o, _ in live], wanted, [c for _, c in live], allow_unused=True))
+        return tuple(next(grads) if x.requires_grad else None for x in inputs) + (None,)
+
+
 def capsule_routing_fused(
     pose: torch.Tensor,  # [B, N, A]
     act: torch.Tensor,  # [B, N]
@@ -30,12 +55,17 @@ def capsule_routing_fused(
     num_iters: int = 3,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """-> (decision pose [B,M,D], decision act [B,M], coef [B,N,M]), fp32."""
+    if torch.is_grad_enabled() and (pose.requires_grad or act.requires_grad or w.requires_grad):
+        return FusedCapsuleRouting.apply(pose, act, w, int(num_iters))
     if pose.device.type == "cpu":
         return capsule_routing_reference(pose, act, w, num_iters)
+    return _launch(pose, act, w, num_iters)
+
+
+def _launch(pose, act, w, num_iters: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K3 on CUDA tensors (or raises)."""
     if not pose.is_cuda:
         raise ValueError(f"capsule routing runs on CUDA or CPU tensors, got {pose.device}")
-    if torch.is_grad_enabled() and (pose.requires_grad or act.requires_grad or w.requires_grad):
-        raise RuntimeError("the fused capsule kernel is forward-only: call it under torch.no_grad()")
     b, n, a = pose.shape
     n_w, a_w, m, d = w.shape
     if (n_w, a_w) != (n, a) or tuple(act.shape) != (b, n):

@@ -13,6 +13,7 @@ all started together) for callers that want the build up front.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -23,7 +24,7 @@ from typing import Dict, Sequence
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "kernels")
-SOURCES = ("packed_attention", "capsule_routing")
+SOURCES = ("packed_attention", "packed_attention_bwd", "capsule_routing")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -36,8 +37,12 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _SIGNATURES = {
     "packed_attention": {
-        name: (_I, [_PTR, _PTR, _PTR, _PTR, _PTR, _I, _I, _I, _I] + [_LL] * 8 + [_PTR])
+        name: (_I, [_PTR] * 6 + [_I] * 4 + [_LL] * 8 + [_PTR])
         for name in ("packed_attention_bf16", "packed_attention_f32")
+    },
+    "packed_attention_bwd": {
+        name: (_I, [_PTR] * 10 + [_I] * 4 + [_LL] * 10 + [_PTR])
+        for name in ("packed_attention_bwd_bf16", "packed_attention_bwd_f32")
     },
     "capsule_routing": {"capsule_routing_f32": (_I, [_PTR] * 6 + [_I] * 6 + [_PTR])},
 }
@@ -51,9 +56,13 @@ def _nvcc() -> str:
 
 
 def lib_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    """The library's path, named by a hash of its source, the shared headers
+    (``csrc/*.cuh``) and the flags."""
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for path in [os.path.join(CSRC_DIR, f"{name}.cu")] + sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
 
 
 def build(names: Sequence[str] = SOURCES) -> float:

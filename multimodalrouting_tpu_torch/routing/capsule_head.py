@@ -103,8 +103,10 @@ class CapsuleHead(nn.Module):
     def __init__(self, num_routes: int, pc_dim: int, mc_caps_dim: int, num_classes: int,
                  num_routing: int = 3, head_style: str = "rmatrix", routing_mode: str = "softmax_out",
                  act_type: str = "ONES", uniform_routing: bool = False, gate_temp: float = 1.0,
-                 gate_min: float = 0.0, gate_max: float = 1.0, dtype=torch.float32):
+                 gate_min: float = 0.0, gate_max: float = 1.0, dropout_rate: float = 0.0,
+                 dtype=torch.float32):
         super().__init__()
+        self.dropout_rate = dropout_rate  # model.capsule_dropout, decision poses, training only
         if head_style not in ("rmatrix", "class_linear", "class_embed"):
             raise ValueError(f"Unknown head_style {head_style!r}")
         self.num_routes, self.num_routing, self.head_style = num_routes, num_routing, head_style
@@ -120,7 +122,7 @@ class CapsuleHead(nn.Module):
             self.embedding = nn.Parameter(torch.zeros(num_classes, mc_caps_dim))
             self.bias = nn.Parameter(torch.zeros(num_classes))
 
-    def forward(self, poses, priors, route_mask=None) -> CapsuleHeadOut:
+    def forward(self, poses, priors, route_mask=None, generator=None) -> CapsuleHeadOut:
         b, r, _ = poses.shape
         if r != self.num_routes:
             raise ValueError(f"poses has {r} routes, head expects {self.num_routes}")
@@ -144,7 +146,8 @@ class CapsuleHead(nn.Module):
         out = capsule_routing(
             poses, routing_act, self.w.to(dt), self.num_routing, mode=self.routing_mode,
             act_type=self.act_type, uniform_routing=self.uniform_routing, gate_temp=self.gate_temp,
-            gate_min=self.gate_min, gate_max=self.gate_max,
+            gate_min=self.gate_min, gate_max=self.gate_max, dropout_rate=self.dropout_rate,
+            generator=generator,
         )
         alpha = priors[..., 0]
         r_matrix = route_given_label(out.coef, route_mask=rm)

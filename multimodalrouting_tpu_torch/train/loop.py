@@ -1,0 +1,216 @@
+"""Epoch-level training driver for the capsule family on one device over a
+dense split (counterpart of multimodalrouting_tpu/train/loop.py:32-87 and
+:372-572).
+
+Weighted positive sampling (sqrt-clipped) with the JAX package's numpy
+sample order from ``train.seed``, optional chunk bucketing, the chunk-pack
+capacity per batch, encoder LR warm-up, detach-priors epochs, the
+act-temperature anneal, ReduceLROnPlateau on validation AUROC, early
+stopping, EMA evaluation, best / best_f1 / last / final checkpoints
+(``ckpt.py``: EMA weights as the serving weights) and post-training
+temperature and threshold calibration.
+
+Not ported: meshes, streaming splits, the frozen-BERT embedding cache and
+the reliability plot (ROADMAP.md); the first three raise.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from multimodalrouting_tpu_torch.ckpt import save_checkpoint
+from multimodalrouting_tpu_torch.configs import Config
+from multimodalrouting_tpu_torch.data.batches import Batch, batch_to
+from multimodalrouting_tpu_torch.metrics.calibration import find_best_thresholds, fit_temperature
+from multimodalrouting_tpu_torch.metrics.classification import epoch_metrics
+from multimodalrouting_tpu_torch.serve import probs_from_logits
+from multimodalrouting_tpu_torch.train.state import TrainState, create_train_state, serving_state_dict
+from multimodalrouting_tpu_torch.train.steps import make_eval_step, make_train_step
+
+
+def weighted_sample_order(y: np.ndarray, rng: np.random.Generator, mode: str = "sqrt") -> np.ndarray:
+    """WeightedRandomSampler equivalent: positives up-weighted by
+    clip(sqrt(neg / pos), 1, 5), drawn with replacement."""
+    n = len(y)
+    y_bin = np.asarray(y).reshape(n, -1)[:, 0] > 0.5
+    if mode in ("none", "", "pos_weight"):
+        return rng.permutation(n)
+    pos = max(int(y_bin.sum()), 1)
+    neg = max(n - pos, 1)
+    w_pos = float(np.clip(np.sqrt(neg / pos), 1.0, 5.0))
+    weights = np.where(y_bin, w_pos, 1.0)
+    weights = weights / weights.sum()
+    return rng.choice(n, size=n, replace=True, p=weights)
+
+
+def chunk_bucketed_order(order: np.ndarray, chunk_mask: np.ndarray, batch_size: int, rng: np.random.Generator):
+    """Regroup a sampled order so each batch has homogeneous note-chunk
+    counts (the same sampled multiset), then shuffle the batch order."""
+    counts = np.asarray(chunk_mask).sum(axis=1)[order]
+    regrouped = order[np.argsort(counts, kind="stable")]
+    n_full = (len(order) // batch_size) * batch_size
+    batches = regrouped[:n_full].reshape(-1, batch_size)
+    perm = rng.permutation(len(batches))
+    return np.concatenate([batches[perm].reshape(-1), regrouped[n_full:]])
+
+
+def note_pack_bucket(cfg: Config, batch: Batch) -> int:
+    """Chunk-pack capacity for this batch (0 = packing off): covers every
+    valid chunk, rounded up to a grid of max(16, total / 8)."""
+    if batch.note_chunk_embs is not None or not cfg.encoder.note_pack or batch.chunk_mask is None:
+        return 0
+    cm = np.asarray(batch.chunk_mask)
+    total = int(cm.size)
+    g = max(16, total // 8)
+    cap = int(np.ceil(max(int(cm.sum()), 1) / g) * g)
+    return 0 if cap >= total else cap
+
+
+@dataclasses.dataclass
+class TrainResult:
+    state: TrainState
+    history: List[Dict[str, float]]
+    best_metric: float
+    thresholds: Optional[np.ndarray]
+    temperature: float
+
+
+def _take(cohort: Batch, idx) -> Batch:
+    return Batch(*(None if v is None else v[idx] for v in cohort))
+
+
+def predict_probs(eval_step, state: TrainState, cohort: Batch, batch_size: int, task: str) -> np.ndarray:
+    """Full-split inference in slices of `batch_size` -> probabilities."""
+    dev = next(state.model.parameters()).device
+    probs = []
+    for start in range(0, cohort.batch_size, batch_size):
+        out = eval_step(state, batch_to(_take(cohort, slice(start, start + batch_size)), dev))
+        probs.append(probs_from_logits(out.logits.cpu().numpy(), task))
+    return np.concatenate(probs, 0)
+
+
+def train_model(
+    cfg: Config,
+    model,
+    train_cohort: Batch,
+    val_cohort: Batch,
+    *,
+    family: str = "capsule",
+    state: Optional[TrainState] = None,
+    log_fn: Callable[[str], None] = print,
+    ckpt_dir: Optional[str] = None,
+) -> TrainResult:
+    """Train `model` (from ``build_model(..., train=True)``, on its device)
+    on numpy cohorts; checkpoints go to ``ckpt_dir/<best|best_f1|last|final>``."""
+    t, m = cfg.train, cfg.model
+    if t.num_data_shards * t.num_model_shards > 1:
+        raise NotImplementedError("device meshes are not ported yet (ROADMAP.md)")
+    if hasattr(train_cohort, "epoch_iter"):
+        raise NotImplementedError("streaming splits are not ported yet (ROADMAP.md)")
+    if cfg.encoder.text_embedding_cache:
+        raise NotImplementedError("the frozen-BERT embedding cache is not ported yet (ROADMAP.md)")
+    rng = np.random.default_rng(t.seed)
+    dev = next(model.parameters()).device
+    generator = torch.Generator(device=dev).manual_seed(t.seed)
+    if state is None:
+        state = create_train_state(cfg, model)
+    train_step = make_train_step(cfg, model, family)
+    eval_step = make_eval_step(cfg, model, family, use_ema=t.use_ema)
+
+    n_train = train_cohort.batch_size
+    if t.max_train_patients > 0:
+        n_train = min(n_train, t.max_train_patients)
+    steps_per_epoch = max(n_train // t.batch_size, 1)
+
+    def save(name: str, **meta) -> None:
+        save_checkpoint(os.path.join(ckpt_dir, name), serving_state_dict(state), cfg, **meta)
+
+    lr_scale = 1.0
+    best_metric, best_epoch, best_f1 = -np.inf, -1, -np.inf
+    plateau_count = 0
+    history: List[Dict[str, float]] = []
+    for epoch in range(state.step // steps_per_epoch, t.epochs):
+        order = weighted_sample_order(np.asarray(train_cohort.y)[:n_train], rng, mode=t.sampler_mode)
+        if t.chunk_bucketing and train_cohort.chunk_mask is not None:
+            order = chunk_bucketed_order(order, np.asarray(train_cohort.chunk_mask), t.batch_size, rng)
+        lr_enc = 0.0 if epoch < t.encoder_warmup_epochs else t.encoder_lr * lr_scale
+        detach = epoch < t.detach_priors_epochs
+        act_temp = None
+        if m.act_temperature_start > 0 and m.act_temperature_epochs > 0:
+            frac = min(epoch / max(m.act_temperature_epochs, 1), 1.0)
+            act_temp = torch.tensor(
+                m.act_temperature_start + frac * (m.act_temperature - m.act_temperature_start), device=dev
+            )
+        t0 = time.perf_counter()
+        losses, skipped, alpha_mean = [], 0, None
+        for s in range(steps_per_epoch):
+            sub = _take(train_cohort, order[s * t.batch_size : (s + 1) * t.batch_size])
+            metrics = train_step(
+                state, batch_to(sub, dev), generator, t.lr * lr_scale, lr_enc,
+                detach_priors=detach, act_temperature=act_temp, note_pack=note_pack_bucket(cfg, sub),
+            )
+            losses.append(float(metrics.loss))
+            skipped += int(not metrics.grad_finite)
+            if t.log_every > 0 and len(losses) % t.log_every == 0:
+                log_fn(f"[epoch {epoch:03d} step {len(losses)}/{steps_per_epoch}] "
+                       f"loss={np.mean(losses[-t.log_every:]):.4f}")
+            alpha_mean = metrics.alpha_mean
+        dt = time.perf_counter() - t0
+        if alpha_mean is not None and float(alpha_mean.max()) > 0.95:
+            a = alpha_mean.cpu().numpy()
+            log_fn(f"[ROUTE HEALTH] collapse alarm: max mean route activation {a.max():.3f} "
+                   f"(alpha={np.round(a, 3).tolist()})")
+
+        probs = predict_probs(eval_step, state, val_cohort, t.batch_size, m.task)
+        val_m = epoch_metrics(np.asarray(val_cohort.y)[: len(probs)], probs)
+        monitor = val_m.get("auroc", val_m.get("auroc_macro", 0.0))
+        if np.isnan(monitor):
+            monitor = 0.0
+        row = {"epoch": epoch, "train_loss": float(np.mean(losses)), "val_auroc": float(monitor),
+               "lr_scale": lr_scale, "skipped_steps": skipped, "sec": dt}
+        history.append(row)
+        log_fn(f"[epoch {epoch:03d}] loss={row['train_loss']:.4f} val_auroc={monitor:.4f} "
+               f"lr_scale={lr_scale:.3f} ({dt:.1f}s, {skipped} skipped)")
+
+        checkpoints = ckpt_dir and t.ckpt_every > 0
+        if monitor > best_metric + 1e-6:
+            best_metric, best_epoch, plateau_count = monitor, epoch, 0
+            if checkpoints:
+                save("best")
+        else:
+            plateau_count += 1
+            if plateau_count >= t.plateau_patience:
+                lr_scale *= t.plateau_factor
+                plateau_count = 0
+                log_fn(f"[plateau] lr_scale -> {lr_scale:.4f}")
+        val_f1 = float(val_m.get("f1", val_m.get("f1_macro", 0.0)))
+        if np.isfinite(val_f1) and val_f1 > best_f1 + 1e-6:
+            best_f1 = val_f1
+            if checkpoints:
+                save("best_f1")
+        if checkpoints and (epoch + 1) % t.ckpt_every == 0:
+            save("last")
+        if epoch >= t.min_epochs and epoch - best_epoch >= t.early_stop_patience:
+            log_fn(f"[early stop] epoch {epoch}, best {best_metric:.4f} @ {best_epoch}")
+            break
+
+    # post-training calibration on the validation split
+    probs = predict_probs(eval_step, state, val_cohort, t.batch_size, m.task)
+    y_val = np.asarray(val_cohort.y)[: len(probs)]
+    eps = 1e-7
+    logits_val = np.log(np.clip(probs, eps, 1 - eps)) - np.log1p(-np.clip(probs, eps, 1 - eps))
+    if y_val.ndim == 1:
+        temperature = fit_temperature(logits_val, y_val)
+        ths, _ = find_best_thresholds(y_val, 1 / (1 + np.exp(-logits_val / temperature)))
+    else:
+        temperature = 1.0
+        ths, _ = find_best_thresholds(y_val, probs, beta=2.0 if m.task == "pheno" else 1.0)
+    if ckpt_dir:
+        save("final", temperature=float(temperature), thresholds=ths.ravel())
+    return TrainResult(state=state, history=history, best_metric=float(best_metric), thresholds=ths,
+                       temperature=float(temperature))

@@ -1,0 +1,84 @@
+"""The capsule family's loss terms (counterpart of
+multimodalrouting_tpu/train/losses.py:26-124): BCE over logits with
+pos_weight, label smoothing and sample weights, focal BCE, the death-logit
+contrast, the clamped pos_weight and the routing regularizers. All in fp32.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+
+def bce_with_logits(
+    logits: torch.Tensor,
+    targets: torch.Tensor,
+    *,
+    pos_weight: Optional[torch.Tensor] = None,
+    label_smoothing: float = 0.0,
+    sample_weight: Optional[torch.Tensor] = None,
+    reduce: bool = True,
+) -> torch.Tensor:
+    """Binary cross-entropy over logits with an optional per-label pos_weight
+    and label smoothing y' = y (1 - s) + 0.5 s."""
+    logits, targets = logits.float(), targets.float()
+    if label_smoothing > 0.0:
+        targets = targets * (1.0 - label_smoothing) + 0.5 * label_smoothing
+    pos_term = -targets * F.logsigmoid(logits)
+    if pos_weight is not None:
+        pos_term = pos_term * pos_weight.float()
+    loss = pos_term - (1.0 - targets) * F.logsigmoid(-logits)
+    if sample_weight is not None:
+        sw = sample_weight.float()
+        loss = loss * (sw[..., None] if loss.dim() > sw.dim() else sw)
+    return loss.mean() if reduce else loss
+
+
+def focal_bce_with_logits(
+    logits: torch.Tensor, targets: torch.Tensor, *, gamma: float = 2.0, alpha: float = 0.25, reduce: bool = True
+) -> torch.Tensor:
+    logits, targets = logits.float(), targets.float()
+    p = torch.sigmoid(logits)
+    ce = -(targets * F.logsigmoid(logits) + (1 - targets) * F.logsigmoid(-logits))
+    p_t = p * targets + (1 - p) * (1 - targets)
+    alpha_t = alpha * targets + (1 - alpha) * (1 - targets)
+    loss = alpha_t * (1 - p_t) ** gamma * ce
+    return loss.mean() if reduce else loss
+
+
+def death_logit(logits: torch.Tensor) -> torch.Tensor:
+    """2-class capsule logits -> the single mortality logit."""
+    return logits[:, 1] - logits[:, 0]
+
+
+def clamped_pos_weight(y: torch.Tensor, lo: float = 0.1, hi: float = 5.0) -> torch.Tensor:
+    """Per-label neg/pos ratio clamped to [lo, hi]."""
+    y = y.float()
+    pos = torch.clamp(y.sum(dim=0), min=1.0)
+    neg = torch.clamp((1.0 - y).sum(dim=0), min=1.0)
+    return torch.clamp(neg / pos, lo, hi)
+
+
+def routing_regularizers(
+    r_matrix: torch.Tensor,  # [B,R,K]
+    route_mask: Optional[torch.Tensor] = None,  # [B,R]
+    *,
+    entropy_bonus: float = 0.0,
+    uniform_penalty: float = 0.0,
+) -> torch.Tensor:
+    """Entropy bonus (rewards diverse routing) and uniformity penalty
+    (punishes an exactly uniform collapse)."""
+    if entropy_bonus == 0.0 and uniform_penalty == 0.0:
+        return torch.zeros((), dtype=torch.float32, device=r_matrix.device)
+    r = torch.clamp(r_matrix.float(), 1e-9, 1.0)
+    loss = torch.zeros((), dtype=torch.float32, device=r.device)
+    if entropy_bonus:
+        loss = loss - entropy_bonus * (-(r * torch.log(r)).sum(dim=1)).mean()
+    if uniform_penalty:
+        if route_mask is not None:
+            n_avail = torch.clamp(route_mask.float().sum(dim=1, keepdim=True), min=1.0)[..., None]
+        else:
+            n_avail = r.shape[1]
+        loss = loss + uniform_penalty * ((r - 1.0 / n_avail) ** 2).sum(dim=1).mean()
+    return loss

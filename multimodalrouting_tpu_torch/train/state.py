@@ -1,0 +1,151 @@
+"""The train state: the model (parameters and BatchNorm statistics), Adam's
+moments and count, and the EMA of the weights (counterpart of
+multimodalrouting_tpu/train/state.py).
+
+The optimizer is written on tensors to match the JAX package's optax chain
+(state.py:114-127, applied per leaf in apply_gradients :187-259):
+
+1. clip by the global norm (``train.grad_clip``) of the trainable leaves;
+2. Adam: b1 = 0.9, b2 = 0.999, eps = 1e-8 outside the square root, bias
+   correction by the optimizer's own count;
+3. add ``train.weight_decay * param``;
+4. multiply by -lr, with ``lr_enc`` for leaves under ``encoders`` and
+   ``lr_head`` for the rest.
+
+Frozen leaves (the BERT body unless ``encoder.finetune_text``) take no
+gradient, carry no moments and are skipped by the EMA (decay
+``train.ema_decay``). A non-finite gradient leaves the parameters, moments,
+count, EMA and BatchNorm statistics as they were; ``step`` still advances.
+Updates are in place: PyTorch parameters are mutable, where the JAX state is
+rebuilt each step.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+from typing import Dict, List, Optional
+
+import torch
+from torch import nn
+
+from multimodalrouting_tpu_torch.configs import Config
+
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
+
+
+def is_encoder(name: str) -> bool:
+    return name.startswith("encoders.")
+
+
+def leaf_trainable(name: str, finetune_text: bool, stage: str = "") -> bool:
+    """Per-parameter trainability; only the capsule family's full-model
+    stage is ported."""
+    if stage not in ("", "full"):
+        raise NotImplementedError(f"curriculum stage {stage!r} is not ported yet (ROADMAP.md)")
+    return finetune_text or not name.startswith("encoders.bbert.bert.")
+
+
+@dataclasses.dataclass
+class TrainState:
+    model: nn.Module
+    names: List[str]  # trainable parameters, in the model's order
+    mu: Dict[str, torch.Tensor]
+    nu: Dict[str, torch.Tensor]
+    ema: Optional[Dict[str, torch.Tensor]]  # trainable parameters' EMA (frozen ones never move)
+    grad_clip: float
+    weight_decay: float
+    count: int = 0  # Adam's count: finite steps taken
+    step: int = 0  # every step, finite or not
+
+    def params(self) -> List[torch.Tensor]:
+        named = dict(self.model.named_parameters())
+        return [named[n] for n in self.names]
+
+
+def create_train_state(cfg: Config, model: nn.Module) -> TrainState:
+    """Zero moments and an EMA equal to the parameters. Marks each
+    parameter's requires_grad by its trainability."""
+    finetune = cfg.encoder.finetune_text
+    names = []
+    for name, p in model.named_parameters():
+        trainable = leaf_trainable(name, finetune, cfg.train.stage)
+        p.requires_grad_(trainable)
+        if trainable:
+            names.append(name)
+    named = dict(model.named_parameters())
+    zeros = lambda: {n: torch.zeros_like(named[n]) for n in names}  # noqa: E731
+    return TrainState(
+        model=model, names=names, mu=zeros(), nu=zeros(),
+        ema={n: named[n].detach().clone() for n in names} if cfg.train.use_ema else None,
+        grad_clip=float(cfg.train.grad_clip), weight_decay=float(cfg.train.weight_decay),
+    )
+
+
+def apply_gradients(
+    state: TrainState,
+    grads: Dict[str, torch.Tensor],
+    *,
+    lr_head: float,
+    lr_enc: float,
+    ema_decay: float,
+    new_batch_stats: Optional[Dict[str, torch.Tensor]] = None,
+) -> bool:
+    """One optimizer step with the finite-gradient guard; returns whether
+    the gradient was finite (and the step applied)."""
+    state.step += 1
+    g = [grads[n].float() for n in state.names]
+    finite = bool(torch.stack([torch.isfinite(x).all() for x in g]).all()) if g else True
+    if not finite:
+        return False
+    params = state.params()
+    g_norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(x) for x in g])) if g else None
+    if g and not bool(g_norm < state.grad_clip):
+        g = torch._foreach_mul(torch._foreach_div(g, g_norm), state.grad_clip)
+    mu = [state.mu[n] for n in state.names]
+    nu = [state.nu[n] for n in state.names]
+    torch._foreach_mul_(mu, ADAM_B1)
+    torch._foreach_add_(mu, g, alpha=1.0 - ADAM_B1)
+    torch._foreach_mul_(nu, ADAM_B2)
+    torch._foreach_add_(nu, torch._foreach_mul(g, g), alpha=1.0 - ADAM_B2)
+    state.count += 1
+    mu_hat = torch._foreach_div(mu, 1.0 - ADAM_B1**state.count)
+    nu_hat = torch._foreach_div(nu, 1.0 - ADAM_B2**state.count)
+    denom = torch._foreach_sqrt(nu_hat)
+    torch._foreach_add_(denom, ADAM_EPS)
+    updates = torch._foreach_div(mu_hat, denom)
+    with torch.no_grad():
+        torch._foreach_add_(updates, params, alpha=state.weight_decay)
+        for name, p, u in zip(state.names, params, updates):
+            p.add_(u, alpha=-(lr_enc if is_encoder(name) else lr_head))
+        if state.ema is not None:
+            ema = [state.ema[n] for n in state.names]
+            torch._foreach_mul_(ema, ema_decay)
+            torch._foreach_add_(ema, params, alpha=1.0 - ema_decay)
+        if new_batch_stats:
+            buffers = dict(state.model.named_buffers())
+            for key, value in new_batch_stats.items():
+                buffers[key].copy_(value)
+    return True
+
+
+@contextlib.contextmanager
+def ema_weights(state: TrainState):
+    """The model with its trainable parameters swapped for their EMA (no
+    copy), swapped back on exit; the model as it is without an EMA."""
+    if state.ema is None:
+        yield state.model
+        return
+    params = state.params()
+    for name, p in zip(state.names, params):
+        p.data, state.ema[name] = state.ema[name], p.data
+    try:
+        yield state.model
+    finally:
+        for name, p in zip(state.names, params):
+            p.data, state.ema[name] = state.ema[name], p.data
+
+
+def serving_state_dict(state: TrainState) -> Dict[str, torch.Tensor]:
+    """The weights a checkpoint serves: the EMA where the run keeps one."""
+    with ema_weights(state) as model:
+        return {k: v.detach().clone() for k, v in model.state_dict().items()}

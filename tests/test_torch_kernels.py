@@ -1,4 +1,6 @@
-"""The Hopper kernels against their plain versions, on the card.
+"""The Hopper kernels against their plain versions, on the card: K1 (packed
+attention), K2 (its backward) alone and through autograd, K3 (capsule
+routing) and its autograd gradient.
 
 These need a CUDA card and the CUDA toolkit (the kernels are built from
 multimodalrouting_tpu_torch/csrc/ at first use) and skip elsewhere. They
@@ -11,9 +13,15 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import K1_FP32_TOL, bf16_errors, describe_bf16, within_bf16_limits
+from chip_smoke import K1_FP32_TOL, K2_FP32_TOL, bf16_errors, describe_bf16, within_bf16_limits
 from multimodalrouting_tpu_torch.ops.capsule import capsule_weight_init
-from multimodalrouting_tpu_torch.ops.flash_packed import packed_attention, packed_attention_reference
+from multimodalrouting_tpu_torch.ops.flash_packed import (
+    packed_attention,
+    packed_attention_bwd,
+    packed_attention_bwd_reference,
+    packed_attention_fwd,
+    packed_attention_reference,
+)
 from multimodalrouting_tpu_torch.ops.fused_capsule import capsule_routing_fused, capsule_routing_reference
 
 pytestmark = pytest.mark.cuda
@@ -82,9 +90,62 @@ def test_packed_attention_kernel_reads_strided_views(cuda):
 
 
 def test_packed_attention_kernel_refuses_grad(cuda):
-    q, k, v, m = _attn_inputs(2, 256, 2, 64, torch.bfloat16, cuda)
-    with pytest.raises(RuntimeError, match="forward-only"):
+    """Under a gradient the packed path needs the backward's gate, T <= 512:
+    longer chunks are refused (their callers take the eager attention)."""
+    q, k, v, m = _attn_inputs(2, 1024, 2, 64, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="T <= 512"):
         packed_attention(q.requires_grad_(), k, v, m, 2)
+
+
+def _assert_bwd_close(got, q, k, v, m, do, h):
+    """K2's limits in chip_smoke.py: K1's bf16 limits for each of dq, dk, dv."""
+    ref = packed_attention_bwd_reference(q, k, v, m, do, h)
+    if q.dtype == torch.float32:
+        atol, rtol = K2_FP32_TOL
+        for g, r in zip(got, ref):
+            torch.testing.assert_close(g, r, rtol=rtol, atol=atol)
+        return
+    exact = packed_attention_bwd_reference(q.float(), k.float(), v.float(), m, do.float(), h)
+    for name, g, r, e in zip(("dq", "dk", "dv"), got, ref, exact):
+        errors = bf16_errors(g, r, e)
+        assert within_bf16_limits(errors), f"{name}: {describe_bf16(errors)}"
+
+
+@pytest.mark.parametrize(
+    "dtype,h,dh",
+    [(torch.bfloat16, 12, 64), (torch.float32, 4, 64), (torch.bfloat16, 2, 128), (torch.float32, 2, 128)],
+)
+@pytest.mark.parametrize("t", [256, 512])
+def test_packed_attention_bwd_kernel_matches_plain(cuda, dtype, h, dh, t):
+    """K2 on every row (a cotangent on pad queries too), with a ragged and an
+    all-pad chunk."""
+    q, k, v, m = _attn_inputs(4, t, h, dh, dtype, cuda)
+    do = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(5), device=cuda).to(dtype)
+    with torch.no_grad():
+        _, lse = packed_attention_fwd(q, k, v, m, h, want_lse=True)
+        before = packed_attention_bwd.launches
+        got = packed_attention_bwd(q, k, v, m, lse, do, h)
+    torch.cuda.synchronize()
+    assert packed_attention_bwd.launches == before + 1
+    assert all(torch.isfinite(g).all() for g in got)
+    _assert_bwd_close(got, q, k, v, m, do, h)
+
+
+def test_packed_attention_autograd_matches_plain_autograd(cuda):
+    """K1 forward + K2 backward through autograd, on column slices of a fused
+    projection, against autograd through the plain forward."""
+    n, t, h, dh = 3, 256, 4, 64
+    d = h * dh
+    g = torch.Generator(device=cuda).manual_seed(2)
+    qkv = torch.randn((n, t, 3 * d), generator=g, device=cuda).to(torch.bfloat16).requires_grad_()
+    m = torch.ones((n, t), device=cuda)
+    m[1, 100:] = 0.0
+    do = torch.randn((n, t, d), generator=g, device=cuda).to(torch.bfloat16)
+    before = (packed_attention.launches, packed_attention_bwd.launches)
+    (got,) = torch.autograd.grad(packed_attention(*qkv.split(d, dim=-1), m, h), qkv, do)
+    assert (packed_attention.launches, packed_attention_bwd.launches) == (before[0] + 1, before[1] + 1)
+    q, k, v = (x.detach().contiguous() for x in qkv.split(d, dim=-1))
+    _assert_bwd_close(got.split(d, dim=-1), q, k, v, m, do, h)
 
 
 @pytest.mark.parametrize("b,n,a,m,d", [(16, 10, 32, 2, 64), (5, 7, 8, 25, 16), (3, 10, 32, 1, 64)])
@@ -99,6 +160,25 @@ def test_capsule_kernel_matches_plain(cuda, b, n, a, m, d):
     torch.cuda.synchronize()
     assert capsule_routing_fused.launches == before + 1
     for x, y in zip(got, capsule_routing_reference(pose, act, w, 3)):
+        torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-5)
+
+
+def test_capsule_kernel_gradient_matches_plain_autograd(cuda):
+    """K3 forward under autograd, the plain program's VJP backward."""
+    rng = np.random.default_rng(3)
+    b, n, a, m, d = 16, 10, 32, 2, 64
+    pose = torch.from_numpy(rng.normal(size=(b, n, a)).astype(np.float32)).to(cuda)
+    act = torch.from_numpy((rng.random((b, n)) > 0.3).astype(np.float32)).to(cuda)
+    w = capsule_weight_init(n, a, m, d, torch.Generator().manual_seed(3)).to(cuda)
+    cot = [torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(cuda) for s in ((b, m, d), (b, n, m))]
+    grads = []
+    for fn in (capsule_routing_fused, capsule_routing_reference):
+        p, ww = pose.clone().requires_grad_(), w.clone().requires_grad_()
+        before = capsule_routing_fused.launches
+        pose_out, _, coef = fn(p, act, ww, 3)
+        grads.append(torch.autograd.grad((pose_out * cot[0]).sum() + (coef * cot[1]).sum(), (p, ww)))
+        assert capsule_routing_fused.launches == before + (fn is capsule_routing_fused)
+    for x, y in zip(*grads):
         torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-5)
 
 

@@ -3,11 +3,24 @@ and weights go through a JAX module and its port."""
 from __future__ import annotations
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import torch
 
+from multimodalrouting_tpu import configs as jc
+from multimodalrouting_tpu.data.synthetic import make_synthetic_cohort
+from multimodalrouting_tpu.models.full import build_model as jbuild_model
+from multimodalrouting_tpu.train.loop import note_pack_bucket as jnote_pack_bucket
+from multimodalrouting_tpu.train.state import create_train_state as jcreate_train_state
+from multimodalrouting_tpu.train.steps import make_train_step as jmake_train_step
+from multimodalrouting_tpu_torch import configs as tc
+from multimodalrouting_tpu_torch.bridge import state_dict_from_jax, train_state_from_jax
 from multimodalrouting_tpu_torch.data.batches import Batch as TorchBatch
 from multimodalrouting_tpu_torch.data.batches import batch_to
+from multimodalrouting_tpu_torch.models.full import build_model
+from multimodalrouting_tpu_torch.train.loop import note_pack_bucket
+from multimodalrouting_tpu_torch.train.state import serving_state_dict
+from multimodalrouting_tpu_torch.train.steps import make_train_step
 
 RTOL, ATOL = 2e-4, 2e-5  # fp32 parity, as tests/test_pallas.py holds the kernels
 
@@ -50,3 +63,82 @@ def t(x) -> torch.Tensor:
 def assert_close(got, ref, rtol: float = RTOL, atol: float = ATOL, err_msg: str = ""):
     got = got.detach().float().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
     np.testing.assert_allclose(got, np.asarray(ref, dtype=np.float32), rtol=rtol, atol=atol, err_msg=err_msg)
+
+
+# --- the train-step trajectories (tests/test_torch_train*.py) ---------------
+
+# the --small widths of scripts/demo_synthetic.py, BERT at 256 tokens x 128
+# hidden with 2 heads so the packed gate holds, BatchNorm, fp32, no dropout
+TRAIN_SMALL = {
+    "encoder.d": 48, "encoder.structured_seq_len": 16, "encoder.structured_n_feats": 16,
+    "encoder.structured_layers": 1, "encoder.structured_heads": 4, "encoder.bert_hidden": 128,
+    "encoder.bert_layers": 2, "encoder.bert_heads": 2, "encoder.bert_intermediate": 96,
+    "encoder.bert_vocab_size": 2048, "encoder.bert_max_position": 256, "encoder.notes_max_chunks": 5,
+    "encoder.text_max_len": 256, "encoder.image_size": 32, "encoder.vision_backbone": "resnet18",
+    "encoder.vision_norm": "batch", "model.d": 48, "model.mult_layers": 1, "model.mult_self_layers": 1,
+    "model.mult_heads": 4, "model.pc_dim": 8, "model.mc_caps_dim": 16, "model.dtype": "float32",
+    "model.attn_dropout": 0.0, "model.relu_dropout": 0.0, "model.res_dropout": 0.0,
+    "model.embed_dropout": 0.0, "train.batch_size": 4, "train.route_dropout_p": 0.0,
+}
+LR_HEAD, LR_ENC = 2e-4, 1e-4
+RTOL_STEPS = 5e-4  # ROADMAP.md's figure for K optimizer steps against the JAX package
+
+
+def train_cfgs(**extra):
+    over = {**TRAIN_SMALL, **extra}
+    return jc.apply_overrides(jc.Config(), over), tc.apply_overrides(tc.Config(), over)
+
+
+def train_cohorts(k: int, seed: int = 10):
+    return [make_synthetic_cohort(4, t=16, f=16, s=5, l=256, image_size=32, vocab_size=2048, seed=seed + i)
+            for i in range(k)]
+
+
+def jax_trajectory(jcfg, batches):
+    """(the initial JAX TrainState as numpy, per-step losses, final state)."""
+    model = jbuild_model(jcfg, "capsule")
+    example = jax.tree_util.tree_map(jnp.asarray, batches[0])
+    variables = jitter(model.init(jax.random.PRNGKey(0), example, train=False), seed=3, scale=0.1)
+    state = jcreate_train_state(jcfg, model, jax.tree_util.tree_map(jnp.asarray, variables))
+    init = to_numpy({"params": state.params, "batch_stats": state.batch_stats, "ema_params": state.ema_params,
+                     "opt_state": state.opt_state, "step": state.step})
+    step = jmake_train_step(jcfg, model, "capsule")
+    losses = []
+    for i, b in enumerate(batches):
+        state, metrics = step(state, jax.tree_util.tree_map(jnp.asarray, b), jax.random.PRNGKey(i),
+                              jnp.asarray(LR_HEAD), jnp.asarray(LR_ENC), note_pack=jnote_pack_bucket(jcfg, b))
+        losses.append(float(metrics.loss))
+    return init, losses, state
+
+
+def port_trajectory(tcfg, init, batches):
+    """(model, train state, per-step losses) from the JAX initial state."""
+    model = build_model(tcfg, device="cpu", train=True)
+    state = train_state_from_jax(tcfg, model, init)
+    step = make_train_step(tcfg, model)
+    losses = []
+    for b in batches:
+        tb = TorchBatch(*b)
+        metrics = step(state, torch_batch(b), None, LR_HEAD, LR_ENC, note_pack=note_pack_bucket(tcfg, tb))
+        assert metrics.grad_finite
+        losses.append(float(metrics.loss))
+    return model, state, losses
+
+
+def relative_errors(got, ref):
+    """Per state_dict key: ||got - ref|| / ||ref||."""
+    out = {}
+    for key, r in ref.items():
+        r = r.float().numpy()
+        out[key] = float(np.linalg.norm(got[key].float().numpy() - r) / max(np.linalg.norm(r), 1e-30))
+    return out
+
+
+def assert_same_weights(model, state, jstate):
+    bs = to_numpy(jstate.batch_stats)
+    ref = state_dict_from_jax({"params": to_numpy(jstate.params), "batch_stats": bs}, model)
+    ref_ema = state_dict_from_jax({"params": to_numpy(jstate.ema_params), "batch_stats": bs}, model)
+    for name, got, want in (("params", model.state_dict(), ref), ("ema", serving_state_dict(state), ref_ema)):
+        errors = relative_errors(got, want)
+        worst = max(errors, key=errors.get)
+        assert errors[worst] <= RTOL_STEPS, f"{name}: {worst} off by {errors[worst]:.3e} in relative norm"
