@@ -18,19 +18,33 @@ toolkit. It
 4. holds K3 (fused capsule routing) against its plain version at
    [16, 10, 32] x [10, 32, 2, 64], and its autograd gradients against
    autograd through the plain program;
-5. writes a full-width flagship checkpoint (BERT-base 12 x 768 over 8 x 512
+5. holds K4 (segment attention, the kernel pair of K4a flash and K4b
+   splash), forward and backward, against its plain versions on every row at
+   the flagship shape, at head_dim 128, at T = 1024 with 3 heads and in
+   fp32, shows that the bf16 limits reject two planted faults (K1's key-mask
+   semantics, a dropped key tile), and times it beside SDPA with the
+   boolean segment mask;
+6. writes a full-width flagship checkpoint (BERT-base 12 x 768 over 8 x 512
    note chunks, ResNet34 on 224^2, MulT d=256, 10-route capsule head, bf16)
    with seeded random weights, loads it with Predictor(device="cuda") and
    serves one record, a batch of 16, a record without an image and one HTTP
    request, with the kernels' launch counters read around exactly that run;
    the same weights scored in fp32 on the CPU are the reference;
-6. trains the full-width flagship with fine-tuned notes (batch 16, note
+7. trains the full-width flagship with fine-tuned notes (batch 16, note
    packing on): 2 warm-up and 5 timed steps with the launch counters read
    around the timed ones, then one step's profile; one step under the
-   frozen-text default; and train_model over 32 + 16 stays for one epoch,
-   whose checkpoint Predictor(device="cuda") serves;
-7. prints a {"kernels": [...]} line, the card's name and power limit, and
-   the {"ok": true, "device": ...} line last.
+   frozen-text default;
+8. serves the same weights from a train.pipeline_parallel=true config (the
+   layers converted to the stacked pp_layers layout on load) at 1 and 16
+   records through K4a, against the layered Predictor, and takes two
+   fine-tuned steps on that layout (K4a forward and backward);
+9. under MMR_ATTN=splash, 2 + 5 fine-tuned steps through K4b forward and
+   backward, and one serving forward through K4b against the default one;
+10. train_model over 32 + 16 stays for one epoch, whose checkpoint
+   Predictor(device="cuda") serves;
+11. prints a {"kernels": [...]} line (each kernel with its launches on its
+   own path and on every path), the card's name and power limit, and the
+   {"ok": true, "device": ...} line last.
 
 Any failed check raises, and the script exits non-zero without the last
 line. Without a CUDA card it exits 2 before doing anything.
@@ -56,7 +70,16 @@ from multimodalrouting_tpu_torch.data.batches import batch_to
 from multimodalrouting_tpu_torch.data.synthetic import make_synthetic_cohort
 from multimodalrouting_tpu_torch.models.full import build_model
 from multimodalrouting_tpu_torch.ops import hopper
+from multimodalrouting_tpu_torch.ops import flash
 from multimodalrouting_tpu_torch.ops.capsule import capsule_weight_init
+from multimodalrouting_tpu_torch.ops.flash import (
+    flash_self_attention,
+    segment_attention_bwd,
+    segment_attention_bwd_reference,
+    segment_attention_fwd,
+    segment_attention_reference,
+    splash_self_attention,
+)
 from multimodalrouting_tpu_torch.ops.flash_packed import (
     packed_attention,
     packed_attention_bwd,
@@ -94,6 +117,12 @@ K1_FP32_TOL = (2e-5, 2e-5)  # (atol, rtol): the same function summed in another 
 # roundings and the outputs', so rms(got - ref) is well under the plain
 # version's own rounding error.
 K2_FP32_TOL = (2e-5, 2e-5)
+# K4 (segment attention, forward and backward) in bf16 is held by K1's two
+# limits on every row and each output: like K1 the kernel rounds p relative
+# to the running maximum of 64-key tiles, the plain version (the upstream
+# order) normalised at T <= 512 or per 512-key block beyond; the backward
+# rounds p and ds where the plain version does.
+K4_FP32_TOL = (2e-5, 2e-5)
 K3_TOL = (1e-5, 1e-5)  # fp32 routing, sums in another order
 # End to end, bf16 on the card against fp32 on the CPU through 12 BERT
 # layers, the ResNet and the MulT streams: bf16 keeps ~3 significant digits.
@@ -247,10 +276,10 @@ def phase_k1(dev) -> dict:
             log(f"[fault] K1 planted fault, {fault}: {describe_bf16(e)}")
             require(not within_bf16_limits(e), f"the bf16 limits accept a planted fault: {fault}")
         del exact, dropped
-        ms = kernel_ms(lambda: packed_attention(q, k, v, m, 12), "packed_attention_bf16_kernel", 20)
+        ms = kernel_ms(lambda: packed_attention(q, k, v, m, 12), "attention_fwd_bf16_kernel", 20)
         # under a gradient the forward also writes each row's log-sum-exp for K2
         ms_lse = kernel_ms(lambda: packed_attention_fwd(q, k, v, m, 12, want_lse=True),
-                           "packed_attention_bf16_kernel", 20)
+                           "attention_fwd_bf16_kernel", 20)
         plain_ms = device_time_ms(lambda: packed_attention_reference(q, k, v, m, 12), 5)
         q4, k4, v4 = (x.unflatten(2, (12, 64)).transpose(1, 2) for x in (q, k, v))
         add_mask = ((1.0 - m) * -1e30).to(torch.bfloat16)[:, None, None, :]
@@ -364,6 +393,145 @@ def phase_k2(dev) -> dict:
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": library_ms,
     }
+
+
+def heads4(x: torch.Tensor, heads: int) -> torch.Tensor:
+    """The [N, T, H, dh] view of a packed [N, T, H*dh] tensor, as the model
+    hands it to K4."""
+    return x.unflatten(2, (heads, x.shape[2] // heads))
+
+
+def segment_dropped_tile(q4, k4, v4, m, out=None, do4=None):
+    """A planted fault: plain segment attention with keys 64-127 dropped
+    from every row; with `do4`, its backward (dq, dk, dv) from `out`."""
+    dt = q4.dtype
+    s = flash.segment_logits(q4, k4, m)
+    s[..., 64:128] = flash.MASK_VALUE
+    p = torch.softmax(s, dim=-1)
+    if do4 is None:
+        return torch.einsum("bhqk,bkhd->bqhd", p.to(dt).float(), v4.float()).to(dt)
+    dof = do4.float()
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dt).float(), dof)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, v4.float())
+    ds = ((dp - (out.float() * dof).sum(-1).transpose(1, 2)[..., None]) * p).to(dt).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k4.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q4.float())
+    return tuple(x.to(dt) for x in (dq, dk, dv))
+
+
+def check_k4(tag: str, q, k, v, m, do, heads: int) -> tuple:
+    """K4 forward and backward against the plain versions on every row:
+    bf16 limits per output (`exact`: the plain versions in fp32 with nothing
+    rounded), or fp32 tolerances. The serving forward (no lse) must equal the
+    training one. -> (forward error, backward error)."""
+    q4, k4, v4, do4 = (heads4(x, heads) for x in (q, k, v, do))
+    out, lse = segment_attention_fwd(q4, k4, v4, m, True, flash_self_attention)
+    grads = segment_attention_bwd(q4, k4, v4, m, out, lse, do4, flash_self_attention)
+    serving = flash_self_attention(q4, k4, v4, m)
+    torch.cuda.synchronize()
+    require(torch.equal(serving, out), f"K4 {tag}: the serving forward differs from the training one")
+    ref = segment_attention_reference(q4, k4, v4, m)
+    ref_grads = segment_attention_bwd_reference(q4, k4, v4, m, out, do4)
+    names = ("dq", "dk", "dv")
+    if q.dtype == torch.float32:
+        fwd = check_close(f"K4 {tag} out", out, ref, *K4_FP32_TOL)
+        bwd = max(check_close(f"K4 {tag} {n}", x, y, *K4_FP32_TOL) for n, x, y in zip(names, grads, ref_grads))
+        return fwd, bwd
+    qf, kf, vf = q4.float(), k4.float(), v4.float()
+    exact = segment_attention_reference(qf, kf, vf, m)
+    fwd = check_bf16(f"K4 {tag} out", out, ref, exact)
+    exact_grads = segment_attention_bwd_reference(qf, kf, vf, m, exact, do4.float())
+    bwd = max(check_bf16(f"K4 {tag} {n}", x, y, e) for n, x, y, e in zip(names, grads, ref_grads, exact_grads))
+    return fwd, bwd
+
+
+def phase_k4(dev) -> list:
+    """K4 (segment attention: K4a flash and K4b splash share the kernel
+    pair) at the flagship shape with the serving batch's masks, at head_dim
+    128, at T = 1024 with 3 heads and in fp32; two planted faults; times."""
+    cohort = make_synthetic_cohort(16, s=8, l=512, image_size=8, seed=SEED)
+    mask = torch.from_numpy(cohort.note_attn.reshape(128, 512).astype(np.float32))
+    long_mask = torch.from_numpy(make_synthetic_cohort(8, s=2, l=1024, image_size=8, seed=SEED + 7)
+                                 .note_attn.reshape(16, 1024).astype(np.float32))
+    log(f"[k4] mask: {int((mask.sum(1) == 0).sum())} of 128 chunks all-pad; T=1024 mask: "
+        f"{int((long_mask.sum(1) == 0).sum())} of 16 all-pad")
+    n, t, h, dh = 128, 512, 12, 64
+    with torch.no_grad():
+        q, k, v, m, do = k2_inputs(n, t, h, dh, torch.bfloat16, dev, mask)
+        fwd_err, bwd_err = check_k4("bf16 [128,512,768] dh=64", q, k, v, m, do, h)
+        q4, k4, v4, do4 = (heads4(x, h) for x in (q, k, v, do))
+        ref = segment_attention_reference(q4, k4, v4, m)
+        exact = segment_attention_reference(q4.float(), k4.float(), v4.float(), m)
+        out, lse = segment_attention_fwd(q4, k4, v4, m, True, flash_self_attention)
+        ref_grads = segment_attention_bwd_reference(q4, k4, v4, m, out, do4)
+        exact_grads = segment_attention_bwd_reference(q4.float(), k4.float(), v4.float(), m, exact, do4.float())
+        key_mask_grads = [heads4(x, h) for x in packed_attention_bwd_reference(q, k, v, m, do, h)]
+        faults = (
+            ("K1's key mask for segment ids", heads4(packed_attention_reference(q, k, v, m, h), h), key_mask_grads),
+            ("key tile 64-127 dropped", segment_dropped_tile(q4, k4, v4, m),
+             segment_dropped_tile(q4, k4, v4, m, out, do4)),
+        )
+        for fault, bad, bad_grads in faults:
+            e = bf16_errors(bad, ref, exact)
+            log(f"[fault] K4 planted fault, {fault}, out: {describe_bf16(e)}")
+            rejected = [not within_bf16_limits(e)]
+            for name, x, y, ex in zip(("dq", "dk", "dv"), bad_grads, ref_grads, exact_grads):
+                e = bf16_errors(x, y, ex)
+                log(f"[fault] K4 planted fault, {fault}, {name}: {describe_bf16(e)}")
+                rejected.append(not within_bf16_limits(e))
+            require(rejected[0] and any(rejected[1:]), f"the bf16 limits accept a planted K4 fault: {fault}")
+        del ref, exact, ref_grads, exact_grads, key_mask_grads, faults, bad, bad_grads
+        fwd_ms = {w.__name__: kernel_ms(lambda: w(q4, k4, v4, m), "attention_fwd_bf16_kernel", 20)
+                  for w in (flash_self_attention, splash_self_attention)}
+        ms_lse = kernel_ms(lambda: segment_attention_fwd(q4, k4, v4, m, True, flash_self_attention),
+                           "attention_fwd_bf16_kernel", 20)
+        bwd_ms = {w.__name__: kernel_ms(lambda: segment_attention_bwd(q4, k4, v4, m, out, lse, do4, w),
+                                        ("bwd_dq_bf16_kernel", "bwd_dkdv_bf16_kernel"), 20)
+                  for w in (flash_self_attention, splash_self_attention)}
+        di_ms = device_time_ms(lambda: (out.float() * do4.float()).sum(dim=-1).transpose(1, 2).contiguous(), 20)
+        plain_ms = device_time_ms(lambda: segment_attention_reference(q4, k4, v4, m), 5)
+        plain_bwd_ms = device_time_ms(lambda: segment_attention_bwd_reference(q4, k4, v4, m, out, do4), 3)
+        # the library: SDPA on the [N, H, T, dh] view with the boolean segment mask [N, 1, T, T]
+        same = (m[:, None, :, None] == m[:, None, None, :])
+        qh, kh, vh = (x.transpose(1, 2) for x in (q4, k4, v4))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        library_ms = device_time_ms(lambda: sdpa(qh, kh, vh, attn_mask=same, scale=1.0), 20)
+    qh, kh, vh = (x.detach().requires_grad_() for x in (qh, kh, vh))
+    out_h = torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, attn_mask=same, scale=1.0)
+    spans = device_spans(lambda: torch.autograd.grad(out_h, (qh, kh, vh), do4.transpose(1, 2), retain_graph=True), 20)
+    library_bwd_ms = sum(us for _, us in spans) / 20 / 1e3
+    del qh, kh, vh, out_h, same, q, k, v, q4, k4, v4, do4, out, lse
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        check_k4("bf16 [32,512,768] dh=128", *k2_inputs(32, 512, 6, 128, torch.bfloat16, dev, mask), 6)
+        check_k4("bf16 [16,1024,192] 3 heads dh=64", *k2_inputs(16, 1024, 3, 64, torch.bfloat16, dev, long_mask), 3)
+        check_k4("fp32 [16,512,768] dh=64", *k2_inputs(16, 512, 12, 64, torch.float32, dev, mask), 12)
+        check_k4("fp32 [8,1024,256] dh=128", *k2_inputs(8, 1024, 2, 128, torch.float32, dev, long_mask), 2)
+    d = h * dh
+    bound_ms, bound_by = bound(4 * n * t * d * 2 + n * t * 4, 4 * n * h * t * t * dh, "bf16")
+    # the backward reads q, k, v, do, the mask, lse and di once, writes dq,
+    # dk, dv once; five T x T x dh products per head
+    bwd_bound_ms, bwd_bound_by = bound(7 * n * t * d * 2 + n * t * 4 + 2 * n * h * t * 4,
+                                       10 * n * h * t * t * dh, "bf16")
+    log(f"[k4] forward kernel_ms={fwd_ms} (with the lse write {ms_lse:.4f}) plain_ms={plain_ms:.4f} "
+        f"library_ms={library_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by})")
+    log(f"[k4] backward kernel_ms={bwd_ms} (di reduction {di_ms:.4f} ms) plain_ms={plain_bwd_ms:.4f} "
+        f"library_ms={library_bwd_ms:.4f} bound_ms={bwd_bound_ms:.4f} ({bwd_bound_by})")
+    rows = []
+    for name, wrapper, replaces in (("flash_attention", flash_self_attention, "multimodalrouting_tpu/ops/flash.py:100"),
+                                    ("splash_attention", splash_self_attention, "multimodalrouting_tpu/ops/flash.py:48")):
+        rows.append({
+            "name": name, "route": "cuda", "source": "multimodalrouting_tpu_torch/csrc/flash_attention.cu",
+            "replaces": replaces, "max_abs_err": fwd_err, "ms": fwd_ms[wrapper.__name__], "ms_with_lse": ms_lse,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+        })
+        rows.append({
+            "name": f"{name}_bwd", "route": "cuda", "source": "multimodalrouting_tpu_torch/csrc/flash_attention_bwd.cu",
+            "replaces": replaces, "max_abs_err": bwd_err, "ms": bwd_ms[wrapper.__name__], "di_ms": di_ms,
+            "plain_ms": plain_bwd_ms, "bound_ms": bwd_bound_ms, "bound_by": bwd_bound_by,
+            "library_ms": library_bwd_ms,
+        })
+    return rows
 
 
 def phase_k3_grad(dev) -> None:
@@ -517,11 +685,7 @@ def phase_serving(dev, tmp: str) -> dict:
         f"(BERT {e.bert_layers}x{e.bert_hidden}, L={e.text_max_len}, S={e.notes_max_chunks}, "
         f"{e.vision_backbone} {e.image_size}^2, dtype={cfg.model.dtype})")
     predictor = Predictor(ckpt, device="cuda")
-    cohort = make_synthetic_cohort(
-        32, t=e.structured_seq_len, f=e.structured_n_feats, s=e.notes_max_chunks, l=e.text_max_len,
-        image_size=e.image_size, vocab_size=e.bert_vocab_size, seed=SEED + 1,
-    )
-    records = records_from_cohort(cohort, 16, drop_image=(1,))
+    records = serving_records(cfg)
     predictor.predict_records(records[:2])  # warm-up: cuDNN picks its algorithms
     torch.cuda.synchronize()
 
@@ -538,7 +702,8 @@ def phase_serving(dev, tmp: str) -> dict:
             f"K1 launched {launches['packed_attention']} times, expected {e.bert_layers * forwards}")
     require(launches["capsule_routing"] == forwards,
             f"K3 launched {launches['capsule_routing']} times, expected {forwards}")
-    require(launches["packed_attention_bwd"] == 0, "serving launched the backward kernel")
+    require(launches == expected(packed_attention=e.bert_layers * forwards, capsule_routing=forwards),
+            f"serving launches {launches}: the backward or K4 ran")
     check_rows("single", single, 1)
     check_rows("batch16", batch, 16)
     check_rows("no-image", no_image, 1)
@@ -548,15 +713,7 @@ def phase_serving(dev, tmp: str) -> dict:
     require(out16["alpha"].shape == (16, 10) and out16["r_matrix"].shape == (16, 10, 2), "bad output shapes")
 
     # reference: the same checkpoint in fp32 on the CPU, two records
-    ref_dir = os.path.join(tmp, "flagship_fp32")
-    os.makedirs(ref_dir)
-    for name in ("weights.pt", "meta.json"):
-        os.link(os.path.join(ckpt, name), os.path.join(ref_dir, name))
-    with open(os.path.join(ckpt, "config.json")) as f:
-        cfg_dict = json.load(f)
-    cfg_dict["model"]["dtype"] = "float32"
-    with open(os.path.join(ref_dir, "config.json"), "w") as f:
-        json.dump(cfg_dict, f)
+    ref_dir = checkpoint_variant(ckpt, os.path.join(tmp, "flagship_fp32"), "model", "dtype", "float32")
     t1 = time.perf_counter()
     ref_rows = Predictor(ref_dir, device="cpu").predict_records(records[:2])
     for got, ref in zip(batch[:2], ref_rows):
@@ -602,13 +759,37 @@ def full_width_cohort(cfg, n: int, seed: int):
     )
 
 
+COUNTED = {
+    "packed_attention": (packed_attention, "launches"),
+    "packed_attention_bwd": (packed_attention_bwd, "launches"),
+    "flash_attention": (flash_self_attention, "launches"),
+    "flash_attention_bwd": (flash_self_attention, "bwd_launches"),
+    "splash_attention": (splash_self_attention, "launches"),
+    "splash_attention_bwd": (splash_self_attention, "bwd_launches"),
+    "capsule_routing": (capsule_routing_fused, "launches"),
+}
+
+
+MAIN_PATH = {
+    "packed_attention": "train_finetune", "packed_attention_bwd": "train_finetune",
+    "capsule_routing": "train_finetune", "flash_attention": "serving_pp",
+    "flash_attention_bwd": "train_pp_finetune", "splash_attention": "train_splash",
+    "splash_attention_bwd": "train_splash",
+}
+
+
 def reset_counts() -> None:
-    packed_attention.launches = packed_attention_bwd.launches = capsule_routing_fused.launches = 0
+    for fn, attr in COUNTED.values():
+        setattr(fn, attr, 0)
 
 
 def read_counts() -> dict:
-    return {"packed_attention": packed_attention.launches, "packed_attention_bwd": packed_attention_bwd.launches,
-            "capsule_routing": capsule_routing_fused.launches}
+    return {name: getattr(fn, attr) for name, (fn, attr) in COUNTED.items()}
+
+
+def expected(**per_run) -> dict:
+    """Every kernel's expected count: the given ones, 0 for the rest."""
+    return {name: per_run.get(name, 0) for name in COUNTED}
 
 
 def profile_step(fn, label: str, top: int = 15) -> None:
@@ -634,11 +815,14 @@ def profile_step(fn, label: str, top: int = 15) -> None:
         log(f"[profile] {total:9.3f} ms {100 * total / busy_ms:5.1f}% x{n:<5d} {name[:110]}")
 
 
-def phase_train_finetune(dev, warmup: int = 2, steps: int = 5) -> dict:
+def phase_train_finetune(dev, warmup: int = 2, steps: int = 5, label: str = "fine-tuned", per_step=None,
+                         layer_key: str = "layer_0.intermediate.weight", profile: bool = True, **overrides) -> dict:
     """The flagship train step with fine-tuned notes at full width, batch 16,
     note packing on, lr_head = lr_enc = train.lr (bench.py's fine-tuned
-    leg): K1 forward and K2 backward in every BERT layer, K3 under autograd."""
-    cfg = flagship_cfg(**{"encoder.finetune_text": True})
+    leg): by default K1 forward and K2 backward in every BERT layer, K3 under
+    autograd; `overrides` change the config and `per_step` the launches
+    expected in each step."""
+    cfg = flagship_cfg(**{"encoder.finetune_text": True, **overrides})
     torch.manual_seed(SEED)
     model = build_model(cfg, device="cuda", train=True)
     state = create_train_state(cfg, model)
@@ -648,11 +832,11 @@ def phase_train_finetune(dev, warmup: int = 2, steps: int = 5) -> dict:
     step = make_train_step(cfg, model)
     gen = torch.Generator(device=dev).manual_seed(cfg.train.seed)
     lr = cfg.train.lr
-    watched = ("encoders.bbert.bert.layer_0.intermediate.weight", "encoders.imgenc.backbone.conv1.weight")
+    watched = (f"encoders.bbert.bert.{layer_key}", "encoders.imgenc.backbone.conv1.weight")
     named = dict(model.named_parameters())
     before = {n: named[n].detach().clone() for n in watched}
     ema_before = {n: state.ema[n].clone() for n in watched}
-    log(f"[train] fine-tuned: {sum(p.numel() for p in state.params()) / 1e6:.1f}M trainable parameters, "
+    log(f"[train] {label}: {sum(p.numel() for p in state.params()) / 1e6:.1f}M trainable parameters, "
         f"note_pack={cap} of {cohort.chunk_mask.size} chunks ({int(cohort.chunk_mask.sum())} valid)")
     for _ in range(warmup):
         step(state, batch, gen, lr, lr, note_pack=cap)
@@ -666,21 +850,131 @@ def phase_train_finetune(dev, warmup: int = 2, steps: int = 5) -> dict:
     launches = read_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     losses = [float(m.loss) for m in metrics]
-    log(f"[train] fine-tuned launches over {steps} steps: {launches}")
-    log(f"[train] fine-tuned losses {['%.5f' % x for x in losses]}, step_ms={wall / steps * 1e3:.1f}, "
+    log(f"[train] {label} launches over {steps} steps: {launches}")
+    log(f"[train] {label} losses {['%.5f' % x for x in losses]}, step_ms={wall / steps * 1e3:.1f}, "
         f"stays_per_s={cfg.train.batch_size * steps / wall:.2f}, peak_memory_gb={peak_gb:.2f}")
     require(all(np.isfinite(losses)) and all(m.grad_finite for m in metrics), "non-finite loss or gradient")
-    expect = {"packed_attention": 12 * steps, "packed_attention_bwd": 12 * steps, "capsule_routing": steps}
+    per_step = per_step or {"packed_attention": 12, "packed_attention_bwd": 12, "capsule_routing": 1}
+    expect = expected(**{name: count * steps for name, count in per_step.items()})
     require(launches == expect, f"launches {launches}, expected {expect}")
     for n in watched:
         moved = (named[n].detach() - before[n]).abs().max().item()
         ema_moved = (state.ema[n] - ema_before[n]).abs().max().item()
         log(f"[train] {n}: max|param change|={moved:.3e}, max|EMA change|={ema_moved:.3e}")
         require(moved > 0 and ema_moved > 0, f"{n} or its EMA did not move")
-    profile_step(lambda: step(state, batch, gen, lr, lr, note_pack=cap), "one fine-tuned training step")
+    if profile:
+        profile_step(lambda: step(state, batch, gen, lr, lr, note_pack=cap), f"one {label} training step")
     del model, state, batch
     torch.cuda.empty_cache()
     return launches
+
+
+def checkpoint_variant(src: str, dst: str, section: str, key: str, value) -> str:
+    """The checkpoint `src` under one other config value: its weights and
+    meta hard-linked into `dst`, config.json with cfg[section][key] = value."""
+    os.makedirs(dst)
+    for name in ("weights.pt", "meta.json"):
+        os.link(os.path.join(src, name), os.path.join(dst, name))
+    with open(os.path.join(src, "config.json")) as f:
+        cfg_dict = json.load(f)
+    cfg_dict[section][key] = value
+    with open(os.path.join(dst, "config.json"), "w") as f:
+        json.dump(cfg_dict, f)
+    return dst
+
+
+def serving_records(cfg):
+    e = cfg.encoder
+    cohort = make_synthetic_cohort(
+        32, t=e.structured_seq_len, f=e.structured_n_feats, s=e.notes_max_chunks, l=e.text_max_len,
+        image_size=e.image_size, vocab_size=e.bert_vocab_size, seed=SEED + 1,
+    )
+    return records_from_cohort(cohort, 16, drop_image=(1,))
+
+
+def check_agree(label: str, got, ref) -> None:
+    """Served rows against reference rows of the same records: |dprob| and
+    max |dalpha| within E2E_TOL."""
+    dp = max(abs(float(np.asarray(g["probs"]).reshape(-1)[0]) - float(np.asarray(r["probs"]).reshape(-1)[0]))
+             for g, r in zip(got, ref))
+    da = max(abs(g["alpha"][k] - r["alpha"][k]) for g, r in zip(got, ref) for k in r["alpha"])
+    log(f"[serve] {label}: max|dprob|={dp:.3e} max|dalpha|={da:.3e} over {len(ref)} records (tol {E2E_TOL})")
+    require(dp <= E2E_TOL and da <= E2E_TOL, f"{label}: outputs disagree")
+
+
+def phase_serving_pp(dev, tmp: str) -> dict:
+    """A pipeline-layout flagship checkpoint served by Predictor(device="cuda")
+    at 1 and 16 records: phase_serving's weights file under a config with
+    train.pipeline_parallel=true, the layers converted to the pp_layers
+    layout on load; K4a in every BERT layer, no K1. The same weights served
+    from the layered checkpoint are the reference."""
+    layered = os.path.join(tmp, "flagship")
+    pp_dir = checkpoint_variant(layered, os.path.join(tmp, "flagship_pp"), "train", "pipeline_parallel", True)
+    predictor = Predictor(pp_dir, device="cuda")
+    keys = predictor.model.state_dict()
+    require("encoders.bbert.bert.pp_layers.q_kernel" in keys and not any(".layer_0." in k for k in keys
+                                                                        if k.startswith("encoders.bbert.")),
+            "the pipeline-layout config did not build the pp_layers layout")
+    records = serving_records(predictor.cfg)
+    predictor.predict_records(records[:2])
+    torch.cuda.synchronize()
+    reset_counts()
+    single = predictor.predict_records(records[:1])
+    batch = predictor.predict_records(records)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    log(f"[serve-pp] launches over 2 forwards: {launches}")
+    require(launches == expected(flash_attention=24, capsule_routing=2), f"pp serving launches {launches}")
+    check_rows("pp single", single, 1)
+    check_rows("pp batch16", batch, 16)
+    check_agree("pipeline layout (K4a) vs layered (K1)", batch, Predictor(layered, device="cuda").predict_records(records))
+    lat = []
+    for i in range(10):
+        t = time.perf_counter()
+        predictor.predict_records(records[i : i + 1])
+        lat.append((time.perf_counter() - t) * 1e3)
+    t = time.perf_counter()
+    for _ in range(3):
+        predictor.predict_records(records)
+    stays_per_s = 16 * 3 / (time.perf_counter() - t)
+    log(f"[serve-pp] single-record p50_ms={float(np.percentile(lat, 50)):.2f}; batch-16 stays_per_s={stays_per_s:.2f}")
+    profile_forward(predictor, batch_from_records(predictor.cfg, records), top=8)
+    del predictor
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_splash(dev, tmp: str) -> dict:
+    """MMR_ATTN=splash: the fine-tuned flagship step through K4b forward and
+    backward (2 warm-up, 5 timed steps), then one serving forward of the
+    layered checkpoint through K4b. -> {path: launches}."""
+    before = os.environ.get("MMR_ATTN")
+    os.environ["MMR_ATTN"] = "splash"
+    try:
+        out = {"train_splash": phase_train_finetune(
+            dev, label="splash fine-tuned", profile=False,
+            per_step={"splash_attention": 12, "splash_attention_bwd": 12, "capsule_routing": 1})}
+        layered = os.path.join(tmp, "flagship")
+        predictor = Predictor(layered, device="cuda")
+        records = serving_records(predictor.cfg)
+        predictor.predict_records(records[:2])
+        torch.cuda.synchronize()
+        reset_counts()
+        rows = predictor.predict_records(records)
+        torch.cuda.synchronize()
+        out["serving_splash"] = read_counts()
+        log(f"[serve-splash] launches over 1 forward: {out['serving_splash']}")
+        require(out["serving_splash"] == expected(splash_attention=12, capsule_routing=1),
+                f"splash serving launches {out['serving_splash']}")
+        check_rows("splash batch16", rows, 16)
+    finally:
+        if before is None:
+            os.environ.pop("MMR_ATTN")
+        else:
+            os.environ["MMR_ATTN"] = before
+    check_agree("MMR_ATTN=splash (K4b) vs default (K1)", rows, Predictor(layered, device="cuda").predict_records(records))
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_train_frozen(dev) -> dict:
@@ -700,7 +994,7 @@ def phase_train_frozen(dev) -> dict:
     launches = read_counts()
     log(f"[train] frozen default: loss={float(m.loss):.5f} launches {launches}")
     require(np.isfinite(float(m.loss)) and m.grad_finite, "frozen step: non-finite loss or gradient")
-    expect = {"packed_attention": 12, "packed_attention_bwd": 0, "capsule_routing": 1}
+    expect = expected(packed_attention=12, capsule_routing=1)
     require(launches == expect, f"frozen step launches {launches}, expected {expect}")
     del model, state, batch
     torch.cuda.empty_cache()
@@ -750,16 +1044,22 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
 
-    kernels = [phase_k1(dev), phase_k2(dev), phase_k3(dev)]
+    kernels = [phase_k1(dev), phase_k2(dev), phase_k3(dev), *phase_k4(dev)]
     phase_k3_grad(dev)
     by_path = {}
     with tempfile.TemporaryDirectory() as tmp:
         by_path["serving"] = phase_serving(dev, tmp)
         by_path["train_finetune"] = phase_train_finetune(dev)
         by_path["train_frozen"] = phase_train_frozen(dev)
+        by_path["serving_pp"] = phase_serving_pp(dev, tmp)
+        by_path["train_pp_finetune"] = phase_train_finetune(
+            dev, warmup=1, steps=2, label="pipeline-layout fine-tuned", profile=False,
+            per_step={"flash_attention": 12, "flash_attention_bwd": 12, "capsule_routing": 1},
+            layer_key="pp_layers.i_kernel", **{"train.pipeline_parallel": True})
+        by_path.update(phase_splash(dev, tmp))
         phase_entry_point(dev, tmp)
-    for k in kernels:  # this slice's main path: the fine-tuned training steps
-        k["launches"] = by_path["train_finetune"][k["name"]]
+    for k in kernels:  # each kernel's own main path: the path this slice or an earlier one brought it up on
+        k["launches"] = by_path[MAIN_PATH[k["name"]]][k["name"]]
         k["launches_by_path"] = {path: counts.get(k["name"], 0) for path, counts in by_path.items()}
     print(json.dumps({"kernels": kernels}))
     print(smi)

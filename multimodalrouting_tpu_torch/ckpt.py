@@ -10,12 +10,18 @@
 under its ``ckpt_dir`` (``best``, ``best_f1``, ``last``, ``final``); ``final``
 carries the fitted temperature and thresholds, and ``serve.Predictor`` loads
 any of them.
+
+Given the model's own state_dict, ``load_weights`` converts the BERT layers
+between the layered (``layer_i.*``) and pipeline-parallel (``pp_layers.*``,
+``parallel/pp.py``) layouts wherever the checkpoint and the model disagree,
+as the JAX package's ``ckpt._convert_bert_layouts`` does on restore: a
+layered checkpoint serves from a pipeline-layout config, and the reverse.
 """
 from __future__ import annotations
 
 import json
 import os
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, Iterable, Optional, Sequence
 
 import torch
 
@@ -53,5 +59,29 @@ def load_meta(ckpt_dir: str) -> Dict[str, Any]:
         return json.load(f)
 
 
-def load_weights(ckpt_dir: str, device="cpu") -> Dict[str, torch.Tensor]:
-    return torch.load(os.path.join(ckpt_dir, "weights.pt"), map_location=device, weights_only=True)
+_PP_KEY = "pp_layers.q_kernel"
+_LAYERED_KEY = "layer_0.attention.attn.q_proj.weight"
+
+
+def convert_bert_layout(weights: Dict[str, torch.Tensor], target_keys: Iterable[str]) -> Dict[str, torch.Tensor]:
+    """`weights` with every BERT encoder in the layout `target_keys` hold it
+    in (layered or pipeline-parallel); the rest passes through."""
+    from multimodalrouting_tpu_torch.parallel.pp import from_pp_layout, to_pp_layout
+
+    target = set(target_keys)
+    for key in sorted(target):
+        prefix = key[: -len(_PP_KEY)]
+        if key.endswith(_PP_KEY) and prefix + _LAYERED_KEY in weights:
+            weights = to_pp_layout(weights, prefix)
+    for key in sorted(weights):
+        prefix = key[: -len(_PP_KEY)]
+        if key.endswith(_PP_KEY) and prefix + _LAYERED_KEY in target:
+            weights = from_pp_layout(weights, prefix)
+    return weights
+
+
+def load_weights(ckpt_dir: str, device="cpu", like: Optional[Iterable[str]] = None) -> Dict[str, torch.Tensor]:
+    """The checkpoint's state_dict; with `like` (the model's state_dict or its
+    keys), in the model's BERT layout."""
+    weights = torch.load(os.path.join(ckpt_dir, "weights.pt"), map_location=device, weights_only=True)
+    return weights if like is None else convert_bert_layout(weights, like)

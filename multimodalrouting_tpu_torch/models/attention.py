@@ -1,15 +1,26 @@
 """Multi-head attention with a float32 softmax, sinusoidal positions and the
 causal future mask (counterpart of multimodalrouting_tpu/models/attention.py).
 
-``attention`` is the one dispatch point. On projected q/k/v [N, T, H*dh] it
-takes the packed kernels (``ops/flash_packed.py``: K1 forward, K2 backward)
-when there is no additive bias, no attention-weight dropout is drawn, q and
-k have one shape, no gradient flows through the caller
-(``frozen_fast_path``) or the packed backward covers the shape, and
-``supports_packed`` holds — the JAX package's default dispatch. Everything
-else runs the eager path: fp32 logits, the key mask applied with
-where(..., -1e9), fp32 softmax, weights cast to the compute dtype, then
-dropout on the weights in training.
+``attention`` is the one dispatch point, the JAX package's case for case
+(attention.py:163-206). On projected q/k/v [N, T, H*dh] with no additive
+bias, no attention-weight dropout drawn and q and k of one shape, the
+selector ``ops/flash.attention_impl`` (MMR_ATTN, MMR_FLASH) picks:
+
+- ``flash`` (default): the packed kernels (``ops/flash_packed.py``: K1
+  forward, K2 backward) where ``supports_packed`` holds and either no
+  gradient flows through the caller (``frozen_fast_path``) or the packed
+  backward covers the shape; else K4a (``ops/flash.py``) where
+  ``flash.supports`` holds;
+- ``packed``: K1 wherever ``supports_packed`` holds;
+- ``splash``: K4b wherever ``flash.supports`` holds;
+- ``xla``: neither.
+
+Under a gradient beyond the packed backward's ``MAX_T_BWD`` the JAX package
+back-propagates through its XLA attention (flash_packed.py:251-261); the
+port takes autograd of the eager attention there. Everything else runs the
+eager path: fp32 logits, the key mask applied with where(..., -1e9), fp32
+softmax, weights cast to the compute dtype, then dropout on the weights in
+training.
 
 Dropout runs where a ``generator`` is passed (training) and its rate is
 above 0, as flax's runs with a dropout key and ``deterministic=False``.
@@ -23,7 +34,7 @@ import torch
 from torch import nn
 
 from multimodalrouting_tpu_torch.models.layers import Dense, dropout
-from multimodalrouting_tpu_torch.ops import flash_packed
+from multimodalrouting_tpu_torch.ops import flash, flash_packed
 from multimodalrouting_tpu_torch.ops.masked import NEG_INF
 
 
@@ -58,6 +69,27 @@ def future_mask(tq: int, tk: int) -> torch.Tensor:
     return torch.from_numpy(np.where(j >= i + offset, NEG_INF, 0.0).astype(np.float32))
 
 
+def attention_branch(
+    tq: int, tk: int, head_dim: int, d: int, num_heads: int, *, frozen_fast_path: bool, needs_grad: bool,
+) -> str:
+    """Which attention a self-attention call of this shape takes under the
+    current selector: "packed" (K1/K2), "flash" (K4a), "splash" (K4b) or
+    "eager". The caller has checked the shape-free conditions (no bias, no
+    dropout drawn, q and k of one shape)."""
+    impl = flash.attention_impl()
+    if impl == "xla":
+        return "eager"
+    if impl in ("packed", "flash"):
+        take_packed = impl == "packed" or frozen_fast_path or flash_packed.supports_packed_bwd(tq, head_dim)
+        if take_packed and flash_packed.supports_packed(tq, tk, head_dim, d, num_heads):
+            if needs_grad and not flash_packed.supports_packed_bwd(tq, head_dim):
+                return "eager"  # K1 forced beyond its backward: the JAX package differentiates XLA's
+            return "packed"
+    if impl != "packed" and flash.supports(tq, tk, head_dim):
+        return "splash" if impl == "splash" else "flash"
+    return "eager"
+
+
 def attention(
     qh: torch.Tensor,  # [N, Tq, D] projected and scaled
     kh: torch.Tensor,  # [N, Tk, D]
@@ -75,18 +107,21 @@ def attention(
     n, tq, d = qh.shape
     tk = kh.shape[1]
     head_dim = d // num_heads
-    if (
-        attn_bias is None
-        and (generator is None or dropout_rate == 0.0)
-        and qh.shape == kh.shape
-        and (frozen_fast_path or flash_packed.supports_packed_bwd(tq, head_dim))
-        and flash_packed.supports_packed(tq, tk, head_dim, d, num_heads)
-    ):
+    branch = "eager"
+    if attn_bias is None and (generator is None or dropout_rate == 0.0) and qh.shape == kh.shape:
+        needs_grad = torch.is_grad_enabled() and (qh.requires_grad or kh.requires_grad or vh.requires_grad)
+        branch = attention_branch(
+            tq, tk, head_dim, d, num_heads, frozen_fast_path=frozen_fast_path, needs_grad=needs_grad,
+        )
+    if branch == "packed":
         return flash_packed.packed_attention(qh, kh, vh, kv_mask, num_heads).to(dtype)
 
     q4 = qh.reshape(n, tq, num_heads, head_dim)
     k4 = kh.reshape(n, tk, num_heads, head_dim)
     v4 = vh.reshape(n, tk, num_heads, head_dim)
+    if branch != "eager":
+        kernel = flash.splash_self_attention if branch == "splash" else flash.flash_self_attention
+        return kernel(q4, k4, v4, kv_mask).to(dtype).reshape(n, tq, d)
     logits = torch.einsum("bqhd,bkhd->bhqk", q4, k4).float()
     if attn_bias is not None:
         logits = logits + attn_bias.to(device=logits.device, dtype=torch.float32)[None, None]

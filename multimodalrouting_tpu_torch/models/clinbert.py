@@ -18,6 +18,11 @@ gathered to a [note_pack, L] buffer, and their embeddings are scattered back
 to the [B*S] grid, where padded chunks are zeroed either way — the output is
 the same as without packing. The JAX package passes the capacity through a
 global context manager; here it is an argument.
+
+``pipeline`` (``train.pipeline_parallel``) holds the layers in the stacked
+pipeline-parallel layout of ``parallel/pp.py`` (``bert.pp_layers``), run as a
+sequential loop on one card, with that layout's own attention dispatch (no
+packed branch: K4a where the segment-attention gate holds) and LayerNorm.
 """
 from __future__ import annotations
 
@@ -31,6 +36,7 @@ from multimodalrouting_tpu_torch.models.layers import Dense, Embed, dropout
 from multimodalrouting_tpu_torch.ops.gelu import apply_gelu
 from multimodalrouting_tpu_torch.ops.layernorm import LayerNorm, bert_layer_norm
 from multimodalrouting_tpu_torch.ops.masked import masked_max, masked_mean
+from multimodalrouting_tpu_torch.parallel.pp import PipelinedBertLayers
 
 
 class BertSelfAttentionBlock(nn.Module):
@@ -70,14 +76,17 @@ class BertEncoder(nn.Module):
         self, vocab_size: int = 28996, hidden: int = 768, layers: int = 12, heads: int = 12,
         intermediate: int = 3072, max_position: int = 512, type_vocab: int = 2,
         frozen_fast_path: bool = False, gelu: str = "erf", ln: str = "fp32", dtype=torch.float32,
-        dropout: float = 0.0,
+        dropout: float = 0.0, pipeline: bool = False,
     ):
         super().__init__()
-        self.layers, self.dropout = layers, dropout
+        self.layers, self.dropout, self.pipeline = layers, dropout, pipeline
         self.word_embeddings = Embed(vocab_size, hidden, dtype)
         self.position_embeddings = Embed(max_position, hidden, dtype)
         self.token_type_embeddings = Embed(type_vocab, hidden, dtype)
         self.embed_ln = bert_layer_norm(ln, hidden, 1e-12, dtype)
+        if pipeline:  # the stacked pipeline-parallel layout (parallel/pp.py)
+            self.pp_layers = PipelinedBertLayers(layers, hidden, heads, intermediate, gelu, dtype)
+            return
         for i in range(layers):
             self.add_module(
                 f"layer_{i}",
@@ -93,6 +102,8 @@ class BertEncoder(nn.Module):
             + self.token_type_embeddings(torch.zeros_like(input_ids))
         )
         x = dropout(self.embed_ln(x), self.dropout, generator)
+        if self.pipeline:
+            return self.pp_layers(x, attention_mask)
         for i in range(self.layers):
             x = getattr(self, f"layer_{i}")(x, attention_mask, generator)
         return x
@@ -107,7 +118,7 @@ class BioClinBERTEncoder(nn.Module):
         finetune_text: bool = False, gelu: str = "erf", ln: str = "fp32",
         vocab_size: int = 28996, hidden: int = 768, layers: int = 12, heads: int = 12,
         intermediate: int = 3072, max_position: int = 512, type_vocab: int = 2,
-        dtype=torch.float32, dropout: float = 0.0,
+        dtype=torch.float32, dropout: float = 0.0, pipeline: bool = False,
     ):
         super().__init__()
         self.d, self.hidden, self.dtype = d, hidden, dtype
@@ -115,6 +126,7 @@ class BioClinBERTEncoder(nn.Module):
         self.bert = BertEncoder(
             vocab_size, hidden, layers, heads, intermediate, max_position, type_vocab,
             frozen_fast_path=not finetune_text, gelu=gelu, ln=ln, dtype=dtype, dropout=dropout,
+            pipeline=pipeline,
         )
         if d != hidden:
             self.proj_ln = LayerNorm(hidden, 1e-5, dtype)

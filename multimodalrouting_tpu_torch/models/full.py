@@ -78,7 +78,7 @@ class TriEncoder(nn.Module):
             gelu=e.bert_gelu, ln=e.bert_ln, vocab_size=e.bert_vocab_size, hidden=e.bert_hidden,
             layers=e.bert_layers, heads=e.bert_heads, intermediate=e.bert_intermediate,
             max_position=e.bert_max_position, type_vocab=e.bert_type_vocab, dtype=dtype,
-            dropout=e.dropout,
+            dropout=e.dropout, pipeline=cfg.train.pipeline_parallel,
         )
         self.imgenc = ImageEncoder(
             d=e.d, vision_backbone=e.vision_backbone, vision_num_classes=e.vision_num_classes,
@@ -209,13 +209,13 @@ def build_model(cfg: Config, family: str = "capsule", *, device="cuda", train: b
     """The model on `device`, in eval mode, or in train mode with `train`.
     Parameters are fp32 masters; only under the frozen-text default with bf16
     compute is the BERT body held in bf16 (output-identical: the compute casts
-    it to bf16 at every use anyway), and it then takes no gradient (JAX
-    state.py:151-168)."""
+    it to bf16 at every use anyway), layered or in the pipeline layout, and
+    it then takes no gradient (JAX state.py:151-168)."""
     if family != "capsule":
         raise NotImplementedError(f"family {family!r} is not ported yet (ROADMAP.md, modules still to port)")
     e = cfg.encoder
-    if e.int8_text or cfg.train.pipeline_parallel:
-        raise NotImplementedError("int8 and pipelined BERT bodies are not ported yet (ROADMAP.md)")
+    if e.int8_text:
+        raise NotImplementedError("the int8 BERT body is not ported yet (ROADMAP.md)")
     dev = resolve_device(device)
     model = CapsuleRoutingModel(cfg)
     if not e.finetune_text:

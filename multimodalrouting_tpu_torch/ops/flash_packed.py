@@ -105,8 +105,10 @@ def _check_cuda(named) -> None:
             raise ValueError(f"{name}: inner dim must be contiguous with 16-byte aligned rows")
 
 
-def _cuda_mask(kv_mask: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    n, t, _ = q.shape
+def cuda_mask(kv_mask: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """The [N, T] key mask as the kernels read it: contiguous fp32 on q's
+    device (q is [N, T, ...])."""
+    n, t = q.shape[:2]
     mask = kv_mask.to(device=q.device, dtype=torch.float32).contiguous()
     if mask.shape != (n, t):
         raise ValueError(f"kv_mask must be [{n}, {t}], got {tuple(mask.shape)}")
@@ -118,7 +120,7 @@ def packed_attention_fwd(q, k, v, kv_mask, num_heads: int, want_lse: bool):
     or None without `want_lse`)."""
     n, t, d = q.shape
     _check_cuda((("q", q), ("k", k), ("v", v)))
-    mask = _cuda_mask(kv_mask, q)
+    mask = cuda_mask(kv_mask, q)
     out = torch.empty((n, t, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((n, num_heads, t), dtype=torch.float32, device=q.device) if want_lse else None
     lib = hopper.library("packed_attention")
@@ -147,7 +149,7 @@ def packed_attention_bwd(q, k, v, kv_mask, lse, do, num_heads: int) -> Tuple[tor
     if q.device.type == "cpu":
         return packed_attention_bwd_reference(q, k, v, kv_mask, do, num_heads)
     _check_cuda((("q", q), ("k", k), ("v", v), ("do", do)))
-    mask = _cuda_mask(kv_mask, q)
+    mask = cuda_mask(kv_mask, q)
     if lse is None or lse.shape != (n, num_heads, t) or lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError(f"lse must be a contiguous fp32 [{n}, {num_heads}, {t}] from the forward kernel")
     dq, dk, dv = (torch.empty((n, t, d), dtype=q.dtype, device=q.device) for _ in range(3))

@@ -1,6 +1,6 @@
 """Build and load the hand-written Hopper kernels under ``csrc/``.
 
-Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
+Each ``csrc/<name>.cu`` (with the shared ``csrc/*.cuh``) exposes a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into its own shared library, loaded with ``ctypes``.
 Libraries land in ``build/kernels/`` beside the package (listed in
 ``.gitignore``), named by a hash of their source and flags, so an edited
@@ -24,7 +24,7 @@ from typing import Dict, Sequence
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "kernels")
-SOURCES = ("packed_attention", "packed_attention_bwd", "capsule_routing")
+SOURCES = ("packed_attention", "packed_attention_bwd", "flash_attention", "flash_attention_bwd", "capsule_routing")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -43,6 +43,14 @@ _SIGNATURES = {
     "packed_attention_bwd": {
         name: (_I, [_PTR] * 10 + [_I] * 4 + [_LL] * 10 + [_PTR])
         for name in ("packed_attention_bwd_bf16", "packed_attention_bwd_f32")
+    },
+    "flash_attention": {
+        name: (_I, [_PTR] * 6 + [_I] * 4 + [_LL] * 8 + [_PTR])
+        for name in ("flash_attention_bf16", "flash_attention_f32")
+    },
+    "flash_attention_bwd": {
+        name: (_I, [_PTR] * 10 + [_I] * 4 + [_LL] * 10 + [_PTR])
+        for name in ("flash_attention_bwd_bf16", "flash_attention_bwd_f32")
     },
     "capsule_routing": {"capsule_routing_f32": (_I, [_PTR] * 6 + [_I] * 6 + [_PTR])},
 }

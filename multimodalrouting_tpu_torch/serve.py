@@ -183,7 +183,7 @@ class Predictor:
         self.ckpt_dir = ckpt_dir
         self.model = build_model(cfg, family, device=device)
         self.device = next(self.model.parameters()).device
-        self.model.load_state_dict(load_weights(ckpt_dir))
+        self.model.load_state_dict(load_weights(ckpt_dir, like=self.model.state_dict()))
         meta = load_meta(ckpt_dir)
         self.temperature = float(meta.get("temperature", 1.0) or 1.0)
         th = meta.get("thresholds")

@@ -28,6 +28,7 @@ from multimodalrouting_tpu_torch.configs import Config
 from multimodalrouting_tpu_torch.data.batches import Batch, batch_to
 from multimodalrouting_tpu_torch.metrics.calibration import find_best_thresholds, fit_temperature
 from multimodalrouting_tpu_torch.metrics.classification import epoch_metrics
+from multimodalrouting_tpu_torch.parallel.pp import validate_pp
 from multimodalrouting_tpu_torch.serve import probs_from_logits
 from multimodalrouting_tpu_torch.train.state import TrainState, create_train_state, serving_state_dict
 from multimodalrouting_tpu_torch.train.steps import make_eval_step, make_train_step
@@ -109,6 +110,8 @@ def train_model(
     on numpy cohorts; checkpoints go to ``ckpt_dir/<best|best_f1|last|final>``."""
     t, m = cfg.train, cfg.model
     if t.num_data_shards * t.num_model_shards > 1:
+        if t.pipeline_parallel:  # the JAX package's checks and messages first
+            validate_pp(cfg, t.num_model_shards)
         raise NotImplementedError("device meshes are not ported yet (ROADMAP.md)")
     if hasattr(train_cohort, "epoch_iter"):
         raise NotImplementedError("streaming splits are not ported yet (ROADMAP.md)")

@@ -1,6 +1,8 @@
 """The Hopper kernels against their plain versions, on the card: K1 (packed
 attention), K2 (its backward) alone and through autograd, K3 (capsule
-routing) and its autograd gradient.
+routing) and its autograd gradient, K4 (segment attention, the kernel pair
+of K4a flash and K4b splash) forward and backward alone and through
+autograd, with its two launch counters.
 
 These need a CUDA card and the CUDA toolkit (the kernels are built from
 multimodalrouting_tpu_torch/csrc/ at first use) and skip elsewhere. They
@@ -13,8 +15,16 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import K1_FP32_TOL, K2_FP32_TOL, bf16_errors, describe_bf16, within_bf16_limits
+from chip_smoke import K1_FP32_TOL, K2_FP32_TOL, K4_FP32_TOL, bf16_errors, describe_bf16, within_bf16_limits
 from multimodalrouting_tpu_torch.ops.capsule import capsule_weight_init
+from multimodalrouting_tpu_torch.ops.flash import (
+    flash_self_attention,
+    segment_attention_bwd,
+    segment_attention_bwd_reference,
+    segment_attention_fwd,
+    segment_attention_reference,
+    splash_self_attention,
+)
 from multimodalrouting_tpu_torch.ops.flash_packed import (
     packed_attention,
     packed_attention_bwd,
@@ -189,3 +199,81 @@ def test_capsule_kernel_refuses_rows_beyond_shared_memory(cuda):
     w = torch.zeros((10, 32, 25, 64), device=cuda)  # 10 x 25 x 64 fp32 votes = 64 KB
     with torch.no_grad(), pytest.raises(RuntimeError, match="capsule_routing of N=10, A=32, M=25, D=64"):
         capsule_routing_fused(pose, act, w, 3)
+
+
+def _assert_k4_close(name, got, ref, exact, dtype):
+    """K4's limits in chip_smoke.py: K1's bf16 limits per output, every row."""
+    if dtype == torch.float32:
+        atol, rtol = K4_FP32_TOL
+        torch.testing.assert_close(got, ref, rtol=rtol, atol=atol, msg=name)
+        return
+    errors = bf16_errors(got, ref, exact)
+    assert within_bf16_limits(errors), f"{name}: {describe_bf16(errors)}"
+
+
+@pytest.mark.parametrize(
+    "dtype,h,dh,t",
+    [(torch.bfloat16, 3, 64, 256), (torch.float32, 3, 64, 256), (torch.bfloat16, 2, 128, 512),
+     (torch.float32, 2, 128, 512), (torch.bfloat16, 3, 64, 1024), (torch.float32, 1, 64, 1024)],
+)
+def test_segment_attention_kernels_match_plain(cuda, dtype, h, dh, t):
+    """K4 forward and backward on every row (pad queries and an all-pad
+    chunk included), odd head counts, dh 128 and T = 1024."""
+    q, k, v, m = _attn_inputs(4, t, h, dh, dtype, cuda)
+    do = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(6), device=cuda).to(dtype)
+    q4, k4, v4, do4 = (x.unflatten(2, (h, dh)) for x in (q, k, v, do))
+    with torch.no_grad():
+        before = (flash_self_attention.launches, flash_self_attention.bwd_launches)
+        out, lse = segment_attention_fwd(q4, k4, v4, m, True, flash_self_attention)
+        grads = segment_attention_bwd(q4, k4, v4, m, out, lse, do4, flash_self_attention)
+    torch.cuda.synchronize()
+    assert (flash_self_attention.launches, flash_self_attention.bwd_launches) == (before[0] + 1, before[1] + 1)
+    assert torch.isfinite(out).all() and all(torch.isfinite(g).all() for g in grads)
+    qf, kf, vf = q4.float(), k4.float(), v4.float()
+    exact = segment_attention_reference(qf, kf, vf, m)
+    _assert_k4_close("out", out, segment_attention_reference(q4, k4, v4, m), exact, dtype)
+    exact_grads = segment_attention_bwd_reference(qf, kf, vf, m, exact, do4.float())
+    for name, g, r, e in zip(("dq", "dk", "dv"), grads, segment_attention_bwd_reference(q4, k4, v4, m, out, do4),
+                             exact_grads):
+        _assert_k4_close(name, g, r, e, dtype)
+
+
+@pytest.mark.parametrize("wrapper", [flash_self_attention, splash_self_attention])
+def test_segment_attention_autograd_matches_plain_and_counts(cuda, wrapper):
+    """K4 forward + backward through autograd on column slices of a fused
+    projection, as [N, T, H, dh] views; each wrapper counts on its own
+    counters only."""
+    n, t, h, dh = 3, 256, 3, 64
+    d = h * dh
+    g = torch.Generator(device=cuda).manual_seed(3)
+    qkv = torch.randn((n, t, 3 * d), generator=g, device=cuda).to(torch.bfloat16).requires_grad_()
+    m = torch.ones((n, t), device=cuda)
+    m[1, 100:] = 0.0
+    m[2] = 0.0
+    do = torch.randn((n, t, h, dh), generator=g, device=cuda).to(torch.bfloat16)
+    other = splash_self_attention if wrapper is flash_self_attention else flash_self_attention
+    before = (wrapper.launches, wrapper.bwd_launches, other.launches, other.bwd_launches)
+    q4, k4, v4 = (x.unflatten(2, (h, dh)) for x in qkv.split(d, dim=-1))
+    out = wrapper(q4, k4, v4, m)
+    (got,) = torch.autograd.grad(out, qkv, do)
+    assert (wrapper.launches, wrapper.bwd_launches, other.launches, other.bwd_launches) == (
+        before[0] + 1, before[1] + 1, before[2], before[3])
+    q4, k4, v4 = (x.detach().contiguous().unflatten(2, (h, dh)) for x in qkv.split(d, dim=-1))
+    ref = segment_attention_bwd_reference(q4, k4, v4, m, out.detach(), do)
+    exact = segment_attention_reference(q4.float(), k4.float(), v4.float(), m)
+    exact_grads = segment_attention_bwd_reference(q4.float(), k4.float(), v4.float(), m, exact, do.float())
+    for name, x, r, e in zip(("dq", "dk", "dv"), got.split(d, dim=-1), ref, exact_grads):
+        _assert_k4_close(name, x.unflatten(2, (h, dh)), r, e, torch.bfloat16)
+
+
+def test_segment_attention_kernel_refuses_unsupported_shapes(cuda):
+    """Outside the gate (T % 128, dh) the wrappers raise instead of
+    launching; a head row that is not contiguous is refused too."""
+    x = torch.zeros((2, 320, 2, 64), device=cuda, dtype=torch.bfloat16)
+    before = flash_self_attention.launches
+    with torch.no_grad(), pytest.raises(ValueError, match="T=320"):
+        flash_self_attention(x, x, x, None)
+    y = torch.zeros((2, 256, 64, 2), device=cuda, dtype=torch.bfloat16).transpose(2, 3)  # [N, T, H=2, dh=64], dh strided
+    with torch.no_grad(), pytest.raises(ValueError, match="contiguous"):
+        splash_self_attention(y, y, y, None)
+    assert flash_self_attention.launches == before
