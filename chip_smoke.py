@@ -12,18 +12,20 @@ toolkit. It
 2. holds K1 (packed attention) against its plain version at the flagship
    shape [128, 512, 768] in bf16 with masks from the synthetic cohort
    (all-pad chunks included), in fp32 at a smaller N, and at head_dim 128;
-3. holds K2 (the packed attention's backward) against its plain version at
-   the same shapes, with a cotangent on every row, and shows that the bf16
-   limits reject two planted faults;
+3. holds K2 (the packed attention's backward: the di kernel, then the dq
+   and dk/dv kernels) against its plain version at the same shapes, with a
+   cotangent on every row, requires a repeat launch to give the same bits,
+   holds the di kernel alone against its plain version, and shows that the
+   bf16 limits reject two planted faults;
 4. holds K3 (fused capsule routing) against its plain version at
    [16, 10, 32] x [10, 32, 2, 64], and its autograd gradients against
    autograd through the plain program;
 5. holds K4 (segment attention, the kernel pair of K4a flash and K4b
    splash), forward and backward, against its plain versions on every row at
    the flagship shape, at head_dim 128, at T = 1024 with 3 heads and in
-   fp32, shows that the bf16 limits reject two planted faults (K1's key-mask
-   semantics, a dropped key tile), and times it beside SDPA with the
-   boolean segment mask;
+   fp32 (a repeat backward giving the same bits), shows that the bf16 limits
+   reject two planted faults (K1's key-mask semantics, a dropped key tile),
+   and times it beside SDPA with the boolean segment mask;
 6. writes a full-width flagship checkpoint (BERT-base 12 x 768 over 8 x 512
    note chunks, ResNet34 on 224^2, MulT d=256, 10-route capsule head, bf16)
    with seeded random weights, loads it with Predictor(device="cuda") and
@@ -81,6 +83,8 @@ from multimodalrouting_tpu_torch.ops.flash import (
     splash_self_attention,
 )
 from multimodalrouting_tpu_torch.ops.flash_packed import (
+    attention_bwd_di,
+    attention_bwd_di_reference,
     packed_attention,
     packed_attention_bwd,
     packed_attention_bwd_reference,
@@ -112,10 +116,13 @@ K1_BF16_MAX_REL = 2.0**-6
 K1_BF16_RMS_RATIO = 2.0
 K1_FP32_TOL = (2e-5, 2e-5)  # (atol, rtol): the same function summed in another order
 # K2 in bf16 is held by K1's two limits, for each of dq, dk and dv. The
-# kernel and the plain version round p (for dv) and ds (for dq, dk) to bf16
-# at the same place; they differ by fp32 summation order before those
-# roundings and the outputs', so rms(got - ref) is well under the plain
-# version's own rounding error.
+# kernel and the plain version round p (for dv) and ds (for dk) to bf16 at
+# the same place; they differ by fp32 summation order before those roundings
+# and the outputs'. For dq the kernel rounds ds = p (dp - di) with di from
+# the bf16 output and then moves dq to the plain version's rowsum(dp p):
+# where the two differ by a part of an ulp of ds, the roundings fall apart,
+# up to two independent roundings of one size (~sqrt(2) of the plain
+# version's own error).
 K2_FP32_TOL = (2e-5, 2e-5)
 # K4 (segment attention, forward and backward) in bf16 is held by K1's two
 # limits on every row and each output: like K1 the kernel rounds p relative
@@ -123,6 +130,9 @@ K2_FP32_TOL = (2e-5, 2e-5)
 # order) normalised at T <= 512 or per 512-key block beyond; the backward
 # rounds p and ds where the plain version does.
 K4_FP32_TOL = (2e-5, 2e-5)
+# di = rowsum(o * do) in fp32: the kernel and the plain version sum the same
+# products in another order.
+DI_TOL = (2e-5, 2e-5)
 K3_TOL = (1e-5, 1e-5)  # fp32 routing, sums in another order
 # End to end, bf16 on the card against fp32 on the CPU through 12 BERT
 # layers, the ResNet and the MulT streams: bf16 keeps ~3 significant digits.
@@ -180,6 +190,34 @@ def kernel_ms(fn, name_parts, iters: int) -> float:
         require(len(hits) > 0, f"no kernel named *{part}* in the profiler trace")
         total += sum(hits) / len(hits) / 1e3
     return total
+
+
+# The attention backward's kernels (K2 and K4 alike), in launch order.
+BWD_KERNELS = {"di": "bwd_di_kernel", "dq": "bwd_dq_wgmma_kernel", "dkdv": "bwd_dkdv_wgmma_kernel"}
+
+
+def bwd_ms(fn, iters: int = 20) -> tuple:
+    """Device time of one backward call: every CUDA kernel in a profiler
+    trace of `iters` calls, summed and divided by `iters`, with its split
+    into BWD_KERNELS. Fails if a kernel of the backward is missing or another
+    kernel ran. -> (ms, {part: ms})."""
+    spans = device_spans(fn, iters)
+    split = {part: sum(us for name, us in spans if key in name) / iters / 1e3 for part, key in BWD_KERNELS.items()}
+    require(all(ms > 0 for ms in split.values()), f"a backward kernel is missing from the trace: {split}")
+    others = sorted({name for name, _ in spans if not any(key in name for key in BWD_KERNELS.values())})
+    require(not others, f"the backward launched other kernels: {others}")
+    return sum(us for _, us in spans) / iters / 1e3, split
+
+
+def describe_split(split: dict) -> str:
+    return " + ".join(f"{part} {ms:.4f}" for part, ms in split.items())
+
+
+def require_repeatable(tag: str, first, again) -> None:
+    """The split backward writes each output from one block, in one order:
+    a second launch on the same inputs must give the same bits."""
+    require(all(torch.equal(a, b) for a, b in zip(first, again)),
+            f"{tag}: a second backward launch on the same inputs gave other bits")
 
 
 def bound(bytes_moved: float, flops: float, kind: str):
@@ -332,9 +370,11 @@ def k2_inputs(n: int, t: int, heads: int, dh: int, dtype, dev, mask):
 
 def check_k2(tag: str, q, k, v, m, do, heads: int) -> float:
     """K2 against its plain version: bf16 limits per output (with `exact`,
-    the plain version in fp32 with nothing rounded), or fp32 tolerances."""
-    _, lse = packed_attention_fwd(q, k, v, m, heads, want_lse=True)
-    got = packed_attention_bwd(q, k, v, m, lse, do, heads)
+    the plain version in fp32 with nothing rounded), or fp32 tolerances; a
+    second launch must give the same bits."""
+    out, lse = packed_attention_fwd(q, k, v, m, heads, want_lse=True)
+    got = packed_attention_bwd(q, k, v, m, out, lse, do, heads)
+    require_repeatable(f"K2 {tag}", got, packed_attention_bwd(q, k, v, m, out, lse, do, heads))
     torch.cuda.synchronize()
     ref = packed_attention_bwd_reference(q, k, v, m, do, heads)
     if q.dtype == torch.float32:
@@ -364,9 +404,10 @@ def phase_k2(dev) -> dict:
                 rejected.append(not within_bf16_limits(errors))
             require(any(rejected), f"the bf16 limits accept a planted K2 fault: {fault}")
         del ref, exact, dropped
-        _, lse = packed_attention_fwd(q, k, v, m, 12, want_lse=True)
-        ms = kernel_ms(lambda: packed_attention_bwd(q, k, v, m, lse, do, 12),
-                       ("bwd_dq_bf16_kernel", "bwd_dkdv_bf16_kernel"), 20)
+        out, lse = packed_attention_fwd(q, k, v, m, 12, want_lse=True)
+        check_close("di bf16 [128,512,768] dh=64", attention_bwd_di(heads4(out, 12), heads4(do, 12)),
+                    attention_bwd_di_reference(heads4(out, 12), heads4(do, 12)), *DI_TOL)
+        ms, split = bwd_ms(lambda: packed_attention_bwd(q, k, v, m, out, lse, do, 12))
         plain_ms = device_time_ms(lambda: packed_attention_bwd_reference(q, k, v, m, do, 12), 5)
     # the library's backward: SDPA on the same [N, H, T, dh] view and additive mask
     q4, k4, v4 = (x.unflatten(2, (12, 64)).transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
@@ -382,15 +423,16 @@ def phase_k2(dev) -> dict:
         q2, k2, v2, m2, do2 = k2_inputs(32, 512, 6, 128, torch.bfloat16, dev, mask)
         check_k2("bf16 [32,512,768] dh=128", q2, k2, v2, m2, do2, 6)
     n, t, d, h, dh = 128, 512, 768, 12, 64
-    # reads q, k, v, do, the mask and K1's lse once; writes dq, dk, dv once;
-    # five T x T x dh products per head
-    bound_ms, bound_by = bound(7 * n * t * d * 2 + n * t * 4 + n * h * t * 4, 10 * n * h * t * t * dh, "bf16")
-    log(f"[k2] kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by})")
+    # reads q, k, v, K1's output o, do, the mask and K1's lse once; writes
+    # dq, dk, dv once; five T x T x dh products per head
+    bound_ms, bound_by = bound(8 * n * t * d * 2 + n * t * 4 + n * h * t * 4, 10 * n * h * t * t * dh, "bf16")
+    log(f"[k2] kernel_ms={ms:.4f} ({describe_split(split)}) plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+        f"bound_ms={bound_ms:.4f} ({bound_by})")
     return {
         "name": "packed_attention_bwd", "route": "cuda",
         "source": "multimodalrouting_tpu_torch/csrc/packed_attention_bwd.cu",
         "replaces": "multimodalrouting_tpu/ops/flash_packed.py:140",
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "max_abs_err": err, "ms": ms, "split_ms": split, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": library_ms,
     }
 
@@ -423,10 +465,12 @@ def check_k4(tag: str, q, k, v, m, do, heads: int) -> tuple:
     """K4 forward and backward against the plain versions on every row:
     bf16 limits per output (`exact`: the plain versions in fp32 with nothing
     rounded), or fp32 tolerances. The serving forward (no lse) must equal the
-    training one. -> (forward error, backward error)."""
+    training one, and a second backward launch must give the same bits.
+    -> (forward error, backward error)."""
     q4, k4, v4, do4 = (heads4(x, heads) for x in (q, k, v, do))
     out, lse = segment_attention_fwd(q4, k4, v4, m, True, flash_self_attention)
     grads = segment_attention_bwd(q4, k4, v4, m, out, lse, do4, flash_self_attention)
+    require_repeatable(f"K4 {tag}", grads, segment_attention_bwd(q4, k4, v4, m, out, lse, do4, flash_self_attention))
     serving = flash_self_attention(q4, k4, v4, m)
     torch.cuda.synchronize()
     require(torch.equal(serving, out), f"K4 {tag}: the serving forward differs from the training one")
@@ -485,10 +529,8 @@ def phase_k4(dev) -> list:
                   for w in (flash_self_attention, splash_self_attention)}
         ms_lse = kernel_ms(lambda: segment_attention_fwd(q4, k4, v4, m, True, flash_self_attention),
                            "attention_fwd_bf16_kernel", 20)
-        bwd_ms = {w.__name__: kernel_ms(lambda: segment_attention_bwd(q4, k4, v4, m, out, lse, do4, w),
-                                        ("bwd_dq_bf16_kernel", "bwd_dkdv_bf16_kernel"), 20)
-                  for w in (flash_self_attention, splash_self_attention)}
-        di_ms = device_time_ms(lambda: (out.float() * do4.float()).sum(dim=-1).transpose(1, 2).contiguous(), 20)
+        bwd = {w.__name__: bwd_ms(lambda: segment_attention_bwd(q4, k4, v4, m, out, lse, do4, w))
+               for w in (flash_self_attention, splash_self_attention)}
         plain_ms = device_time_ms(lambda: segment_attention_reference(q4, k4, v4, m), 5)
         plain_bwd_ms = device_time_ms(lambda: segment_attention_bwd_reference(q4, k4, v4, m, out, do4), 3)
         # the library: SDPA on the [N, H, T, dh] view with the boolean segment mask [N, 1, T, T]
@@ -509,14 +551,15 @@ def phase_k4(dev) -> list:
         check_k4("fp32 [8,1024,256] dh=128", *k2_inputs(8, 1024, 2, 128, torch.float32, dev, long_mask), 2)
     d = h * dh
     bound_ms, bound_by = bound(4 * n * t * d * 2 + n * t * 4, 4 * n * h * t * t * dh, "bf16")
-    # the backward reads q, k, v, do, the mask, lse and di once, writes dq,
+    # the backward reads q, k, v, o, do, the mask and lse once, writes dq,
     # dk, dv once; five T x T x dh products per head
-    bwd_bound_ms, bwd_bound_by = bound(7 * n * t * d * 2 + n * t * 4 + 2 * n * h * t * 4,
+    bwd_bound_ms, bwd_bound_by = bound(8 * n * t * d * 2 + n * t * 4 + n * h * t * 4,
                                        10 * n * h * t * t * dh, "bf16")
     log(f"[k4] forward kernel_ms={fwd_ms} (with the lse write {ms_lse:.4f}) plain_ms={plain_ms:.4f} "
         f"library_ms={library_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by})")
-    log(f"[k4] backward kernel_ms={bwd_ms} (di reduction {di_ms:.4f} ms) plain_ms={plain_bwd_ms:.4f} "
-        f"library_ms={library_bwd_ms:.4f} bound_ms={bwd_bound_ms:.4f} ({bwd_bound_by})")
+    for w, (ms, split) in bwd.items():
+        log(f"[k4] {w} backward kernel_ms={ms:.4f} ({describe_split(split)}) plain_ms={plain_bwd_ms:.4f} "
+            f"library_ms={library_bwd_ms:.4f} bound_ms={bwd_bound_ms:.4f} ({bwd_bound_by})")
     rows = []
     for name, wrapper, replaces in (("flash_attention", flash_self_attention, "multimodalrouting_tpu/ops/flash.py:100"),
                                     ("splash_attention", splash_self_attention, "multimodalrouting_tpu/ops/flash.py:48")):
@@ -527,8 +570,8 @@ def phase_k4(dev) -> list:
         })
         rows.append({
             "name": f"{name}_bwd", "route": "cuda", "source": "multimodalrouting_tpu_torch/csrc/flash_attention_bwd.cu",
-            "replaces": replaces, "max_abs_err": bwd_err, "ms": bwd_ms[wrapper.__name__], "di_ms": di_ms,
-            "plain_ms": plain_bwd_ms, "bound_ms": bwd_bound_ms, "bound_by": bwd_bound_by,
+            "replaces": replaces, "max_abs_err": bwd_err, "ms": bwd[wrapper.__name__][0],
+            "split_ms": bwd[wrapper.__name__][1], "plain_ms": plain_bwd_ms, "bound_ms": bwd_bound_ms, "bound_by": bwd_bound_by,
             "library_ms": library_bwd_ms,
         })
     return rows
@@ -811,8 +854,10 @@ def profile_step(fn, label: str, top: int = 15) -> None:
     busy_ms = sum(total for _, total in by_name.values())
     log(f"[profile] {label}: wall_ms={wall_ms:.2f} device_busy_ms={busy_ms:.2f} "
         f"idle_share={max(0.0, 1 - busy_ms / wall_ms):.3f} kernels={sum(n for n, _ in by_name.values())}")
-    for name, (n, total) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]:
-        log(f"[profile] {total:9.3f} ms {100 * total / busy_ms:5.1f}% x{n:<5d} {name[:110]}")
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+    for rank, (name, (n, total)) in enumerate(ranked):
+        if rank < top or "attn::" in name:  # the top rows and every attention kernel
+            log(f"[profile] {total:9.3f} ms {100 * total / busy_ms:5.1f}% x{n:<5d} {name[:110]}")
 
 
 def phase_train_finetune(dev, warmup: int = 2, steps: int = 5, label: str = "fine-tuned", per_step=None,

@@ -1,35 +1,64 @@
 // Self-attention backward kernels over the strided [N, T, H, dh] view of the
 // packed [N, T, H*dh] layout, shared by K2 (packed_attention_bwd.cu) and the
 // backward of K4 (flash_attention_bwd.cu). Given q (pre-scaled), k, v, the
-// mask, the forward's per-row log-sum-exp lse [N, H, T] and the output
-// cotangent do, they recompute the fp32 softmax p = exp(logit + mask term -
-// lse) (mask terms as in attention_fwd.cuh) and return
+// mask, the forward's per-row log-sum-exp lse [N, H, T], its output o and the
+// output cotangent do, they recompute the fp32 softmax p = exp(logit + mask
+// term - lse) (mask terms as in attention_fwd.cuh) and return
 //   dv = p^T do            (p rounded to the input type first),
 //   dp = do v^T,
 //   ds = p * (dp - delta),
 //   dq = ds k, dk = ds^T q (ds rounded to the input type first),
 // with fp32 accumulators and outputs in the input type. The scale of q is
 // applied outside (autograd owns its gradient). delta is each row's
-// rowsum(dp * p):
-//   kKeyMask (K2): the dq kernel computes it in a first sweep over the key
-//                  tiles, from p and dp as the TPU packed kernel does, and
-//                  writes it to a scratch [N, H, T] for the dk/dv kernel;
-//   kSegment (K4): the caller passes it in, di = rowsum(o * do) from the
-//                  saved output, as the upstream flash backward takes it
-//                  (flash_attention.py:273-275), so the dq kernel makes one
-//                  sweep: 7 T x T x dh products against K2's 9.
+// rowsum(dp * p) = rowsum(o * do) (o = p v), taken in the order of the TPU
+// kernel each entry point replaces: K4's upstream kernels take
+// di = rowsum(o * do) from the saved output; the TPU packed kernel (K2) sums
+// rowsum(dp * p) from fp32 p.
 //
-// Two kernels, launched in order on one stream:
-//   1. dq: one block per (64-query tile, head, chunk);
-//   2. dk/dv: one block per (64-key tile, head, chunk). The block computes
-//      S^T = K Q^T and dP^T = V dO^T with its keys as the rows, so p^T and
-//      ds^T come out of the accumulators already in the A layout of the next
-//      products dv += p^T do and dk += ds^T q.
-// bf16 multiplies with mma.sync m16n8k16 (fp32 accumulators): the block's own
-// rows stay in registers as A fragments, the streamed tiles sit row-major in
-// shared memory, and B fragments that run down a column are read as two
-// 16-bit loads (ld_col_pair), so no transposed copy is stored. The fp32 path
-// is plain FMA, one key (or query) per lane.
+// Three kernels, launched in order on one stream by both entry points:
+//   1. di: di[n, h, t] = sum_d o * do in fp32, 16-byte loads with
+//      neighbouring lanes on a row's neighbouring bytes, a shuffle reduction
+//      over the lanes of one head;
+//   2. dq: one block per (64-query tile, head, chunk), one sweep over the
+//      key tiles: S = Q K^T, dP = dO V^T, dQ += dS K with ds from di (3
+//      products). Under the key mask (K2) the sweep also sums the TPU order's
+//      delta = rowsum(dp * p) from its fp32 p and dp, and P K (a 4th
+//      product); at the end dQ += (di - delta) P K, which moves dQ to the ds
+//      of delta, and delta overwrites the block's rows of di. di alone is not
+//      enough there: o is stored in bf16, and its rounding error is the same
+//      for every key of a row, so it adds up coherently in dq = ds k and
+//      dk = ds^T q (measured: twice the bf16 rounding of ds itself when
+//      attention is peaked);
+//   3. dk/dv: one block per (64-key tile, head, chunk), one sweep over the
+//      query tiles: S^T = K Q^T, dP^T = V dO^T, dV += P^T dO, dK += dS^T Q
+//      (4 products). 7 T x T x dh products in all (8 under the key mask),
+//      against the 5 the function needs; the other design, one kernel with
+//      dq summed in fp32 across key tiles, saves 2 but adds an fp32 [N, T, D]
+//      accumulator's zeroing, 8 reductions into it and a conversion (more
+//      bytes than the two products' time at the flagship shape), and sums in
+//      an order that changes from run to run. Here dq, dk and dv are the same
+//      bits in every run.
+//
+// bf16 product kernels (sm_90a; building blocks in sm90.cuh). A block is
+// one consumer warpgroup (128 threads, wgmma's 64 rows) and one producer
+// warp. The producer's lane 0 loads the block's resident tiles once (Q and
+// dO in the dq kernel, K and V in the dk/dv kernel) and streams the other
+// two through a ring of kStages stages with TMA, in the 128-byte swizzle
+// (4-D tensor maps over the caller's strides, so the packed and K4's views
+// are read in place), together with the streamed rows' mask values (and
+// lse, di in the dk/dv kernel) by bulk copy; mbarriers report each stage
+// full and, once the warpgroup's products on it have retired, empty. The
+// first two products of a tile are wgmma with both operands in shared
+// memory (K-major); their fp32 accumulators become p and ds in registers,
+// are packed to bf16 in place as the register A operand of the last
+// product(s), whose B is the streamed tile itself read MN-major through
+// wgmma's transpose flag, so no transposed copy is stored. dh = 128 is two
+// 64-column halves per tile; its dk/dv kernel streams 32 queries per tile
+// (m64n32 for S^T and dP^T), so that 2 x 64 accumulators of dK and dV fit
+// beside them without spilling, and its key-mask dq kernel runs one block
+// per SM (dQ and P K take 2 x 64 accumulators). The fp32 path is plain FMA,
+// one key (or query) per lane, with di from the di kernel in both modes
+// (o in fp32 carries no rounding that matters).
 //
 // Key mask only: a row whose keys are all padding has every logit at exactly
 // -1e30 in fp32, so its softmax is uniform, 1/T; its lse rounds to -1e30 and
@@ -44,6 +73,7 @@
 
 #include "attention_fwd.cuh"
 #include "mma_bf16.cuh"
+#include "sm90.cuh"
 
 namespace attn {
 
@@ -58,232 +88,455 @@ __device__ __forceinline__ float recompute_p(float logit, float lse, float inv_t
   return expf(logit - lse);
 }
 
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// recompute_p for the bf16 kernels, as one FMA and the hardware exp2:
+// p = 2^(logit log2 e - lse log2 e), with lse2 = lse * log2 e. Its error
+// (~2^-22 relative) is far below the bf16 rounding p and ds take next; the
+// full-precision expf is the larger part of these kernels' instructions.
+template <int MODE>
+__device__ __forceinline__ float recompute_p_ex2(float logit, float lse, float lse2, float inv_t) {
+  if (MODE == kKeyMask && lse <= kAllPadLse) return inv_t;
+  return ex2(fmaf(logit, kLog2e, -lse2));
+}
+
+// -------------------------------------------------------------------- di
+
+__device__ __forceinline__ float dot16(const uint4& a, const uint4& b, const bf16*) {
+  const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
+  const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 u = __bfloat1622float2(x[i]), w = __bfloat1622float2(y[i]);
+    s = fmaf(u.x, w.x, s);
+    s = fmaf(u.y, w.y, s);
+  }
+  return s;
+}
+
+__device__ __forceinline__ float dot16(const uint4& a, const uint4& b, const float*) {
+  const float* x = reinterpret_cast<const float*>(&a);
+  const float* y = reinterpret_cast<const float*>(&b);
+  return fmaf(x[0], y[0], fmaf(x[1], y[1], fmaf(x[2], y[2], x[3] * y[3])));
+}
+
+constexpr int kDiThreads = 256;
+
+// One thread per 16 bytes of o (and of do); the kLanes lanes of one head's
+// row are neighbours in a warp, so the row is read in whole 32-byte sectors.
+template <typename T, int DH>
+__global__ void __launch_bounds__(kDiThreads) bwd_di_kernel(const T* __restrict__ out, const T* __restrict__ dout,
+                                                            float* __restrict__ di, int t, int heads, ll o_sn,
+                                                            ll o_st, ll do_sn, ll do_st) {
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kLanes = DH / kVec;  // 8 or 16 (bf16), 16 or 32 (fp32)
+  const ll idx = (ll)blockIdx.x * kDiThreads + threadIdx.x;
+  const int per_row = heads * kLanes;
+  const ll row = idx / per_row;  // n * t + token
+  const int j = (int)(idx % per_row);
+  const int head = j / kLanes;
+  const int col = head * DH + (j % kLanes) * kVec;
+  const ll n = row / t, tok = row % t;
+  const uint4 a = *reinterpret_cast<const uint4*>(out + n * o_sn + tok * o_st + col);
+  const uint4 b = *reinterpret_cast<const uint4*>(dout + n * do_sn + tok * do_st + col);
+  float s = dot16(a, b, out);
+#pragma unroll
+  for (int off = kLanes / 2; off >= 1; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (j % kLanes == 0) di[(n * heads + head) * t + tok] = s;
+}
+
+// The caller has checked: t % 128 == 0, dh in {64, 128}, o and do with a
+// contiguous head row and 16-byte aligned rows and base; di a contiguous
+// fp32 [n, heads, t]. Returns the cudaError_t of the launch.
+template <typename T>
+int launch_di(const void* out, const void* dout, float* di, int n, int t, int heads, int dh, ll o_sn, ll o_st,
+              ll do_sn, ll do_st, cudaStream_t s) {
+  const ll threads = (ll)n * t * heads * dh * (ll)sizeof(T) / 16;  // a multiple of kDiThreads
+  const dim3 grid((unsigned)(threads / kDiThreads));
+  const T* o = static_cast<const T*>(out);
+  const T* d = static_cast<const T*>(dout);
+  if (dh == 64) {
+    bwd_di_kernel<T, 64><<<grid, kDiThreads, 0, s>>>(o, d, di, t, heads, o_sn, o_st, do_sn, do_st);
+  } else if (dh == 128) {
+    bwd_di_kernel<T, 128><<<grid, kDiThreads, 0, s>>>(o, d, di, t, heads, o_sn, o_st, do_sn, do_st);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 // ---------------------------------------------------------------- bf16 path
 
-constexpr int kTile = 64;  // a block's own rows: 4 warps x 16
+constexpr int kTile = 64;       // a warpgroup's own rows (wgmma M) and the dq kernel's key tile
+constexpr int kStages = 2;      // ring depth of the streamed tiles
+constexpr int kThreads = 160;   // one consumer warpgroup + one producer warp
+constexpr int kDqBlocks = 2;    // dq blocks resident on one SM (register cap)
+constexpr int kHalfBytes = kTile * 128;  // 64 rows x one 128-byte swizzle row
 
-// A fragments of 16 rows [r0, r0 + 8] x DH of a packed tensor, for the rows'
-// whole dh (kept in registers).
-template <int DH>
-__device__ __forceinline__ void load_a_rows(uint32_t (&a)[DH / 16][4], const bf16* base, ll st,
-                                            ll r0, int c2) {
-  const ll r1 = r0 + 8;
+// Key mask (K2) takes the TPU kernel's order: rowsum(dp * p) from fp32 p and
+// dp, summed in the dq kernel's sweep (see bwd_dq_wgmma_kernel). dh = 128
+// with its correction accumulator does not fit two blocks' registers.
+template <int DH, int MODE>
+constexpr int dq_min_blocks() {
+  return DH == 128 && MODE == kKeyMask ? 1 : kDqBlocks;
+}
+
+// This thread's accumulator columns 8j + c2, 8j + c2 + 1 of rows g, g + 8
+// (d[4j .. 4j + 3]) as the A fragment of k-step kk (columns 16kk..16kk+15).
+template <int R>
+__device__ __forceinline__ void acc_to_a_frag(uint32_t (&a)[4], const float (&d)[R], int kk) {
+  a[0] = pack_bf16(d[8 * kk + 0], d[8 * kk + 1]);
+  a[1] = pack_bf16(d[8 * kk + 2], d[8 * kk + 3]);
+  a[2] = pack_bf16(d[8 * kk + 4], d[8 * kk + 5]);
+  a[3] = pack_bf16(d[8 * kk + 6], d[8 * kk + 7]);
+}
+
+// Rows r0 and r0 + 8 of a 64-column half accumulator into bf16 output rows.
+__device__ __forceinline__ void store_half(bf16* base, ll st, ll r0, int col0, int c2, const float (&d)[32]) {
 #pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk) {
-    const int col = kk * 16 + c2;
-    a[kk][0] = ld32(base + r0 * st + col);
-    a[kk][1] = ld32(base + r1 * st + col);
-    a[kk][2] = ld32(base + r0 * st + col + 8);
-    a[kk][3] = ld32(base + r1 * st + col + 8);
+  for (int j = 0; j < 8; ++j) {
+    const int col = col0 + j * 8 + c2;
+    *reinterpret_cast<uint32_t*>(base + r0 * st + col) = pack_bf16(d[4 * j], d[4 * j + 1]);
+    *reinterpret_cast<uint32_t*>(base + (r0 + 8) * st + col) = pack_bf16(d[4 * j + 2], d[4 * j + 3]);
   }
 }
 
-// rows [row0, row0 + ROWS) x DH of a packed tensor into a padded shared tile,
-// 16-byte vector loads with consecutive threads along a row.
-template <int DH, int ROWS>
-__device__ __forceinline__ void load_tile(bf16 (*dst)[DH + kPad], const bf16* base, ll st, int row0,
-                                          int tid) {
-  constexpr int kChunks = DH / 8;
-  for (int i = tid; i < ROWS * kChunks; i += 128) {
-    const int r = i / kChunks;
-    const int c = (i % kChunks) * 8;
-    *reinterpret_cast<uint4*>(&dst[r][c]) =
-        *reinterpret_cast<const uint4*>(base + (ll)(row0 + r) * st + c);
-  }
+template <int DH>
+constexpr int dq_smem_bytes() {
+  // Q, dO resident; K, V per stage; the stages' key mask values; barriers; alignment slack
+  return (2 + 2 * kStages) * kTile * DH * 2 + kStages * kTile * 4 + (2 * kStages + 1) * 8 + sm90::kAtomBytes;
 }
 
-template <int DH>
-__device__ __forceinline__ void store_rows(bf16* base, ll st, ll r0, int c2, const float (&acc)[DH / 8][4]) {
-#pragma unroll
-  for (int dn = 0; dn < DH / 8; ++dn) {
-    const int col = dn * 8 + c2;
-    *reinterpret_cast<uint32_t*>(base + r0 * st + col) = pack_bf16(acc[dn][0], acc[dn][1]);
-    *reinterpret_cast<uint32_t*>(base + (r0 + 8) * st + col) = pack_bf16(acc[dn][2], acc[dn][3]);
-  }
+template <int DH, int QT>
+constexpr int dkdv_smem_bytes() {
+  // K, V resident; Q, dO per stage; the stages' lse, di, mask; barriers; alignment slack
+  return 2 * kTile * DH * 2 + 2 * kStages * QT * DH * 2 + kStages * 3 * QT * 4 + (2 * kStages + 1) * 8 +
+         sm90::kAtomBytes;
 }
 
 template <int DH, int MODE>
-__global__ void __launch_bounds__(128) bwd_dq_bf16_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const float* __restrict__ mask, const float* __restrict__ lse, const bf16* __restrict__ dout,
-    bf16* __restrict__ dq, float* __restrict__ delta, int t, ll q_sn, ll q_st, ll k_sn, ll k_st,
-    ll v_sn, ll v_st, ll do_sn, ll do_st, ll g_sn, ll g_st) {
-  __shared__ __align__(16) bf16 ks[kTile][DH + kPad];  // K tile [key][dim]
-  __shared__ __align__(16) bf16 vs[kTile][DH + kPad];  // V tile [key][dim]
-  __shared__ float keys[kTile];                        // key_term of each key
+__global__ void __launch_bounds__(kThreads, dq_min_blocks<DH, MODE>()) bwd_dq_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+    const float* __restrict__ mask, const float* __restrict__ lse, float* __restrict__ di,
+    bf16* __restrict__ dq, int t, ll g_sn, ll g_st) {
+  constexpr int kH = DH / 64;                 // 64-column halves per row
+  constexpr int kTB = kH * kHalfBytes;        // one 64-row tile
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* q_s = sm90::align_1024(smem_raw);
+  uint8_t* do_s = q_s + kTB;
+  uint8_t* ring = do_s + kTB;                 // stage s: K at s * 2 kTB, V kTB further
+  float* keys_s = reinterpret_cast<float*>(ring + kStages * 2 * kTB);  // [kStages][kTile] mask values
+  uint64_t* full = reinterpret_cast<uint64_t*>(keys_s + kStages * kTile);
+  uint64_t* empty = full + kStages;
+  uint64_t* resident = empty + kStages;
 
   const int n = blockIdx.z, head = blockIdx.y, q0 = blockIdx.x * kTile;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, c2 = (lane & 3) * 2;
-  const ll hoff = (ll)head * DH;
-  const bf16* kb = k + n * k_sn + hoff;
-  const bf16* vb = v + n * v_sn + hoff;
-  const float* mb = mask + (ll)n * t;
-  const ll stat = ((ll)n * gridDim.y + head) * t;  // row offset into lse / delta
+  const int tiles = t / kTile;
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 128);
+    }
+    sm90::mbar_init(resident, 1);
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
 
+  if (warp == 4) {  // producer
+    if (lane == 0) {
+      sm90::mbar_expect_tx(resident, 2 * kTB);
+      for (int h = 0; h < kH; ++h) {
+        sm90::tma_load_4d(q_s + h * kHalfBytes, &tq, resident, h * 64, head, q0, n);
+        sm90::tma_load_4d(do_s + h * kHalfBytes, &tdo, resident, h * 64, head, q0, n);
+      }
+      for (int j = 0; j < tiles; ++j) {
+        const int s = j % kStages;
+        if (j >= kStages) sm90::mbar_wait(&empty[s], (j / kStages - 1) & 1);
+        uint8_t* ks = ring + s * 2 * kTB;
+        sm90::mbar_expect_tx(&full[s], 2 * kTB + kTile * 4);
+        for (int h = 0; h < kH; ++h) {
+          sm90::tma_load_4d(ks + h * kHalfBytes, &tk, &full[s], h * 64, head, j * kTile, n);
+          sm90::tma_load_4d(ks + kTB + h * kHalfBytes, &tv, &full[s], h * 64, head, j * kTile, n);
+        }
+        sm90::bulk_load(keys_s + s * kTile, mask + (ll)n * t + j * kTile, kTile * 4, &full[s]);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup: this thread's query rows r0, r0 + 8
+  const int g = lane >> 2, c2 = (lane & 3) * 2;
   const ll r0 = q0 + warp * 16 + g, r1 = r0 + 8;
-  uint32_t qa[DH / 16][4], da[DH / 16][4];
-  load_a_rows<DH>(qa, q + n * q_sn + hoff, q_st, r0, c2);
-  load_a_rows<DH>(da, dout + n * do_sn + hoff, do_st, r0, c2);
+  const ll stat = ((ll)n * gridDim.y + head) * t;
   const float lse0 = lse[stat + r0], lse1 = lse[stat + r1];
-  const float mq0 = mb[r0], mq1 = mb[r1];  // read by the segment test only
+  const float l2_0 = lse0 * kLog2e, l2_1 = lse1 * kLog2e;
+  const float di0 = di[stat + r0], di1 = di[stat + r1];
+  const float mq0 = mask[(ll)n * t + r0], mq1 = mask[(ll)n * t + r1];  // read by the segment test only
   const float inv_t = 1.f / t;
 
-  float acc[DH / 8][4];
+  // Key mask: the TPU order's delta = rowsum(dp * p) of this thread's
+  // columns (rs), and corr = P K, with which the ds of the di kernel's di is
+  // moved to that delta at the end.
+  constexpr bool kTpuDelta = MODE == kKeyMask;
+  float rs0 = 0.f, rs1 = 0.f;
+  float acc[kH][32], corr[kH][32];
 #pragma unroll
-  for (int dn = 0; dn < DH / 8; ++dn) acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
-  // segment ids: delta is the caller's di; key mask: pass 0 computes it
-  float delta0 = MODE == kSegment ? delta[stat + r0] : 0.f;
-  float delta1 = MODE == kSegment ? delta[stat + r1] : 0.f;
+  for (int h = 0; h < kH; ++h)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[h][i] = corr[h][i] = 0.f;
 
-  for (int pass = MODE == kSegment ? 1 : 0; pass < 2; ++pass) {  // 0: delta; 1: dq = ds k
-    for (int k0 = 0; k0 < t; k0 += kTile) {
-      __syncthreads();
-      load_tile<DH, kTile>(ks, kb, k_st, k0, tid);
-      load_tile<DH, kTile>(vs, vb, v_st, k0, tid);
-      if (tid < kTile) keys[tid] = key_term<MODE>(mb[k0 + tid]);
-      __syncthreads();
+  sm90::mbar_wait(resident, 0);
+  for (int j = 0; j < tiles; ++j) {
+    const int s = j % kStages;
+    sm90::mbar_wait(&full[s], (j / kStages) & 1);
+    const uint8_t* ks = ring + s * 2 * kTB;
+    const uint8_t* vs = ks + kTB;
 
-      float s[kTile / 8][4], dp[kTile / 8][4];
+    float sc[32], dp[32];  // S then P; dP then dS
+    sm90::wg_fence();
 #pragma unroll
-      for (int j = 0; j < kTile / 8; ++j) {
-        s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-        dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      const int off = (kk / 4) * kHalfBytes + (kk % 4) * 32;
+      sm90::wgmma_ss_n64(sc, sm90::desc_kmajor(q_s + off), sm90::desc_kmajor(ks + off), kk > 0);
+    }
 #pragma unroll
-        for (int kk = 0; kk < DH / 16; ++kk) {
-          mma_bf16(s[j], qa[kk], ld32(&ks[j * 8 + g][kk * 16 + c2]), ld32(&ks[j * 8 + g][kk * 16 + c2 + 8]));
-          mma_bf16(dp[j], da[kk], ld32(&vs[j * 8 + g][kk * 16 + c2]), ld32(&vs[j * 8 + g][kk * 16 + c2 + 8]));
-        }
-        const float n0 = keys[j * 8 + c2], n1 = keys[j * 8 + c2 + 1];
-        s[j][0] = recompute_p<MODE>(masked<MODE>(s[j][0], mq0, n0), lse0, inv_t);
-        s[j][1] = recompute_p<MODE>(masked<MODE>(s[j][1], mq0, n1), lse0, inv_t);
-        s[j][2] = recompute_p<MODE>(masked<MODE>(s[j][2], mq1, n0), lse1, inv_t);
-        s[j][3] = recompute_p<MODE>(masked<MODE>(s[j][3], mq1, n1), lse1, inv_t);
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      const int off = (kk / 4) * kHalfBytes + (kk % 4) * 32;
+      sm90::wgmma_ss_n64(dp, sm90::desc_kmajor(do_s + off), sm90::desc_kmajor(vs + off), kk > 0);
+    }
+    sm90::wg_commit();
+    sm90::wg_wait_all();
+    sm90::fence_regs(sc);
+    sm90::fence_regs(dp);
+
+    const float* keys = keys_s + s * kTile;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {  // p in place of s, ds = p * (dp - di) in place of dp
+      const float n0 = key_term<MODE>(keys[jj * 8 + c2]), n1 = key_term<MODE>(keys[jj * 8 + c2 + 1]);
+      sc[4 * jj + 0] = recompute_p_ex2<MODE>(masked<MODE>(sc[4 * jj + 0], mq0, n0), lse0, l2_0, inv_t);
+      sc[4 * jj + 1] = recompute_p_ex2<MODE>(masked<MODE>(sc[4 * jj + 1], mq0, n1), lse0, l2_0, inv_t);
+      sc[4 * jj + 2] = recompute_p_ex2<MODE>(masked<MODE>(sc[4 * jj + 2], mq1, n0), lse1, l2_1, inv_t);
+      sc[4 * jj + 3] = recompute_p_ex2<MODE>(masked<MODE>(sc[4 * jj + 3], mq1, n1), lse1, l2_1, inv_t);
+      if constexpr (kTpuDelta) {
+        rs0 = fmaf(sc[4 * jj + 0], dp[4 * jj + 0], fmaf(sc[4 * jj + 1], dp[4 * jj + 1], rs0));
+        rs1 = fmaf(sc[4 * jj + 2], dp[4 * jj + 2], fmaf(sc[4 * jj + 3], dp[4 * jj + 3], rs1));
       }
-      if (pass == 0) {
+      dp[4 * jj + 0] = sc[4 * jj + 0] * (dp[4 * jj + 0] - di0);
+      dp[4 * jj + 1] = sc[4 * jj + 1] * (dp[4 * jj + 1] - di0);
+      dp[4 * jj + 2] = sc[4 * jj + 2] * (dp[4 * jj + 2] - di1);
+      dp[4 * jj + 3] = sc[4 * jj + 3] * (dp[4 * jj + 3] - di1);
+    }
+    uint32_t a[4][4], pa[4][4];  // ds and (key mask) p rounded to bf16: A operands of dS K, P K
 #pragma unroll
-        for (int j = 0; j < kTile / 8; ++j) {
-          delta0 += s[j][0] * dp[j][0] + s[j][1] * dp[j][1];
-          delta1 += s[j][2] * dp[j][2] + s[j][3] * dp[j][3];
-        }
-        continue;
-      }
+    for (int kk = 0; kk < 4; ++kk) {
+      acc_to_a_frag(a[kk], dp, kk);
+      if constexpr (kTpuDelta) acc_to_a_frag(pa[kk], sc, kk);
+    }
+
+    sm90::wg_fence();
 #pragma unroll
-      for (int j = 0; j < kTile / 8; ++j) {  // ds = p * (dp - delta), in place of p
-        s[j][0] *= dp[j][0] - delta0;
-        s[j][1] *= dp[j][1] - delta0;
-        s[j][2] *= dp[j][2] - delta1;
-        s[j][3] *= dp[j][3] - delta1;
-      }
+    for (int h = 0; h < kH; ++h) {
 #pragma unroll
-      for (int kk = 0; kk < kTile / 16; ++kk) {
-        uint32_t a[4];
-        acc_to_a(a, s[2 * kk], s[2 * kk + 1]);  // ds rounded to bf16
-#pragma unroll
-        for (int dn = 0; dn < DH / 8; ++dn) {
-          mma_bf16(acc[dn], a, ld_col_pair(&ks[kk * 16 + c2][dn * 8 + g], DH + kPad),
-                   ld_col_pair(&ks[kk * 16 + c2 + 8][dn * 8 + g], DH + kPad));
-        }
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t kd = sm90::desc_mnmajor(ks + h * kHalfBytes + kk * 2 * sm90::kAtomBytes);
+        sm90::wgmma_rs_n64_mn(acc[h], a[kk], kd);
+        if constexpr (kTpuDelta) sm90::wgmma_rs_n64_mn(corr[h], pa[kk], kd);
       }
     }
-    if (pass == 0) {
+    sm90::wg_commit();
+    sm90::wg_wait_all();
 #pragma unroll
-      for (int off = 1; off <= 2; off <<= 1) {
-        delta0 += __shfl_xor_sync(0xffffffffu, delta0, off);
-        delta1 += __shfl_xor_sync(0xffffffffu, delta1, off);
+    for (int h = 0; h < kH; ++h) {
+      sm90::fence_regs(acc[h]);
+      if constexpr (kTpuDelta) sm90::fence_regs(corr[h]);
+    }
+    sm90::mbar_arrive(&empty[s]);
+  }
+  if constexpr (kTpuDelta) {
+    // the quad's four lanes hold a row's columns: its delta, then
+    // dq = sum_k ds_k k_k with ds from di, plus (di - delta) P K: the ds of
+    // delta up to the bf16 rounding of ds. delta replaces di for the dk/dv
+    // kernel; no other dq block reads these rows.
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      rs0 += __shfl_xor_sync(0xffffffffu, rs0, off);
+      rs1 += __shfl_xor_sync(0xffffffffu, rs1, off);
+    }
+    const float e0 = di0 - rs0, e1 = di1 - rs1;
+#pragma unroll
+    for (int h = 0; h < kH; ++h)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        acc[h][4 * j + 0] = fmaf(e0, corr[h][4 * j + 0], acc[h][4 * j + 0]);
+        acc[h][4 * j + 1] = fmaf(e0, corr[h][4 * j + 1], acc[h][4 * j + 1]);
+        acc[h][4 * j + 2] = fmaf(e1, corr[h][4 * j + 2], acc[h][4 * j + 2]);
+        acc[h][4 * j + 3] = fmaf(e1, corr[h][4 * j + 3], acc[h][4 * j + 3]);
       }
-      if ((lane & 3) == 0) {
-        delta[stat + r0] = delta0;
-        delta[stat + r1] = delta1;
-      }
+    if (c2 == 0) {
+      di[stat + r0] = rs0;
+      di[stat + r1] = rs1;
     }
   }
-  store_rows<DH>(dq + n * g_sn + hoff, g_st, r0, c2, acc);
+  bf16* gb = dq + n * g_sn + (ll)head * DH;
+#pragma unroll
+  for (int h = 0; h < kH; ++h) store_half(gb, g_st, r0, h * 64, c2, acc[h]);
 }
 
-template <int DH, int QT, int MODE>  // QT queries per shared tile
-__global__ void __launch_bounds__(128) bwd_dkdv_bf16_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const float* __restrict__ mask, const float* __restrict__ lse, const bf16* __restrict__ dout,
-    const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv, int t, ll q_sn,
-    ll q_st, ll k_sn, ll k_st, ll v_sn, ll v_st, ll do_sn, ll do_st, ll g_sn, ll g_st) {
-  __shared__ __align__(16) bf16 qs[QT][DH + kPad];   // Q tile [query][dim]
-  __shared__ __align__(16) bf16 dos[QT][DH + kPad];  // dO tile [query][dim]
-  __shared__ float lses[QT], deltas[QT], mqs[QT];    // mqs: the queries' mask values (segment ids)
+template <int DH, int QT, int MODE>  // QT queries per streamed tile
+__global__ void __launch_bounds__(kThreads, 1) bwd_dkdv_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
+    const float* __restrict__ mask, const float* __restrict__ lse, const float* __restrict__ di,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, int t, ll g_sn, ll g_st) {
+  constexpr int kH = DH / 64;
+  constexpr int kTB = kH * kHalfBytes;  // one 64-row tile (K, V)
+  constexpr int kQHalf = QT * 128;      // one QT-row half (Q, dO)
+  constexpr int kQB = kH * kQHalf;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* k_s = sm90::align_1024(smem_raw);
+  uint8_t* v_s = k_s + kTB;
+  uint8_t* ring = v_s + kTB;  // stage s: Q at s * 2 kQB, dO kQB further
+  float* stats = reinterpret_cast<float*>(ring + kStages * 2 * kQB);  // [kStages][lse, di, mask][QT]
+  uint64_t* full = reinterpret_cast<uint64_t*>(stats + kStages * 3 * QT);
+  uint64_t* empty = full + kStages;
+  uint64_t* resident = empty + kStages;
 
   const int n = blockIdx.z, head = blockIdx.y, k0 = blockIdx.x * kTile;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, c2 = (lane & 3) * 2;
-  const ll hoff = (ll)head * DH;
-  const bf16* qb = q + n * q_sn + hoff;
-  const bf16* dob = dout + n * do_sn + hoff;
-  const float* mb = mask + (ll)n * t;
+  const int tiles = t / QT;
   const ll stat = ((ll)n * gridDim.y + head) * t;
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 128);
+    }
+    sm90::mbar_init(resident, 1);
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
 
-  // this thread's key rows r0, r1: the rows of S^T, dP^T, dk, dv
+  if (warp == 4) {  // producer
+    if (lane == 0) {
+      sm90::mbar_expect_tx(resident, 2 * kTB);
+      for (int h = 0; h < kH; ++h) {
+        sm90::tma_load_4d(k_s + h * kHalfBytes, &tk, resident, h * 64, head, k0, n);
+        sm90::tma_load_4d(v_s + h * kHalfBytes, &tv, resident, h * 64, head, k0, n);
+      }
+      for (int j = 0; j < tiles; ++j) {
+        const int s = j % kStages;
+        if (j >= kStages) sm90::mbar_wait(&empty[s], (j / kStages - 1) & 1);
+        uint8_t* qs = ring + s * 2 * kQB;
+        float* st = stats + s * 3 * QT;
+        sm90::mbar_expect_tx(&full[s], 2 * kQB + 3 * QT * 4);
+        for (int h = 0; h < kH; ++h) {
+          sm90::tma_load_4d(qs + h * kQHalf, &tq, &full[s], h * 64, head, j * QT, n);
+          sm90::tma_load_4d(qs + kQB + h * kQHalf, &tdo, &full[s], h * 64, head, j * QT, n);
+        }
+        sm90::bulk_load(st, lse + stat + j * QT, QT * 4, &full[s]);
+        sm90::bulk_load(st + QT, di + stat + j * QT, QT * 4, &full[s]);
+        sm90::bulk_load(st + 2 * QT, mask + (ll)n * t + j * QT, QT * 4, &full[s]);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup: this thread's key rows r0, r0 + 8 (rows of S^T, dP^T, dK, dV)
+  const int g = lane >> 2, c2 = (lane & 3) * 2;
   const ll r0 = k0 + warp * 16 + g, r1 = r0 + 8;
-  uint32_t ka[DH / 16][4], va[DH / 16][4];
-  load_a_rows<DH>(ka, k + n * k_sn + hoff, k_st, r0, c2);
-  load_a_rows<DH>(va, v + n * v_sn + hoff, v_st, r0, c2);
-  const float key0 = key_term<MODE>(mb[r0]), key1 = key_term<MODE>(mb[r1]);
+  const float key0 = key_term<MODE>(mask[(ll)n * t + r0]), key1 = key_term<MODE>(mask[(ll)n * t + r1]);
   const float inv_t = 1.f / t;
 
-  float dk_acc[DH / 8][4], dv_acc[DH / 8][4];
+  float dk_acc[kH][32], dv_acc[kH][32];
 #pragma unroll
-  for (int dn = 0; dn < DH / 8; ++dn) {
-    dk_acc[dn][0] = dk_acc[dn][1] = dk_acc[dn][2] = dk_acc[dn][3] = 0.f;
-    dv_acc[dn][0] = dv_acc[dn][1] = dv_acc[dn][2] = dv_acc[dn][3] = 0.f;
-  }
+  for (int h = 0; h < kH; ++h)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk_acc[h][i] = dv_acc[h][i] = 0.f;
 
-  for (int qq0 = 0; qq0 < t; qq0 += QT) {
-    __syncthreads();
-    load_tile<DH, QT>(qs, qb, q_st, qq0, tid);
-    load_tile<DH, QT>(dos, dob, do_st, qq0, tid);
-    if (tid < QT) {
-      lses[tid] = lse[stat + qq0 + tid];
-      deltas[tid] = delta[stat + qq0 + tid];
-      if (MODE == kSegment) mqs[tid] = mb[qq0 + tid];
+  sm90::mbar_wait(resident, 0);
+  for (int j = 0; j < tiles; ++j) {
+    const int s = j % kStages;
+    sm90::mbar_wait(&full[s], (j / kStages) & 1);
+    const uint8_t* qs = ring + s * 2 * kQB;
+    const uint8_t* dos = qs + kQB;
+    const float* lses = stats + s * 3 * QT;
+    const float* dis = lses + QT;
+    const float* mqs = lses + 2 * QT;
+
+    float sc[QT / 2], dp[QT / 2];  // S^T then P^T; dP^T then dS^T
+    sm90::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      const int col = (kk % 4) * 32;
+      sm90::wgmma_ss<QT>(sc, sm90::desc_kmajor(k_s + (kk / 4) * kHalfBytes + col),
+                         sm90::desc_kmajor(qs + (kk / 4) * kQHalf + col), kk > 0);
     }
-    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      const int col = (kk % 4) * 32;
+      sm90::wgmma_ss<QT>(dp, sm90::desc_kmajor(v_s + (kk / 4) * kHalfBytes + col),
+                         sm90::desc_kmajor(dos + (kk / 4) * kQHalf + col), kk > 0);
+    }
+    sm90::wg_commit();
+    sm90::wg_wait_all();
+    sm90::fence_regs(sc);
+    sm90::fence_regs(dp);
 
-    float s[QT / 8][4], dp[QT / 8][4];  // S^T then p^T; dP^T then ds^T
 #pragma unroll
-    for (int j = 0; j < QT / 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < DH / 16; ++kk) {
-        mma_bf16(s[j], ka[kk], ld32(&qs[j * 8 + g][kk * 16 + c2]), ld32(&qs[j * 8 + g][kk * 16 + c2 + 8]));
-        mma_bf16(dp[j], va[kk], ld32(&dos[j * 8 + g][kk * 16 + c2]), ld32(&dos[j * 8 + g][kk * 16 + c2 + 8]));
-      }
-      const int c = j * 8 + c2;  // the two query columns of this thread
-      const float l0 = lses[c], l1 = lses[c + 1], d0 = deltas[c], d1 = deltas[c + 1];
+    for (int jj = 0; jj < QT / 8; ++jj) {
+      const int c = jj * 8 + c2;  // the two query columns of this thread
+      const float l0 = lses[c], l1 = lses[c + 1], d0 = dis[c], d1 = dis[c + 1];
       const float mq0 = MODE == kSegment ? mqs[c] : 0.f, mq1 = MODE == kSegment ? mqs[c + 1] : 0.f;
-      s[j][0] = recompute_p<MODE>(masked<MODE>(s[j][0], mq0, key0), l0, inv_t);
-      s[j][1] = recompute_p<MODE>(masked<MODE>(s[j][1], mq1, key0), l1, inv_t);
-      s[j][2] = recompute_p<MODE>(masked<MODE>(s[j][2], mq0, key1), l0, inv_t);
-      s[j][3] = recompute_p<MODE>(masked<MODE>(s[j][3], mq1, key1), l1, inv_t);
-      dp[j][0] = s[j][0] * (dp[j][0] - d0);
-      dp[j][1] = s[j][1] * (dp[j][1] - d1);
-      dp[j][2] = s[j][2] * (dp[j][2] - d0);
-      dp[j][3] = s[j][3] * (dp[j][3] - d1);
+      const float l2_0 = l0 * kLog2e, l2_1 = l1 * kLog2e;
+      sc[4 * jj + 0] = recompute_p_ex2<MODE>(masked<MODE>(sc[4 * jj + 0], mq0, key0), l0, l2_0, inv_t);
+      sc[4 * jj + 1] = recompute_p_ex2<MODE>(masked<MODE>(sc[4 * jj + 1], mq1, key0), l1, l2_1, inv_t);
+      sc[4 * jj + 2] = recompute_p_ex2<MODE>(masked<MODE>(sc[4 * jj + 2], mq0, key1), l0, l2_0, inv_t);
+      sc[4 * jj + 3] = recompute_p_ex2<MODE>(masked<MODE>(sc[4 * jj + 3], mq1, key1), l1, l2_1, inv_t);
+      dp[4 * jj + 0] = sc[4 * jj + 0] * (dp[4 * jj + 0] - d0);
+      dp[4 * jj + 1] = sc[4 * jj + 1] * (dp[4 * jj + 1] - d1);
+      dp[4 * jj + 2] = sc[4 * jj + 2] * (dp[4 * jj + 2] - d0);
+      dp[4 * jj + 3] = sc[4 * jj + 3] * (dp[4 * jj + 3] - d1);
     }
+    uint32_t pa[QT / 16][4], sa[QT / 16][4];  // p^T and ds^T rounded to bf16
 #pragma unroll
     for (int kk = 0; kk < QT / 16; ++kk) {
-      uint32_t pa[4], sa[4];
-      acc_to_a(pa, s[2 * kk], s[2 * kk + 1]);    // p rounded to bf16
-      acc_to_a(sa, dp[2 * kk], dp[2 * kk + 1]);  // ds rounded to bf16
+      acc_to_a_frag(pa[kk], sc, kk);
+      acc_to_a_frag(sa[kk], dp, kk);
+    }
+
+    sm90::wg_fence();
 #pragma unroll
-      for (int dn = 0; dn < DH / 8; ++dn) {
-        mma_bf16(dv_acc[dn], pa, ld_col_pair(&dos[kk * 16 + c2][dn * 8 + g], DH + kPad),
-                 ld_col_pair(&dos[kk * 16 + c2 + 8][dn * 8 + g], DH + kPad));
-        mma_bf16(dk_acc[dn], sa, ld_col_pair(&qs[kk * 16 + c2][dn * 8 + g], DH + kPad),
-                 ld_col_pair(&qs[kk * 16 + c2 + 8][dn * 8 + g], DH + kPad));
+    for (int h = 0; h < kH; ++h) {
+#pragma unroll
+      for (int kk = 0; kk < QT / 16; ++kk) {
+        const int off = h * kQHalf + kk * 2 * sm90::kAtomBytes;
+        sm90::wgmma_rs_n64_mn(dv_acc[h], pa[kk], sm90::desc_mnmajor(dos + off));
+        sm90::wgmma_rs_n64_mn(dk_acc[h], sa[kk], sm90::desc_mnmajor(qs + off));
       }
     }
+    sm90::wg_commit();
+    sm90::wg_wait_all();
+#pragma unroll
+    for (int h = 0; h < kH; ++h) {
+      sm90::fence_regs(dk_acc[h]);
+      sm90::fence_regs(dv_acc[h]);
+    }
+    sm90::mbar_arrive(&empty[s]);
   }
-  store_rows<DH>(dk + n * g_sn + hoff, g_st, r0, c2, dk_acc);
-  store_rows<DH>(dv + n * g_sn + hoff, g_st, r0, c2, dv_acc);
+  const ll hoff = (ll)head * DH;
+#pragma unroll
+  for (int h = 0; h < kH; ++h) {
+    store_half(dk + n * g_sn + hoff, g_st, r0, h * 64, c2, dk_acc[h]);
+    store_half(dv + n * g_sn + hoff, g_st, r0, h * 64, c2, dv_acc[h]);
+  }
 }
 
 // ----------------------------------------------------------------- fp32 path
@@ -295,7 +548,7 @@ template <int DH, int MODE>
 __global__ void __launch_bounds__(128) bwd_dq_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const float* __restrict__ mask, const float* __restrict__ lse, const float* __restrict__ dout,
-    float* __restrict__ dq, float* __restrict__ delta, int t, ll q_sn, ll q_st, ll k_sn, ll k_st,
+    const float* __restrict__ di, float* __restrict__ dq, int t, ll q_sn, ll q_st, ll k_sn, ll k_st,
     ll v_sn, ll v_st, ll do_sn, ll do_st, ll g_sn, ll g_st) {
   __shared__ float qs[kFR][DH], dos[kFR][DH];
   __shared__ float ks[kFT][DH + 1], vs[kFT][DH + 1];  // +1: lane j reads row j, conflict-free
@@ -317,55 +570,41 @@ __global__ void __launch_bounds__(128) bwd_dq_f32_kernel(
   constexpr int kRows = kFR / 4;
   constexpr int kPer = DH / 32;
   const float inv_t = 1.f / t;
-  float lse_r[kRows], delta_r[kRows], mq[kRows], acc[kRows][kPer];
+  float lse_r[kRows], di_r[kRows], mq[kRows], acc[kRows][kPer];
 #pragma unroll
   for (int rr = 0; rr < kRows; ++rr) {
     const ll row = q0 + warp * kRows + rr;
     lse_r[rr] = lse[stat + row];
-    delta_r[rr] = MODE == kSegment ? delta[stat + row] : 0.f;
+    di_r[rr] = di[stat + row];
     mq[rr] = mb[row];
 #pragma unroll
     for (int e = 0; e < kPer; ++e) acc[rr][e] = 0.f;
   }
 
-  for (int pass = MODE == kSegment ? 1 : 0; pass < 2; ++pass) {
-    for (int k0 = 0; k0 < t; k0 += kFT) {
-      __syncthreads();
-      for (int i = tid; i < kFT * DH; i += 128) {
-        const int r = i / DH, c = i % DH;
-        ks[r][c] = kb[(ll)(k0 + r) * k_st + c];
-        vs[r][c] = vb[(ll)(k0 + r) * v_st + c];
-      }
-      if (tid < kFT) keys[tid] = key_term<MODE>(mb[k0 + tid]);
-      __syncthreads();
-#pragma unroll
-      for (int rr = 0; rr < kRows; ++rr) {
-        const int row = warp * kRows + rr;
-        float s = 0.f, dp = 0.f;
-#pragma unroll 8
-        for (int d = 0; d < DH; ++d) {
-          s = fmaf(qs[row][d], ks[lane][d], s);
-          dp = fmaf(dos[row][d], vs[lane][d], dp);
-        }
-        const float p = recompute_p<MODE>(masked<MODE>(s, mq[rr], keys[lane]), lse_r[rr], inv_t);
-        if (pass == 0) {
-          delta_r[rr] = fmaf(p, dp, delta_r[rr]);
-          continue;
-        }
-        const float ds = p * (dp - delta_r[rr]);
-        for (int j = 0; j < kFT; ++j) {
-          const float dsj = __shfl_sync(0xffffffffu, ds, j);
-#pragma unroll
-          for (int e = 0; e < kPer; ++e) acc[rr][e] = fmaf(dsj, ks[j][lane + 32 * e], acc[rr][e]);
-        }
-      }
+  for (int k0 = 0; k0 < t; k0 += kFT) {
+    __syncthreads();
+    for (int i = tid; i < kFT * DH; i += 128) {
+      const int r = i / DH, c = i % DH;
+      ks[r][c] = kb[(ll)(k0 + r) * k_st + c];
+      vs[r][c] = vb[(ll)(k0 + r) * v_st + c];
     }
-    if (pass == 0) {
+    if (tid < kFT) keys[tid] = key_term<MODE>(mb[k0 + tid]);
+    __syncthreads();
 #pragma unroll
-      for (int rr = 0; rr < kRows; ++rr) {
+    for (int rr = 0; rr < kRows; ++rr) {
+      const int row = warp * kRows + rr;
+      float s = 0.f, dp = 0.f;
+#pragma unroll 8
+      for (int d = 0; d < DH; ++d) {
+        s = fmaf(qs[row][d], ks[lane][d], s);
+        dp = fmaf(dos[row][d], vs[lane][d], dp);
+      }
+      const float p = recompute_p<MODE>(masked<MODE>(s, mq[rr], keys[lane]), lse_r[rr], inv_t);
+      const float ds = p * (dp - di_r[rr]);
+      for (int j = 0; j < kFT; ++j) {
+        const float dsj = __shfl_sync(0xffffffffu, ds, j);
 #pragma unroll
-        for (int off = 16; off >= 1; off >>= 1) delta_r[rr] += __shfl_xor_sync(0xffffffffu, delta_r[rr], off);
-        if (lane == 0) delta[stat + q0 + warp * kRows + rr] = delta_r[rr];
+        for (int e = 0; e < kPer; ++e) acc[rr][e] = fmaf(dsj, ks[j][lane + 32 * e], acc[rr][e]);
       }
     }
   }
@@ -379,14 +618,14 @@ __global__ void __launch_bounds__(128) bwd_dq_f32_kernel(
 }
 
 template <int DH, int MODE>
-__global__ void __launch_bounds__(128) bwd_dkdv_f32_kernel(
+__global__ void __launch_bounds__(128, 4) bwd_dkdv_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const float* __restrict__ mask, const float* __restrict__ lse, const float* __restrict__ dout,
-    const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv, int t, ll q_sn,
+    const float* __restrict__ di, float* __restrict__ dk, float* __restrict__ dv, int t, ll q_sn,
     ll q_st, ll k_sn, ll k_st, ll v_sn, ll v_st, ll do_sn, ll do_st, ll g_sn, ll g_st) {
   __shared__ float kks[kFR][DH], vvs[kFR][DH];  // the block's own keys
   __shared__ float qs[kFT][DH + 1], dos[kFT][DH + 1];
-  __shared__ float lses[kFT], deltas[kFT], mqs[kFT];  // mqs: the queries' mask values (segment ids)
+  __shared__ float lses[kFT], dis[kFT], mqs[kFT];  // mqs: the queries' mask values (segment ids)
 
   const int n = blockIdx.z, head = blockIdx.y, k0 = blockIdx.x * kFR;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -421,7 +660,7 @@ __global__ void __launch_bounds__(128) bwd_dkdv_f32_kernel(
     }
     if (tid < kFT) {
       lses[tid] = lse[stat + qq0 + tid];
-      deltas[tid] = delta[stat + qq0 + tid];
+      dis[tid] = di[stat + qq0 + tid];
       if (MODE == kSegment) mqs[tid] = mb[qq0 + tid];
     }
     __syncthreads();
@@ -435,7 +674,7 @@ __global__ void __launch_bounds__(128) bwd_dkdv_f32_kernel(
         dp = fmaf(dos[lane][d], vvs[row][d], dp);
       }
       const float p = recompute_p<MODE>(masked<MODE>(s, mqs[lane], key_r[rr]), lses[lane], inv_t);
-      const float ds = p * (dp - deltas[lane]);
+      const float ds = p * (dp - dis[lane]);
       for (int j = 0; j < kFT; ++j) {
         const float pj = __shfl_sync(0xffffffffu, p, j);
         const float dsj = __shfl_sync(0xffffffffu, ds, j);
@@ -460,56 +699,73 @@ __global__ void __launch_bounds__(128) bwd_dkdv_f32_kernel(
 
 // ----------------------------------------------------------------- launches
 
-// The callers' wrappers have checked: t % 64 == 0, dh in {64, 128}, q/k/v/do
-// with a contiguous head row and 16-byte aligned rows and base pointers, mask
-// a contiguous fp32 [n, t], lse and delta contiguous fp32 [n, heads, t]
-// (delta: K2's scratch, written by the dq kernel; K4's di, read), dq/dk/dv one
-// contiguous layout (strides g_sn, g_st). Returns the first cudaError_t of
-// the two launches.
+// The strides of q, k, v, o, do (sn: chunk, st: row, in elements) and of the
+// outputs dq, dk, dv (one contiguous layout).
+struct BwdStrides {
+  ll q_sn, q_st, k_sn, k_st, v_sn, v_st, o_sn, o_st, do_sn, do_st, g_sn, g_st;
+};
+
+template <int DH, int QT, int MODE>
+int launch_products_bf16(const void* q, const void* k, const void* v, const float* mask, const float* lse,
+                         const void* dout, bf16* dq, bf16* dk, bf16* dv, float* di, int n, int t, int heads,
+                         const BwdStrides& st, cudaStream_t s) {
+  CUtensorMap tq, tk, tv, tdo, tq_s, tdo_s;
+  int rc = 0;
+  if ((rc = sm90::head_map(&tq, q, n, t, heads, DH, st.q_sn, st.q_st, kTile)) ||
+      (rc = sm90::head_map(&tk, k, n, t, heads, DH, st.k_sn, st.k_st, kTile)) ||
+      (rc = sm90::head_map(&tv, v, n, t, heads, DH, st.v_sn, st.v_st, kTile)) ||
+      (rc = sm90::head_map(&tdo, dout, n, t, heads, DH, st.do_sn, st.do_st, kTile)) ||
+      (rc = sm90::head_map(&tq_s, q, n, t, heads, DH, st.q_sn, st.q_st, QT)) ||
+      (rc = sm90::head_map(&tdo_s, dout, n, t, heads, DH, st.do_sn, st.do_st, QT))) {
+    return rc;
+  }
+  constexpr int kDqSmem = dq_smem_bytes<DH>();
+  constexpr int kDkdvSmem = dkdv_smem_bytes<DH, QT>();
+  // Set on every launch: a flag kept in a function-local static would be one
+  // object across every library that instantiates this template.
+  if ((rc = static_cast<int>(cudaFuncSetAttribute(bwd_dq_wgmma_kernel<DH, MODE>,
+                                                  cudaFuncAttributeMaxDynamicSharedMemorySize, kDqSmem))) ||
+      (rc = static_cast<int>(cudaFuncSetAttribute(bwd_dkdv_wgmma_kernel<DH, QT, MODE>,
+                                                  cudaFuncAttributeMaxDynamicSharedMemorySize, kDkdvSmem)))) {
+    return rc;
+  }
+  const dim3 grid(t / kTile, heads, n);
+  bwd_dq_wgmma_kernel<DH, MODE><<<grid, kThreads, kDqSmem, s>>>(tq, tk, tv, tdo, mask, lse, di, dq, t, st.g_sn,
+                                                                st.g_st);
+  if ((rc = static_cast<int>(cudaGetLastError()))) return rc;
+  bwd_dkdv_wgmma_kernel<DH, QT, MODE><<<grid, kThreads, kDkdvSmem, s>>>(tk, tv, tq_s, tdo_s, mask, lse, di, dk, dv,
+                                                                        t, st.g_sn, st.g_st);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The callers' wrappers have checked: t % 128 == 0, dh in {64, 128}, q/k/v/o/
+// do with a contiguous head row and 16-byte aligned rows and base pointers
+// (what TMA takes), mask a contiguous fp32 [n, t], lse and the di scratch
+// contiguous fp32 [n, heads, t], dq/dk/dv one contiguous layout. Launches
+// di, then dq, then dk/dv; returns the first cudaError_t.
 template <int MODE>
 int launch_bwd_bf16(const void* q, const void* k, const void* v, const float* mask, const float* lse,
-                    const void* dout, void* dq, void* dk, void* dv, float* delta, int n, int t, int heads,
-                    int dh, ll q_sn, ll q_st, ll k_sn, ll k_st, ll v_sn, ll v_st, ll do_sn, ll do_st,
-                    ll g_sn, ll g_st, void* stream) {
-  const dim3 grid(t / kTile, heads, n);
+                    const void* out, const void* dout, void* dq, void* dk, void* dv, float* di, int n, int t,
+                    int heads, int dh, const BwdStrides& st, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bf16* qb = static_cast<const bf16*>(q);
-  const bf16* kb = static_cast<const bf16*>(k);
-  const bf16* vb = static_cast<const bf16*>(v);
-  const bf16* db = static_cast<const bf16*>(dout);
-  if (dh == 64) {
-    bwd_dq_bf16_kernel<64, MODE><<<grid, 128, 0, s>>>(qb, kb, vb, mask, lse, db, static_cast<bf16*>(dq), delta,
-                                                      t, q_sn, q_st, k_sn, k_st, v_sn, v_st, do_sn, do_st,
-                                                      g_sn, g_st);
-    int rc = static_cast<int>(cudaGetLastError());
-    if (rc != 0) return rc;
-    bwd_dkdv_bf16_kernel<64, 64, MODE><<<grid, 128, 0, s>>>(qb, kb, vb, mask, lse, db, delta,
-                                                            static_cast<bf16*>(dk), static_cast<bf16*>(dv), t,
-                                                            q_sn, q_st, k_sn, k_st, v_sn, v_st, do_sn, do_st,
-                                                            g_sn, g_st);
-  } else if (dh == 128) {
-    bwd_dq_bf16_kernel<128, MODE><<<grid, 128, 0, s>>>(qb, kb, vb, mask, lse, db, static_cast<bf16*>(dq), delta,
-                                                       t, q_sn, q_st, k_sn, k_st, v_sn, v_st, do_sn, do_st,
-                                                       g_sn, g_st);
-    int rc = static_cast<int>(cudaGetLastError());
-    if (rc != 0) return rc;
-    bwd_dkdv_bf16_kernel<128, 32, MODE><<<grid, 128, 0, s>>>(qb, kb, vb, mask, lse, db, delta,
-                                                             static_cast<bf16*>(dk), static_cast<bf16*>(dv), t,
-                                                             q_sn, q_st, k_sn, k_st, v_sn, v_st, do_sn, do_st,
-                                                             g_sn, g_st);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  int rc = launch_di<bf16>(out, dout, di, n, t, heads, dh, st.o_sn, st.o_st, st.do_sn, st.do_st, s);
+  if (rc != 0) return rc;
+  bf16* gq = static_cast<bf16*>(dq);
+  bf16* gk = static_cast<bf16*>(dk);
+  bf16* gv = static_cast<bf16*>(dv);
+  if (dh == 64) return launch_products_bf16<64, 64, MODE>(q, k, v, mask, lse, dout, gq, gk, gv, di, n, t, heads, st, s);
+  if (dh == 128) return launch_products_bf16<128, 32, MODE>(q, k, v, mask, lse, dout, gq, gk, gv, di, n, t, heads, st, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <int MODE>
 int launch_bwd_f32(const void* q, const void* k, const void* v, const float* mask, const float* lse,
-                   const void* dout, void* dq, void* dk, void* dv, float* delta, int n, int t, int heads,
-                   int dh, ll q_sn, ll q_st, ll k_sn, ll k_st, ll v_sn, ll v_st, ll do_sn, ll do_st,
-                   ll g_sn, ll g_st, void* stream) {
-  const dim3 grid(t / kFR, heads, n);
+                   const void* out, const void* dout, void* dq, void* dk, void* dv, float* di, int n, int t,
+                   int heads, int dh, const BwdStrides& st, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int rc = launch_di<float>(out, dout, di, n, t, heads, dh, st.o_sn, st.o_st, st.do_sn, st.do_st, s);
+  if (rc != 0) return rc;
+  const dim3 grid(t / kFR, heads, n);
   const float* qf = static_cast<const float*>(q);
   const float* kf = static_cast<const float*>(k);
   const float* vf = static_cast<const float*>(v);
@@ -518,19 +774,21 @@ int launch_bwd_f32(const void* q, const void* k, const void* v, const float* mas
   float* dkf = static_cast<float*>(dk);
   float* dvf = static_cast<float*>(dv);
   if (dh == 64) {
-    bwd_dq_f32_kernel<64, MODE><<<grid, 128, 0, s>>>(qf, kf, vf, mask, lse, df, dqf, delta, t, q_sn, q_st, k_sn,
-                                                     k_st, v_sn, v_st, do_sn, do_st, g_sn, g_st);
-    int rc = static_cast<int>(cudaGetLastError());
-    if (rc != 0) return rc;
-    bwd_dkdv_f32_kernel<64, MODE><<<grid, 128, 0, s>>>(qf, kf, vf, mask, lse, df, delta, dkf, dvf, t, q_sn, q_st,
-                                                       k_sn, k_st, v_sn, v_st, do_sn, do_st, g_sn, g_st);
+    bwd_dq_f32_kernel<64, MODE><<<grid, 128, 0, s>>>(qf, kf, vf, mask, lse, df, di, dqf, t, st.q_sn, st.q_st,
+                                                     st.k_sn, st.k_st, st.v_sn, st.v_st, st.do_sn, st.do_st,
+                                                     st.g_sn, st.g_st);
+    if ((rc = static_cast<int>(cudaGetLastError()))) return rc;
+    bwd_dkdv_f32_kernel<64, MODE><<<grid, 128, 0, s>>>(qf, kf, vf, mask, lse, df, di, dkf, dvf, t, st.q_sn,
+                                                       st.q_st, st.k_sn, st.k_st, st.v_sn, st.v_st, st.do_sn,
+                                                       st.do_st, st.g_sn, st.g_st);
   } else if (dh == 128) {
-    bwd_dq_f32_kernel<128, MODE><<<grid, 128, 0, s>>>(qf, kf, vf, mask, lse, df, dqf, delta, t, q_sn, q_st, k_sn,
-                                                      k_st, v_sn, v_st, do_sn, do_st, g_sn, g_st);
-    int rc = static_cast<int>(cudaGetLastError());
-    if (rc != 0) return rc;
-    bwd_dkdv_f32_kernel<128, MODE><<<grid, 128, 0, s>>>(qf, kf, vf, mask, lse, df, delta, dkf, dvf, t, q_sn,
-                                                        q_st, k_sn, k_st, v_sn, v_st, do_sn, do_st, g_sn, g_st);
+    bwd_dq_f32_kernel<128, MODE><<<grid, 128, 0, s>>>(qf, kf, vf, mask, lse, df, di, dqf, t, st.q_sn, st.q_st,
+                                                      st.k_sn, st.k_st, st.v_sn, st.v_st, st.do_sn, st.do_st,
+                                                      st.g_sn, st.g_st);
+    if ((rc = static_cast<int>(cudaGetLastError()))) return rc;
+    bwd_dkdv_f32_kernel<128, MODE><<<grid, 128, 0, s>>>(qf, kf, vf, mask, lse, df, di, dkf, dvf, t, st.q_sn,
+                                                        st.q_st, st.k_sn, st.k_st, st.v_sn, st.v_st, st.do_sn,
+                                                        st.do_st, st.g_sn, st.g_st);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

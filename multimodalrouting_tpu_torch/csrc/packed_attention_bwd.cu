@@ -12,22 +12,20 @@
 // with fp32 accumulators and outputs in the input type and packed layout.
 // The scale of q is applied outside (autograd owns its gradient).
 //
-// Design. The kernels are attention_bwd.cuh's, instantiated with the key
-// mask (kKeyMask); the backward of K4 (flash_attention_bwd.cu) instantiates
-// them with segment ids. The TPU kernel holds a whole [T, T] fp32 block per
-// 128-lane chunk in VMEM and separates two 64-wide heads by zero-masking
-// lanes; here a block holds O(64 * dh) state and one head, and p is
-// recomputed from K1's per-row log-sum-exp (lse, fp32 [N, H, T]) as
-// exp(logit - lse). Two kernels, launched in order on one stream:
-//   1. dq: one block per (64-query tile, head, chunk). A first sweep over
-//      the key tiles computes delta = rowsum(dp * p) exactly as the TPU
-//      kernel does (from p and dp, not from do . o, so the bf16-stored output
-//      is not needed); it is written to a scratch [N, H, T] for kernel 2. A
-//      second sweep accumulates dq = ds k.
-//   2. dk/dv: one block per (64-key tile, head, chunk), with its keys as the
-//      rows of S^T and dP^T.
-// bf16 multiplies with mma.sync m16n8k16 (fp32 accumulators); the fp32 path
-// is plain FMA, one key (or query) per lane.
+// Design: attention_bwd.cuh's kernels with the key mask (kKeyMask); the
+// backward of K4 (flash_attention_bwd.cu) runs the same ones with segment
+// ids. The TPU kernel holds a whole [T, T] fp32 block per 128-lane chunk in
+// VMEM and separates two 64-wide heads by zero-masking lanes; here a block
+// holds one head's 64-row tile and p is recomputed from K1's per-row
+// log-sum-exp (lse, fp32 [N, H, T]). The di kernel first takes
+// di = rowsum(o * do) from K1's saved output (the tensor the out-projection
+// keeps for its own backward), so the dq kernel makes one sweep, where the
+// TPU order read the other way would need a first sweep for rowsum(dp * p).
+// That sweep still sums the TPU order's rowsum(dp * p) from fp32 p and
+// corrects dq to it with one more product (P K), and the dk/dv kernel reads
+// that rowsum: the bf16 rounding of o, the same for every key of a row,
+// would otherwise add up in dq and dk. 8 T x T x dh products, against 9 in
+// the two-sweep design and 5 in the function.
 //
 // A row whose keys are all padding has every logit at exactly -1e30 in fp32,
 // so its softmax is uniform, 1/T (the plain version and the TPU kernel give
@@ -35,38 +33,56 @@
 // -1e29) take p = 1/T explicitly and stay finite.
 //
 // What bounds it on an H100: at the flagship shape [128, 512, 768] bf16 the
-// function reads q, k, v, do and writes dq, dk, dv (7 x 100.7 MB, plus lse and
-// the mask) and does 5 products of T x T x dh per head: 4 x 128 x 12 x 512^2
-// x 64 x 2.5 = 258 GFLOP, 0.26 ms at 989 TFLOP/s against 0.21 ms of bytes at
-// 3.35 TB/s. This design recomputes S and dP in each of its three sweeps
-// (9 products instead of 5) and keeps no loads in flight during the
-// products (no cp.async/TMA, mma.sync not wgmma); PERF.md has its time.
+// function does 5 products of T x T x dh per head: 4 x 128 x 12 x 512^2 x 64
+// x 2.5 = 258 GFLOP, 0.261 ms at 989 TFLOP/s, against 0.21 ms of bytes at
+// 3.35 TB/s (q, k, v, do in, dq, dk, dv out, 7 x 100.7 MB; o for di adds
+// 0.03 ms). Bound by operations: the products run on wgmma from
+// TMA-fed, 128-byte-swizzled shared memory, with the next tiles in flight
+// during the current tile's products (attention_bwd.cuh); PERF.md has the
+// time.
 
 #include "attention_bwd.cuh"
 
-// The wrapper (ops/flash_packed.py) has checked: t % 64 == 0, t <= 512,
-// dh in {64, 128}, q/k/v/do with a contiguous inner dimension and 16-byte
+// The wrapper (ops/flash_packed.py) has checked: t % 128 == 0, t <= 512,
+// dh in {64, 128}, q/k/v/o/do with a contiguous inner dimension and 16-byte
 // aligned rows and base pointers, mask a contiguous fp32 [n, t], lse and the
-// delta scratch contiguous fp32 [n, heads, t], dq/dk/dv one contiguous layout
-// (strides g_sn, g_st). Returns the first cudaError_t of the two launches.
-extern "C" int packed_attention_bwd_bf16(const void* q, const void* k, const void* v,
-                                         const float* mask, const float* lse, const void* dout,
-                                         void* dq, void* dk, void* dv, float* delta, int n, int t,
-                                         int heads, int dh, long long q_sn, long long q_st, long long k_sn, long long k_st,
-                                         long long v_sn, long long v_st, long long do_sn, long long do_st, long long g_sn, long long g_st,
-                                         void* stream) {
-  return attn::launch_bwd_bf16<attn::kKeyMask>(q, k, v, mask, lse, dout, dq, dk, dv, delta, n, t, heads, dh,
-                                               q_sn, q_st, k_sn, k_st, v_sn, v_st, do_sn, do_st, g_sn, g_st,
+// di scratch contiguous fp32 [n, heads, t], dq/dk/dv one contiguous layout
+// (strides g_sn, g_st). Launches di, dq, dk/dv; returns the first cudaError_t.
+extern "C" int packed_attention_bwd_bf16(const void* q, const void* k, const void* v, const float* mask,
+                                         const float* lse, const void* out, const void* dout, void* dq, void* dk,
+                                         void* dv, float* di, int n, int t, int heads, int dh, long long q_sn,
+                                         long long q_st, long long k_sn, long long k_st, long long v_sn,
+                                         long long v_st, long long o_sn, long long o_st, long long do_sn,
+                                         long long do_st, long long g_sn, long long g_st, void* stream) {
+  const attn::BwdStrides st{q_sn, q_st, k_sn, k_st, v_sn, v_st, o_sn, o_st, do_sn, do_st, g_sn, g_st};
+  return attn::launch_bwd_bf16<attn::kKeyMask>(q, k, v, mask, lse, out, dout, dq, dk, dv, di, n, t, heads, dh, st,
                                                stream);
 }
 
-extern "C" int packed_attention_bwd_f32(const void* q, const void* k, const void* v,
-                                        const float* mask, const float* lse, const void* dout,
-                                        void* dq, void* dk, void* dv, float* delta, int n, int t,
-                                        int heads, int dh, long long q_sn, long long q_st, long long k_sn, long long k_st,
-                                        long long v_sn, long long v_st, long long do_sn, long long do_st, long long g_sn, long long g_st,
-                                        void* stream) {
-  return attn::launch_bwd_f32<attn::kKeyMask>(q, k, v, mask, lse, dout, dq, dk, dv, delta, n, t, heads, dh,
-                                              q_sn, q_st, k_sn, k_st, v_sn, v_st, do_sn, do_st, g_sn, g_st,
+extern "C" int packed_attention_bwd_f32(const void* q, const void* k, const void* v, const float* mask,
+                                        const float* lse, const void* out, const void* dout, void* dq, void* dk,
+                                        void* dv, float* di, int n, int t, int heads, int dh, long long q_sn,
+                                        long long q_st, long long k_sn, long long k_st, long long v_sn,
+                                        long long v_st, long long o_sn, long long o_st, long long do_sn,
+                                        long long do_st, long long g_sn, long long g_st, void* stream) {
+  const attn::BwdStrides st{q_sn, q_st, k_sn, k_st, v_sn, v_st, o_sn, o_st, do_sn, do_st, g_sn, g_st};
+  return attn::launch_bwd_f32<attn::kKeyMask>(q, k, v, mask, lse, out, dout, dq, dk, dv, di, n, t, heads, dh, st,
                                               stream);
+}
+
+// The di kernel alone (both backwards launch it first): di[n, h, t] =
+// rowsum(o * do) over the [n, t, heads, dh] views, fp32. Same checks as
+// above. Returns the cudaError_t of the launch.
+extern "C" int attention_bwd_di_bf16(const void* out, const void* dout, float* di, int n, int t, int heads,
+                                     int dh, long long o_sn, long long o_st, long long do_sn, long long do_st,
+                                     void* stream) {
+  return attn::launch_di<attn::bf16>(out, dout, di, n, t, heads, dh, o_sn, o_st, do_sn, do_st,
+                                     static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int attention_bwd_di_f32(const void* out, const void* dout, float* di, int n, int t, int heads,
+                                    int dh, long long o_sn, long long o_st, long long do_sn, long long do_st,
+                                    void* stream) {
+  return attn::launch_di<float>(out, dout, di, n, t, heads, dh, o_sn, o_st, do_sn, do_st,
+                                static_cast<cudaStream_t>(stream));
 }

@@ -22,8 +22,9 @@ a CPU tensor they run the plain versions ``segment_attention_reference``
 and ``segment_attention_bwd_reference``; on a CUDA tensor they launch the
 kernel or raise. Under a gradient they go through ``SegmentAttention``, an
 autograd Function whose forward also keeps each row's log-sum-exp and whose
-backward takes di = rowsum(o * do) from the saved output with one torch
-reduction, as the upstream backward takes it from XLA.
+backward takes di = rowsum(o * do) from the saved output with the di kernel
+that K2 launches too (``csrc/attention_bwd.cuh``), ahead of its two product
+kernels, as the upstream backward takes it from XLA before its kernels.
 
 ``attention_impl`` is the JAX package's selector: MMR_ATTN = flash
 (default) | packed | splash | xla, with MMR_FLASH=0 selecting xla.
@@ -169,9 +170,9 @@ def segment_attention_fwd(q, k, v, kv_mask, want_lse: bool, counter):
 
 def segment_attention_bwd(q, k, v, kv_mask, out, lse, do, counter) -> Tuple[torch.Tensor, ...]:
     """K4's backward -> (dq, dk, dv) [N, T, H, dh] in q's dtype. On CUDA
-    tensors it launches the kernel pair with the forward's `lse` [N, H, T]
-    and di = rowsum(out * do) (or raises), adding one to
-    `counter.bwd_launches`; on CPU tensors it runs the plain version."""
+    tensors it launches the di kernel (di = rowsum(out * do)) and the two
+    product kernels with the forward's `lse` [N, H, T] (or raises), adding
+    one to `counter.bwd_launches`; on CPU tensors it runs the plain version."""
     n, t, h, dh = q.shape
     if not supports(t, k.shape[1], dh):
         raise ValueError(f"segment attention backward unsupported for T={t}, head_dim={dh}")
@@ -181,16 +182,16 @@ def segment_attention_bwd(q, k, v, kv_mask, out, lse, do, counter) -> Tuple[torc
     mask = cuda_mask(kv_mask, q)
     if lse is None or lse.shape != (n, h, t) or lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError(f"lse must be a contiguous fp32 [{n}, {h}, {t}] from the forward kernel")
-    di = (out.float() * do.float()).sum(dim=-1).transpose(1, 2).contiguous()  # [N, H, T]
     dq, dk, dv = (torch.empty((n, t, h, dh), dtype=q.dtype, device=q.device) for _ in range(3))
+    di = torch.empty((n, h, t), dtype=torch.float32, device=q.device)
     lib = hopper.library("flash_attention_bwd")
     fn = lib.flash_attention_bwd_bf16 if q.dtype == torch.bfloat16 else lib.flash_attention_bwd_f32
     rc = fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), lse.data_ptr(), do.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), lse.data_ptr(), out.data_ptr(), do.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), di.data_ptr(),
         n, t, h, dh,
         q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
-        do.stride(0), do.stride(1), dq.stride(0), dq.stride(1),
+        out.stride(0), out.stride(1), do.stride(0), do.stride(1), dq.stride(0), dq.stride(1),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     hopper.check(rc, "flash_attention_bwd")

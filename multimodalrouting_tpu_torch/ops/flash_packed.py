@@ -13,9 +13,14 @@ in the backward.
 ``packed_attention_reference``, the plain version with the TPU kernel's
 arithmetic order, on a CPU tensor. Under a gradient it goes through
 ``PackedAttention``, an autograd Function whose forward is the same and also
-keeps K1's per-row log-sum-exp, and whose backward is
+keeps K1's per-row log-sum-exp and its output, and whose backward is
 ``packed_attention_bwd``: K2 (``csrc/packed_attention_bwd.cu``) on CUDA
-tensors, ``packed_attention_bwd_reference`` on CPU tensors.
+tensors, ``packed_attention_bwd_reference`` on CPU tensors. K2 takes each
+row's rowsum(dp * p) as di = rowsum(o * do) from the saved output, with the
+di kernel both attention backwards launch first (``attention_bwd_di``,
+plain version ``attention_bwd_di_reference``); the saved output is the
+tensor the out-projection keeps for its own backward, so saving it costs no
+memory.
 ``supports_packed_bwd`` is the JAX package's gate for the backward: a caller
 whose shape fails it under a gradient takes the eager attention instead
 (models/attention.py), as the JAX package takes the XLA VJP.
@@ -70,22 +75,58 @@ def packed_attention_reference(q, k, v, kv_mask, num_heads: int) -> torch.Tensor
     return out.reshape(n, t, d).to(q.dtype)
 
 
-def packed_attention_bwd_reference(q, k, v, kv_mask, do, num_heads: int) -> Tuple[torch.Tensor, ...]:
+def packed_attention_bwd_reference(q, k, v, kv_mask, do, num_heads: int,
+                                   di: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, ...]:
     """Plain version of K2 in the TPU kernel's order (flash_packed.py
     _bwd_kernel): recompute the fp32 softmax p; dv = p^T do with p cast to
     the input type; dp = do v^T; ds = p (dp - rowsum(dp p)); dq = ds k and
     dk = ds^T q with ds cast to the input type; fp32 accumulation, outputs in
-    the input type. -> (dq, dk, dv), each [N, T, H*dh]."""
+    the input type. -> (dq, dk, dv), each [N, T, H*dh]. Given `di` [N, H, T]
+    (``attention_bwd_di_reference`` of the output), ds takes it in place of
+    rowsum(dp p): the kernel's order."""
     n, t, d = q.shape
     dt = q.dtype
     p = _softmax_p(q, k, kv_mask, num_heads)
     do4 = _heads(do, num_heads)
     dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dt).float(), do4)
     dp = torch.einsum("bqhd,bkhd->bhqk", do4, _heads(v, num_heads))
-    ds = (p * (dp - (dp * p).sum(dim=-1, keepdim=True))).to(dt).float()
+    rowsum = (dp * p).sum(dim=-1, keepdim=True) if di is None else di.float()[..., None]
+    ds = (p * (dp - rowsum)).to(dt).float()
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, _heads(k, num_heads))
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, _heads(q, num_heads))
     return tuple(x.reshape(n, t, d).to(dt) for x in (dq, dk, dv))
+
+
+def attention_bwd_di_reference(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """Plain version of the di kernel: di = rowsum(o * do) in fp32 over
+    [N, T, H, dh] views -> [N, H, T]."""
+    return (out.float() * do.float()).sum(dim=-1).transpose(1, 2).contiguous()
+
+
+def attention_bwd_di(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """The di kernel alone (both attention backwards launch it first, inside
+    their own entry points) on [N, T, H, dh] views -> [N, H, T] fp32; the
+    plain version on CPU tensors."""
+    if out.device.type == "cpu":
+        return attention_bwd_di_reference(out, do)
+    n, t, h, dh = out.shape
+    if t % 128 or dh not in (64, 128):
+        raise ValueError(f"the di kernel takes T % 128 == 0 and head_dim 64 or 128, got T={t}, head_dim={dh}")
+    for name, x in (("out", out), ("do", do)):
+        if x.shape != out.shape or x.dtype != out.dtype or x.device != out.device:
+            raise ValueError(f"{name} must match out in shape, dtype and device")
+        if x.dtype not in (torch.bfloat16, torch.float32):
+            raise TypeError(f"the di kernel takes bfloat16 or float32, got {x.dtype}")
+        if x.stride(3) != 1 or x.stride(2) != dh or x.stride(0) % 8 or x.stride(1) % 8 or x.data_ptr() % 16:
+            raise ValueError(f"{name}: each head's row must be contiguous, with 16-byte aligned rows")
+    di = torch.empty((n, h, t), dtype=torch.float32, device=out.device)
+    lib = hopper.library("packed_attention_bwd")
+    fn = lib.attention_bwd_di_bf16 if out.dtype == torch.bfloat16 else lib.attention_bwd_di_f32
+    rc = fn(out.data_ptr(), do.data_ptr(), di.data_ptr(), n, t, h, dh, out.stride(0), out.stride(1),
+            do.stride(0), do.stride(1), torch.cuda.current_stream(out.device).cuda_stream)
+    hopper.check(rc, "attention_bwd_di")
+    attention_bwd_di.launches += 1
+    return di
 
 
 def _check_cuda(named) -> None:
@@ -138,30 +179,31 @@ def packed_attention_fwd(q, k, v, kv_mask, num_heads: int, want_lse: bool):
     return out, lse
 
 
-def packed_attention_bwd(q, k, v, kv_mask, lse, do, num_heads: int) -> Tuple[torch.Tensor, ...]:
+def packed_attention_bwd(q, k, v, kv_mask, out, lse, do, num_heads: int) -> Tuple[torch.Tensor, ...]:
     """The K2 wrapper -> (dq, dk, dv) in q's dtype. On CUDA tensors it
-    launches the kernel with K1's `lse` [N, H, T] (or raises); on CPU tensors
-    it runs the plain version, which needs no lse."""
+    launches the di kernel and the two product kernels with K1's output `out`
+    and `lse` [N, H, T] (or raises); on CPU tensors it runs the plain version
+    in the TPU order, which needs neither."""
     n, t, d = q.shape
     head_dim = d // num_heads
     if not supports_packed_bwd(t, head_dim) or not supports_packed(t, k.shape[1], head_dim, d, num_heads):
         raise ValueError(f"packed attention backward unsupported for T={t}, d={d}, heads={num_heads}")
     if q.device.type == "cpu":
         return packed_attention_bwd_reference(q, k, v, kv_mask, do, num_heads)
-    _check_cuda((("q", q), ("k", k), ("v", v), ("do", do)))
+    _check_cuda((("q", q), ("k", k), ("v", v), ("do", do), ("out", out)))
     mask = cuda_mask(kv_mask, q)
     if lse is None or lse.shape != (n, num_heads, t) or lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError(f"lse must be a contiguous fp32 [{n}, {num_heads}, {t}] from the forward kernel")
     dq, dk, dv = (torch.empty((n, t, d), dtype=q.dtype, device=q.device) for _ in range(3))
-    delta = torch.empty((n, num_heads, t), dtype=torch.float32, device=q.device)
+    di = torch.empty((n, num_heads, t), dtype=torch.float32, device=q.device)
     lib = hopper.library("packed_attention_bwd")
     fn = lib.packed_attention_bwd_bf16 if q.dtype == torch.bfloat16 else lib.packed_attention_bwd_f32
     rc = fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), lse.data_ptr(), do.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), lse.data_ptr(), out.data_ptr(), do.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), di.data_ptr(),
         n, t, num_heads, head_dim,
         q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
-        do.stride(0), do.stride(1), dq.stride(0), dq.stride(1),
+        out.stride(0), out.stride(1), do.stride(0), do.stride(1), dq.stride(0), dq.stride(1),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     hopper.check(rc, "packed_attention_bwd")
@@ -170,8 +212,9 @@ def packed_attention_bwd(q, k, v, kv_mask, lse, do, num_heads: int) -> Tuple[tor
 
 
 class PackedAttention(torch.autograd.Function):
-    """K1 forward (keeping its log-sum-exp on CUDA), K2 backward. The mask
-    takes no gradient; the scale of q belongs to the caller's graph."""
+    """K1 forward (keeping its output and, on CUDA, its log-sum-exp), K2
+    backward. The mask takes no gradient; the scale of q belongs to the
+    caller's graph."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_mask, num_heads: int):
@@ -179,14 +222,14 @@ class PackedAttention(torch.autograd.Function):
             out, lse = packed_attention_reference(q, k, v, kv_mask, num_heads), None
         else:
             out, lse = packed_attention_fwd(q, k, v, kv_mask, num_heads, want_lse=True)
-        ctx.save_for_backward(q, k, v, kv_mask, lse)
+        ctx.save_for_backward(q, k, v, kv_mask, out, lse)
         ctx.num_heads = num_heads
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, kv_mask, lse = ctx.saved_tensors
-        dq, dk, dv = packed_attention_bwd(q, k, v, kv_mask, lse, do.contiguous(), ctx.num_heads)
+        q, k, v, kv_mask, out, lse = ctx.saved_tensors
+        dq, dk, dv = packed_attention_bwd(q, k, v, kv_mask, out, lse, do.contiguous(), ctx.num_heads)
         return dq, dk, dv, None, None
 
 
@@ -215,3 +258,4 @@ def packed_attention(
 
 packed_attention.launches = 0
 packed_attention_bwd.launches = 0
+attention_bwd_di.launches = 0

@@ -41,15 +41,17 @@ _SIGNATURES = {
         for name in ("packed_attention_bf16", "packed_attention_f32")
     },
     "packed_attention_bwd": {
-        name: (_I, [_PTR] * 10 + [_I] * 4 + [_LL] * 10 + [_PTR])
-        for name in ("packed_attention_bwd_bf16", "packed_attention_bwd_f32")
+        **{name: (_I, [_PTR] * 11 + [_I] * 4 + [_LL] * 12 + [_PTR])
+           for name in ("packed_attention_bwd_bf16", "packed_attention_bwd_f32")},
+        **{name: (_I, [_PTR] * 3 + [_I] * 4 + [_LL] * 4 + [_PTR])
+           for name in ("attention_bwd_di_bf16", "attention_bwd_di_f32")},
     },
     "flash_attention": {
         name: (_I, [_PTR] * 6 + [_I] * 4 + [_LL] * 8 + [_PTR])
         for name in ("flash_attention_bf16", "flash_attention_f32")
     },
     "flash_attention_bwd": {
-        name: (_I, [_PTR] * 10 + [_I] * 4 + [_LL] * 10 + [_PTR])
+        name: (_I, [_PTR] * 11 + [_I] * 4 + [_LL] * 12 + [_PTR])
         for name in ("flash_attention_bwd_bf16", "flash_attention_bwd_f32")
     },
     "capsule_routing": {"capsule_routing_f32": (_I, [_PTR] * 6 + [_I] * 6 + [_PTR])},

@@ -2,7 +2,9 @@
 attention), K2 (its backward) alone and through autograd, K3 (capsule
 routing) and its autograd gradient, K4 (segment attention, the kernel pair
 of K4a flash and K4b splash) forward and backward alone and through
-autograd, with its two launch counters.
+autograd, with its two launch counters; the attention backward that K2 and
+K4 share (the di kernel, then the dq and dk/dv kernels) on strided views,
+repeated, the di kernel alone, and the shapes it refuses.
 
 These need a CUDA card and the CUDA toolkit (the kernels are built from
 multimodalrouting_tpu_torch/csrc/ at first use) and skip elsewhere. They
@@ -15,7 +17,15 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import K1_FP32_TOL, K2_FP32_TOL, K4_FP32_TOL, bf16_errors, describe_bf16, within_bf16_limits
+from chip_smoke import (
+    DI_TOL,
+    K1_FP32_TOL,
+    K2_FP32_TOL,
+    K4_FP32_TOL,
+    bf16_errors,
+    describe_bf16,
+    within_bf16_limits,
+)
 from multimodalrouting_tpu_torch.ops.capsule import capsule_weight_init
 from multimodalrouting_tpu_torch.ops.flash import (
     flash_self_attention,
@@ -26,6 +36,8 @@ from multimodalrouting_tpu_torch.ops.flash import (
     splash_self_attention,
 )
 from multimodalrouting_tpu_torch.ops.flash_packed import (
+    attention_bwd_di,
+    attention_bwd_di_reference,
     packed_attention,
     packed_attention_bwd,
     packed_attention_bwd_reference,
@@ -132,9 +144,9 @@ def test_packed_attention_bwd_kernel_matches_plain(cuda, dtype, h, dh, t):
     q, k, v, m = _attn_inputs(4, t, h, dh, dtype, cuda)
     do = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(5), device=cuda).to(dtype)
     with torch.no_grad():
-        _, lse = packed_attention_fwd(q, k, v, m, h, want_lse=True)
+        out, lse = packed_attention_fwd(q, k, v, m, h, want_lse=True)
         before = packed_attention_bwd.launches
-        got = packed_attention_bwd(q, k, v, m, lse, do, h)
+        got = packed_attention_bwd(q, k, v, m, out, lse, do, h)
     torch.cuda.synchronize()
     assert packed_attention_bwd.launches == before + 1
     assert all(torch.isfinite(g).all() for g in got)
@@ -214,11 +226,14 @@ def _assert_k4_close(name, got, ref, exact, dtype):
 @pytest.mark.parametrize(
     "dtype,h,dh,t",
     [(torch.bfloat16, 3, 64, 256), (torch.float32, 3, 64, 256), (torch.bfloat16, 2, 128, 512),
-     (torch.float32, 2, 128, 512), (torch.bfloat16, 3, 64, 1024), (torch.float32, 1, 64, 1024)],
+     (torch.float32, 2, 128, 512), (torch.bfloat16, 3, 64, 1024), (torch.float32, 1, 64, 1024),
+     (torch.bfloat16, 2, 128, 256), (torch.float32, 2, 128, 256), (torch.bfloat16, 3, 64, 512),
+     (torch.float32, 3, 64, 512), (torch.bfloat16, 1, 128, 1024), (torch.float32, 1, 128, 1024)],
 )
 def test_segment_attention_kernels_match_plain(cuda, dtype, h, dh, t):
     """K4 forward and backward on every row (pad queries and an all-pad
-    chunk included), odd head counts, dh 128 and T = 1024."""
+    chunk included), odd head counts, each of T 256/512/1024 with dh 64 and
+    128, bf16 and fp32."""
     q, k, v, m = _attn_inputs(4, t, h, dh, dtype, cuda)
     do = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(6), device=cuda).to(dtype)
     q4, k4, v4, do4 = (x.unflatten(2, (h, dh)) for x in (q, k, v, do))
@@ -277,3 +292,82 @@ def test_segment_attention_kernel_refuses_unsupported_shapes(cuda):
     with torch.no_grad(), pytest.raises(ValueError, match="contiguous"):
         splash_self_attention(y, y, y, None)
     assert flash_self_attention.launches == before
+
+
+def _bwd(kind, q, k, v, m, do, h):
+    """(dq, dk, dv) of the kernel backward (K2 or K4) with the forward
+    kernel's output and lse, in the packed [N, T, H*dh] layout."""
+    if kind == "K2":
+        out, lse = packed_attention_fwd(q, k, v, m, h, want_lse=True)
+        return packed_attention_bwd(q, k, v, m, out, lse, do, h)
+    q4, k4, v4, do4 = (x.unflatten(2, (h, x.shape[2] // h)) for x in (q, k, v, do))
+    out, lse = segment_attention_fwd(q4, k4, v4, m, True, flash_self_attention)
+    return tuple(g.flatten(2) for g in segment_attention_bwd(q4, k4, v4, m, out, lse, do4, flash_self_attention))
+
+
+@pytest.mark.parametrize("kind", ["K2", "K4"])
+@pytest.mark.parametrize("dh", [64, 128])
+def test_attention_bwd_reads_strided_views_and_repeats_bit_for_bit(cuda, kind, dh):
+    """q, k, v as column slices of one fused [N, T, 3D] projection: the
+    backward reads the row-strided views in place (TMA maps over the
+    caller's strides) and gives the bits it gives on contiguous copies; a
+    second launch on the same inputs gives the same bits."""
+    n, t, h = 3, 256, 4 if dh == 64 else 2
+    d = h * dh
+    g = torch.Generator(device=cuda).manual_seed(11)
+    qkv = torch.randn((n, t, 3 * d), generator=g, device=cuda).to(torch.bfloat16)
+    q, k, v = qkv.split(d, dim=-1)
+    do = torch.randn((n, t, d), generator=g, device=cuda).to(torch.bfloat16)
+    m = torch.ones((n, t), device=cuda)
+    m[1, 100:] = 0.0
+    with torch.no_grad():
+        strided = _bwd(kind, q, k, v, m, do, h)
+        again = _bwd(kind, q, k, v, m, do, h)
+        dense = _bwd(kind, q.contiguous(), k.contiguous(), v.contiguous(), m, do, h)
+    for name, a, b, c in zip(("dq", "dk", "dv"), strided, again, dense):
+        assert torch.equal(a, b), f"{name}: a repeat launch gave other bits"
+        assert torch.equal(a, c), f"{name}: the strided views gave other bits than contiguous copies"
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dh", [64, 128])
+def test_attention_bwd_di_kernel_matches_plain(cuda, dtype, dh):
+    """The di kernel alone on [N, T, H, dh] views with a row stride of two
+    heads' widths: rowsum(o * do) in fp32 against its plain version."""
+    n, t, h = 3, 384, 3
+    g = torch.Generator(device=cuda).manual_seed(12)
+    fused = torch.randn((n, t, 2 * h * dh), generator=g, device=cuda).to(dtype)
+    out, do = (x.unflatten(2, (h, dh)) for x in fused.split(h * dh, dim=-1))
+    before = attention_bwd_di.launches
+    with torch.no_grad():
+        got = attention_bwd_di(out, do)
+    torch.cuda.synchronize()
+    assert attention_bwd_di.launches == before + 1
+    assert got.shape == (n, h, t) and got.dtype == torch.float32
+    atol, rtol = DI_TOL
+    torch.testing.assert_close(got, attention_bwd_di_reference(out, do), rtol=rtol, atol=atol)
+
+
+def test_attention_bwd_refuses_unsupported_shapes(cuda):
+    """Outside their gates the backward wrappers and the di kernel raise
+    instead of launching: K2 past T = 512 or at T % 128 != 0, K4 at
+    T % 128 != 0 or dh 96."""
+    before = (packed_attention_bwd.launches, flash_self_attention.bwd_launches, attention_bwd_di.launches)
+    lse = torch.zeros((2, 2, 1024), device=cuda)
+    x = torch.zeros((2, 1024, 128), device=cuda, dtype=torch.bfloat16)
+    m = torch.ones((2, 1024), device=cuda)
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="T=1024"):
+            packed_attention_bwd(x, x, x, m, x, lse, x, 2)
+        y = torch.zeros((2, 320, 128), device=cuda, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="T=320"):
+            packed_attention_bwd(y, y, y, m[:, :320], y, lse[..., :320], y, 2)
+        y4 = y.unflatten(2, (2, 64))
+        with pytest.raises(ValueError, match="T=320"):
+            segment_attention_bwd(y4, y4, y4, m[:, :320], y4, lse[..., :320], y4, flash_self_attention)
+        z4 = torch.zeros((2, 256, 2, 96), device=cuda, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="head_dim=96"):
+            segment_attention_bwd(z4, z4, z4, m[:, :256], z4, lse[..., :256], z4, flash_self_attention)
+        with pytest.raises(ValueError, match="T=320"):
+            attention_bwd_di(y4, y4)
+    assert (packed_attention_bwd.launches, flash_self_attention.bwd_launches, attention_bwd_di.launches) == before
