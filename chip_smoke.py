@@ -8,10 +8,16 @@ Run from the repository root on a machine with a CUDA card and the CUDA
 toolkit. It
 
 1. builds the Hopper kernels from multimodalrouting_tpu_torch/csrc/ (one
-   nvcc per source, in parallel) and prints the build time and ptxas report;
+   nvcc per source, in parallel), prints the build time and ptxas report
+   (each kernel's registers and spills) and fails if the bf16 forward
+   kernel spills;
 2. holds K1 (packed attention) against its plain version at the flagship
    shape [128, 512, 768] in bf16 with masks from the synthetic cohort
-   (all-pad chunks included), in fp32 at a smaller N, and at head_dim 128;
+   (all-pad chunks included), in fp32 at a smaller N, at head_dim 128 and at
+   T = 1024; holds the bf16 forward (K1's and K4's kernel) and its lse
+   against the plain version in the kernel's own order at tighter limits,
+   shows that both limits reject planted faults, and times it as every
+   kernel of one call beside SDPA, with TFLOP/s and its share of the bound;
 3. holds K2 (the packed attention's backward: the di kernel, then the dq
    and dk/dv kernels) against its plain version at the same shapes, with a
    cotangent on every row, requires a repeat launch to give the same bits,
@@ -23,9 +29,11 @@ toolkit. It
 5. holds K4 (segment attention, the kernel pair of K4a flash and K4b
    splash), forward and backward, against its plain versions on every row at
    the flagship shape, at head_dim 128, at T = 1024 with 3 heads and in
-   fp32 (a repeat backward giving the same bits), shows that the bf16 limits
-   reject two planted faults (K1's key-mask semantics, a dropped key tile),
-   and times it beside SDPA with the boolean segment mask;
+   fp32 (a repeat backward giving the same bits; the bf16 forward also at
+   the tight limits), shows that the bf16 limits reject two planted faults
+   (K1's key-mask semantics, a dropped key tile) and the tight ones a
+   correction factor left out, and times it beside SDPA with the boolean
+   segment mask;
 6. writes a full-width flagship checkpoint (BERT-base 12 x 768 over 8 x 512
    note chunks, ResNet34 on 224^2, MulT d=256, 10-route capsule head, bf16)
    with seeded random weights, loads it with Predictor(device="cuda") and
@@ -56,6 +64,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -75,6 +84,7 @@ from multimodalrouting_tpu_torch.ops import hopper
 from multimodalrouting_tpu_torch.ops import flash
 from multimodalrouting_tpu_torch.ops.capsule import capsule_weight_init
 from multimodalrouting_tpu_torch.ops.flash import (
+    attention_fwd_tiled_reference,
     flash_self_attention,
     segment_attention_bwd,
     segment_attention_bwd_reference,
@@ -130,6 +140,24 @@ K2_FP32_TOL = (2e-5, 2e-5)
 # order) normalised at T <= 512 or per 512-key block beyond; the backward
 # rounds p and ds where the plain version does.
 K4_FP32_TOL = (2e-5, 2e-5)
+# The bf16 forward (K1 and K4 alike) is also held against the plain version
+# in its own order (ops/flash.py attention_fwd_tiled_reference: the same key
+# tiles, p rounded to bf16 unnormalised against the same running maximum).
+# Only fp32 summation order, the log2-domain logits and the hardware ex2
+# (~2^-22 relative) differ, so the two land on different sides of a bf16
+# rounding of p or of the output only where their fp32 values straddle it:
+# - max|got - ref| <= 2**-7 * max|ref|: one bf16 ulp at the output's largest
+#   magnitude (a straddled output rounding is one ulp);
+# - rms(got - ref) <= 0.25 * rms(ref - exact): a straddle needs an fp32
+#   difference of ~1e-6 relative, so few elements move, where the TPU order
+#   (p normalised, then rounded) moves every one by an independent rounding
+#   (ratio ~1, rejected; phase 2 shows it, and a correction factor left out).
+TILED_MAX_REL = 2.0**-7
+TILED_RMS_RATIO = 0.25
+# The forward's lse (natural log) against the tiled plain version's
+# m + log l: the kernel's maximum is taken in the log2 domain and scaled back
+# (two roundings of m), l summed in another order with the hardware ex2.
+LSE_TOL = (1e-5, 1e-6)
 # di = rowsum(o * do) in fp32: the kernel and the plain version sum the same
 # products in another order.
 DI_TOL = (2e-5, 2e-5)
@@ -192,21 +220,31 @@ def kernel_ms(fn, name_parts, iters: int) -> float:
     return total
 
 
-# The attention backward's kernels (K2 and K4 alike), in launch order.
+# The attention forward's kernel (K1 and K4 alike) and the backward's
+# kernels (K2 and K4 alike), in launch order.
+FWD_KERNELS = {"fwd": "attention_fwd_wgmma_kernel"}
 BWD_KERNELS = {"di": "bwd_di_kernel", "dq": "bwd_dq_wgmma_kernel", "dkdv": "bwd_dkdv_wgmma_kernel"}
 
 
-def bwd_ms(fn, iters: int = 20) -> tuple:
-    """Device time of one backward call: every CUDA kernel in a profiler
-    trace of `iters` calls, summed and divided by `iters`, with its split
-    into BWD_KERNELS. Fails if a kernel of the backward is missing or another
-    kernel ran. -> (ms, {part: ms})."""
+def call_ms(fn, kernels: dict, iters: int = 20) -> tuple:
+    """Device time of one call: every CUDA kernel in a profiler trace of
+    `iters` calls, summed and divided by `iters`, with its split into
+    `kernels` ({part: name}). Fails if a kernel of the call is missing or
+    another kernel ran. -> (ms, {part: ms})."""
     spans = device_spans(fn, iters)
-    split = {part: sum(us for name, us in spans if key in name) / iters / 1e3 for part, key in BWD_KERNELS.items()}
-    require(all(ms > 0 for ms in split.values()), f"a backward kernel is missing from the trace: {split}")
-    others = sorted({name for name, _ in spans if not any(key in name for key in BWD_KERNELS.values())})
-    require(not others, f"the backward launched other kernels: {others}")
+    split = {part: sum(us for name, us in spans if key in name) / iters / 1e3 for part, key in kernels.items()}
+    require(all(ms > 0 for ms in split.values()), f"a kernel of the call is missing from the trace: {split}")
+    others = sorted({name for name, _ in spans if not any(key in name for key in kernels.values())})
+    require(not others, f"the call launched other kernels: {others}")
     return sum(us for _, us in spans) / iters / 1e3, split
+
+
+def bwd_ms(fn, iters: int = 20) -> tuple:
+    return call_ms(fn, BWD_KERNELS, iters)
+
+
+def fwd_ms(fn, iters: int = 20) -> float:
+    return call_ms(fn, FWD_KERNELS, iters)[0]
 
 
 def describe_split(split: dict) -> str:
@@ -272,6 +310,59 @@ def check_bf16(name: str, got: torch.Tensor, ref: torch.Tensor, exact: torch.Ten
     return e["max_abs_err"]
 
 
+def within_tiled_limits(e: dict) -> bool:
+    return e["finite"] and e["max_abs_err"] <= TILED_MAX_REL * e["max_ref"] and e["rms_ratio"] <= TILED_RMS_RATIO
+
+
+def describe_tiled(e: dict) -> str:
+    return (f"max_abs_err={e['max_abs_err']:.3e} = {e['ulps_at_worst']:.1f} bf16 ulp at |ref|={e['ref_at_worst']:.4f} "
+            f"(limit 2^-7 * max|ref| = {TILED_MAX_REL * e['max_ref']:.3e}), "
+            f"rms_ratio={e['rms_ratio']:.4f} (limit {TILED_RMS_RATIO})")
+
+
+def tiled_without_correction(q4, k4, v4, m, mode: str, block_k: int) -> torch.Tensor:
+    """A planted fault: the forward's tiled plain version with the running
+    maximum's correction of acc and l left out."""
+    dt = q4.dtype
+    if mode == "key_mask":
+        s = torch.einsum("bqhd,bkhd->bhqk", q4.float(), k4.float()) + ((1.0 - m) * -1e30)[:, None, None, :]
+    else:
+        s = flash.segment_logits(q4, k4, m)
+    mx = torch.full(s.shape[:-1] + (1,), -float("inf"), device=s.device)
+    l, acc = torch.zeros_like(mx), 0.0
+    for k0 in range(0, s.shape[-1], block_k):
+        sb = s[..., k0 : k0 + block_k]
+        mx = torch.maximum(mx, sb.amax(dim=-1, keepdim=True))
+        p = torch.exp(sb - mx)
+        l = l + p.sum(dim=-1, keepdim=True)
+        acc = acc + torch.einsum("bhqk,bkhd->bhqd", p.to(dt).float(), v4[:, k0 : k0 + block_k].float())
+    return (acc / l).transpose(1, 2).to(dt)
+
+
+def check_fwd_tiled(tag: str, q4, k4, v4, m, mode: str, out, lse=None, faults=()) -> dict:
+    """The bf16 forward kernel's output [N, T, H, dh] against the plain
+    version in its own order (the tight limits), and its lse, if given,
+    against that version's on every row. `faults`: (name, output) pairs that
+    the tight limits must reject. -> the output's errors."""
+    bk = flash.fwd_block_k(q4.shape[-1])
+    ref, ref_lse = attention_fwd_tiled_reference(q4, k4, v4, m, mode, bk)
+    exact = attention_fwd_tiled_reference(q4.float(), k4.float(), v4.float(), m, mode, bk)[0]
+    e = bf16_errors(out, ref, exact)
+    log(f"[check] {tag} against the tiled plain version (block_k {bk}): {describe_tiled(e)}")
+    require(within_tiled_limits(e), f"{tag}: outside the tight limits against the tiled plain version")
+    if lse is not None:
+        check_close(f"{tag} lse", lse, ref_lse, *LSE_TOL)
+    for fault, bad in faults:
+        fe = bf16_errors(bad, ref, exact)
+        log(f"[fault] {tag} planted fault, {fault}: {describe_tiled(fe)}")
+        require(not within_tiled_limits(fe), f"the tight limits accept a planted fault: {fault}")
+    return e
+
+
+def fwd_rates(ms: float, flops: float, bound_ms: float) -> str:
+    return f"{flops / ms / 1e9:.1f} TFLOP/s, {100 * bound_ms / ms:.1f}% of the bound"
+
+
 def plain_coarse_p(q, k, v, m, heads: int, bits: int) -> torch.Tensor:
     """A planted fault: the plain version of K1 with p rounded to `bits`
     significant bits instead of bf16's 8."""
@@ -301,7 +392,10 @@ def phase_k1(dev) -> dict:
     with torch.no_grad():
         q, k, v, m = k1_inputs(128, 512, 12, 64, torch.bfloat16, dev, mask)
         out = packed_attention(q, k, v, m, 12)
+        out_lse, lse = packed_attention_fwd(q, k, v, m, 12, want_lse=True)
         torch.cuda.synchronize()
+        require(torch.equal(out, out_lse), "K1: the output differs with and without the lse write")
+        require(torch.equal(out, packed_attention(q, k, v, m, 12)), "K1: a repeat launch gave other bits")
         ref = packed_attention_reference(q, k, v, m, 12)
         exact = packed_attention_reference(q.float(), k.float(), v.float(), m, 12)
         err = check_bf16("K1 bf16 [128,512,768] dh=64", out, ref, exact)
@@ -314,28 +408,39 @@ def phase_k1(dev) -> dict:
             log(f"[fault] K1 planted fault, {fault}: {describe_bf16(e)}")
             require(not within_bf16_limits(e), f"the bf16 limits accept a planted fault: {fault}")
         del exact, dropped
-        ms = kernel_ms(lambda: packed_attention(q, k, v, m, 12), "attention_fwd_bf16_kernel", 20)
+        q4, k4, v4 = (heads4(x, 12) for x in (q, k, v))
+        check_fwd_tiled("K1 bf16 [128,512,768] dh=64", q4, k4, v4, m, "key_mask", heads4(out, 12), lse, faults=(
+            ("correction factor left out", tiled_without_correction(q4, k4, v4, m, "key_mask", 128)),
+            ("p normalised before rounding (the TPU order)", heads4(ref, 12))))
+        del ref, out_lse, lse
+        ms = fwd_ms(lambda: packed_attention(q, k, v, m, 12))
         # under a gradient the forward also writes each row's log-sum-exp for K2
-        ms_lse = kernel_ms(lambda: packed_attention_fwd(q, k, v, m, 12, want_lse=True),
-                           "attention_fwd_bf16_kernel", 20)
+        ms_lse = fwd_ms(lambda: packed_attention_fwd(q, k, v, m, 12, want_lse=True))
         plain_ms = device_time_ms(lambda: packed_attention_reference(q, k, v, m, 12), 5)
-        q4, k4, v4 = (x.unflatten(2, (12, 64)).transpose(1, 2) for x in (q, k, v))
+        qh, kh, vh = (x.transpose(1, 2) for x in (q4, k4, v4))
         add_mask = ((1.0 - m) * -1e30).to(torch.bfloat16)[:, None, None, :]
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        library_ms = device_time_ms(lambda: sdpa(q4, k4, v4, attn_mask=add_mask, scale=1.0), 20)
-        del ref
+        library_ms = device_time_ms(lambda: sdpa(qh, kh, vh, attn_mask=add_mask, scale=1.0), 20)
+        del qh, kh, vh, q4, k4, v4
 
         q2, k2, v2, m2 = k1_inputs(16, 512, 12, 64, torch.float32, dev, mask)
         check_close("K1 fp32 [16,512,768] dh=64", packed_attention(q2, k2, v2, m2, 12),
                     packed_attention_reference(q2, k2, v2, m2, 12), *K1_FP32_TOL)
-        q2, k2, v2, m2 = k1_inputs(32, 512, 6, 128, torch.bfloat16, dev, mask)
-        check_bf16("K1 bf16 [32,512,768] dh=128", packed_attention(q2, k2, v2, m2, 6),
-                   packed_attention_reference(q2, k2, v2, m2, 6),
-                   packed_attention_reference(q2.float(), k2.float(), v2.float(), m2, 6))
+        for n2, t2, h2, dh2, m_src in ((32, 512, 6, 128, mask), (8, 1024, 12, 64, None)):
+            if m_src is None:  # T = 1024: the cohort's chunks two by two
+                m_src = mask[: 2 * n2].reshape(n2, 1024)
+            q2, k2, v2, m2 = k1_inputs(n2, t2, h2, dh2, torch.bfloat16, dev, m_src)
+            tag = f"K1 bf16 [{n2},{t2},{h2 * dh2}] dh={dh2}"
+            out2, lse2 = packed_attention_fwd(q2, k2, v2, m2, h2, want_lse=True)
+            check_bf16(tag, out2, packed_attention_reference(q2, k2, v2, m2, h2),
+                       packed_attention_reference(q2.float(), k2.float(), v2.float(), m2, h2))
+            check_fwd_tiled(tag, heads4(q2, h2), heads4(k2, h2), heads4(v2, h2), m2, "key_mask", heads4(out2, h2), lse2)
     n, t, d, h, dh = 128, 512, 768, 12, 64
-    bound_ms, bound_by = bound(4 * n * t * d * 2 + n * t * 4, 4 * n * h * t * t * dh, "bf16")
-    log(f"[k1] kernel_ms={ms:.4f} (with the lse write {ms_lse:.4f}) plain_ms={plain_ms:.4f} "
-        f"library_ms={library_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by})")
+    flops = 4 * n * h * t * t * dh
+    bound_ms, bound_by = bound(4 * n * t * d * 2 + n * t * 4, flops, "bf16")
+    log(f"[k1] kernel_ms={ms:.4f} (with the lse write {ms_lse:.4f}; {fwd_rates(ms, flops, bound_ms)}) "
+        f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} ({fwd_rates(library_ms, flops, bound_ms)}) "
+        f"bound_ms={bound_ms:.4f} ({bound_by})")
     return {
         "name": "packed_attention", "route": "cuda",
         "source": "multimodalrouting_tpu_torch/csrc/packed_attention.cu",
@@ -461,12 +566,14 @@ def segment_dropped_tile(q4, k4, v4, m, out=None, do4=None):
     return tuple(x.to(dt) for x in (dq, dk, dv))
 
 
-def check_k4(tag: str, q, k, v, m, do, heads: int) -> tuple:
+def check_k4(tag: str, q, k, v, m, do, heads: int, plant_faults: bool = False) -> tuple:
     """K4 forward and backward against the plain versions on every row:
     bf16 limits per output (`exact`: the plain versions in fp32 with nothing
-    rounded), or fp32 tolerances. The serving forward (no lse) must equal the
-    training one, and a second backward launch must give the same bits.
-    -> (forward error, backward error)."""
+    rounded) and the forward's tight limits, or fp32 tolerances. The serving
+    forward (no lse) must equal the training one, and a second backward
+    launch must give the same bits. `plant_faults`: the tight limits must
+    also reject two planted forward faults. -> (forward error, backward
+    error)."""
     q4, k4, v4, do4 = (heads4(x, heads) for x in (q, k, v, do))
     out, lse = segment_attention_fwd(q4, k4, v4, m, True, flash_self_attention)
     grads = segment_attention_bwd(q4, k4, v4, m, out, lse, do4, flash_self_attention)
@@ -484,6 +591,9 @@ def check_k4(tag: str, q, k, v, m, do, heads: int) -> tuple:
     qf, kf, vf = q4.float(), k4.float(), v4.float()
     exact = segment_attention_reference(qf, kf, vf, m)
     fwd = check_bf16(f"K4 {tag} out", out, ref, exact)
+    faults = (("correction factor left out", tiled_without_correction(q4, k4, v4, m, "segment", 128)),
+              ("p normalised before rounding (the upstream order)", ref)) if plant_faults else ()
+    check_fwd_tiled(f"K4 {tag} out", q4, k4, v4, m, "segment", out, lse, faults)
     exact_grads = segment_attention_bwd_reference(qf, kf, vf, m, exact, do4.float())
     bwd = max(check_bf16(f"K4 {tag} {n}", x, y, e) for n, x, y, e in zip(names, grads, ref_grads, exact_grads))
     return fwd, bwd
@@ -502,7 +612,7 @@ def phase_k4(dev) -> list:
     n, t, h, dh = 128, 512, 12, 64
     with torch.no_grad():
         q, k, v, m, do = k2_inputs(n, t, h, dh, torch.bfloat16, dev, mask)
-        fwd_err, bwd_err = check_k4("bf16 [128,512,768] dh=64", q, k, v, m, do, h)
+        fwd_err, bwd_err = check_k4("bf16 [128,512,768] dh=64", q, k, v, m, do, h, plant_faults=True)
         q4, k4, v4, do4 = (heads4(x, h) for x in (q, k, v, do))
         ref = segment_attention_reference(q4, k4, v4, m)
         exact = segment_attention_reference(q4.float(), k4.float(), v4.float(), m)
@@ -525,10 +635,8 @@ def phase_k4(dev) -> list:
                 rejected.append(not within_bf16_limits(e))
             require(rejected[0] and any(rejected[1:]), f"the bf16 limits accept a planted K4 fault: {fault}")
         del ref, exact, ref_grads, exact_grads, key_mask_grads, faults, bad, bad_grads
-        fwd_ms = {w.__name__: kernel_ms(lambda: w(q4, k4, v4, m), "attention_fwd_bf16_kernel", 20)
-                  for w in (flash_self_attention, splash_self_attention)}
-        ms_lse = kernel_ms(lambda: segment_attention_fwd(q4, k4, v4, m, True, flash_self_attention),
-                           "attention_fwd_bf16_kernel", 20)
+        fwd_times = {w.__name__: fwd_ms(lambda: w(q4, k4, v4, m)) for w in (flash_self_attention, splash_self_attention)}
+        ms_lse = fwd_ms(lambda: segment_attention_fwd(q4, k4, v4, m, True, flash_self_attention))
         bwd = {w.__name__: bwd_ms(lambda: segment_attention_bwd(q4, k4, v4, m, out, lse, do4, w))
                for w in (flash_self_attention, splash_self_attention)}
         plain_ms = device_time_ms(lambda: segment_attention_reference(q4, k4, v4, m), 5)
@@ -550,13 +658,16 @@ def phase_k4(dev) -> list:
         check_k4("fp32 [16,512,768] dh=64", *k2_inputs(16, 512, 12, 64, torch.float32, dev, mask), 12)
         check_k4("fp32 [8,1024,256] dh=128", *k2_inputs(8, 1024, 2, 128, torch.float32, dev, long_mask), 2)
     d = h * dh
-    bound_ms, bound_by = bound(4 * n * t * d * 2 + n * t * 4, 4 * n * h * t * t * dh, "bf16")
+    flops = 4 * n * h * t * t * dh
+    bound_ms, bound_by = bound(4 * n * t * d * 2 + n * t * 4, flops, "bf16")
     # the backward reads q, k, v, o, do, the mask and lse once, writes dq,
     # dk, dv once; five T x T x dh products per head
     bwd_bound_ms, bwd_bound_by = bound(8 * n * t * d * 2 + n * t * 4 + n * h * t * 4,
                                        10 * n * h * t * t * dh, "bf16")
-    log(f"[k4] forward kernel_ms={fwd_ms} (with the lse write {ms_lse:.4f}) plain_ms={plain_ms:.4f} "
-        f"library_ms={library_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by})")
+    for w, ms in fwd_times.items():
+        log(f"[k4] {w} forward kernel_ms={ms:.4f} ({fwd_rates(ms, flops, bound_ms)})")
+    log(f"[k4] forward with the lse write {ms_lse:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+        f"({fwd_rates(library_ms, flops, bound_ms)}) bound_ms={bound_ms:.4f} ({bound_by})")
     for w, (ms, split) in bwd.items():
         log(f"[k4] {w} backward kernel_ms={ms:.4f} ({describe_split(split)}) plain_ms={plain_bwd_ms:.4f} "
             f"library_ms={library_bwd_ms:.4f} bound_ms={bwd_bound_ms:.4f} ({bwd_bound_by})")
@@ -565,7 +676,7 @@ def phase_k4(dev) -> list:
                                     ("splash_attention", splash_self_attention, "multimodalrouting_tpu/ops/flash.py:48")):
         rows.append({
             "name": name, "route": "cuda", "source": "multimodalrouting_tpu_torch/csrc/flash_attention.cu",
-            "replaces": replaces, "max_abs_err": fwd_err, "ms": fwd_ms[wrapper.__name__], "ms_with_lse": ms_lse,
+            "replaces": replaces, "max_abs_err": fwd_err, "ms": fwd_times[wrapper.__name__], "ms_with_lse": ms_lse,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
         })
         rows.append({
@@ -715,8 +826,9 @@ def profile_forward(predictor, batch, top: int = 15) -> None:
     busy_ms = sum(total for _, total in by_name.values())
     log(f"[profile] batch-{batch.batch_size} forward: wall_ms={wall_ms:.2f} device_busy_ms={busy_ms:.2f} "
         f"idle_share={max(0.0, 1 - busy_ms / wall_ms):.3f} kernels={sum(n for n, _ in by_name.values())}")
-    for name, (n, total) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]:
-        log(f"[profile] {total:9.3f} ms {100 * total / busy_ms:5.1f}% x{n:<5d} {name[:110]}")
+    for rank, (name, (n, total)) in enumerate(sorted(by_name.items(), key=lambda kv: -kv[1][1])):
+        if rank < top or "attn::" in name:  # the top rows and every attention kernel
+            log(f"[profile] {total:9.3f} ms {100 * total / busy_ms:5.1f}% x{n:<5d} {name[:110]}")
 
 
 def phase_serving(dev, tmp: str) -> dict:
@@ -1069,6 +1181,26 @@ def phase_entry_point(dev, tmp: str) -> None:
     torch.cuda.empty_cache()
 
 
+def ptxas_report() -> None:
+    """Print each library's ptxas lines (the kernel each group of lines is
+    for, its registers, spills and any warning) and fail if an instance of
+    the bf16 forward kernel spills."""
+    checked = 0
+    for name in hopper.SOURCES:
+        entry = ""
+        for line in hopper.build_log(name).splitlines():
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else line
+            elif not ("registers" in line or "spill" in line or "warning" in line.lower()):
+                continue
+            log(f"[build] {name}: {line.strip()}")
+            if "spill" in line and "attention_fwd_wgmma_kernel" in entry:
+                spills = [int(x) for x in re.findall(r"(\d+) bytes spill", line)]
+                require(spills == [0, 0], f"{entry} spills: {line.strip()}")
+                checked += 1
+    require(checked == 4, f"ptxas reported {checked} instances of the bf16 forward kernel, expected 4")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1084,10 +1216,7 @@ def main() -> int:
 
     secs = hopper.build()
     log(f"[build] kernels built in {secs:.1f}s into {hopper.BUILD_DIR}")
-    for name in hopper.SOURCES:
-        for line in hopper.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+    ptxas_report()
 
     kernels = [phase_k1(dev), phase_k2(dev), phase_k3(dev), *phase_k4(dev)]
     phase_k3_grad(dev)

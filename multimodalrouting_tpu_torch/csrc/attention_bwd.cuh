@@ -72,13 +72,9 @@
 #include <stdint.h>
 
 #include "attention_fwd.cuh"
-#include "mma_bf16.cuh"
 #include "sm90.cuh"
 
 namespace attn {
-
-using bf16 = __nv_bfloat16;
-using ll = long long;
 
 constexpr float kAllPadLse = -1e29f;  // key mask, lse below this: every key of the row is padding
 
@@ -86,14 +82,6 @@ template <int MODE>
 __device__ __forceinline__ float recompute_p(float logit, float lse, float inv_t) {
   if (MODE == kKeyMask && lse <= kAllPadLse) return inv_t;
   return expf(logit - lse);
-}
-
-constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // recompute_p for the bf16 kernels, as one FMA and the hardware exp2:
@@ -186,26 +174,6 @@ constexpr int kHalfBytes = kTile * 128;  // 64 rows x one 128-byte swizzle row
 template <int DH, int MODE>
 constexpr int dq_min_blocks() {
   return DH == 128 && MODE == kKeyMask ? 1 : kDqBlocks;
-}
-
-// This thread's accumulator columns 8j + c2, 8j + c2 + 1 of rows g, g + 8
-// (d[4j .. 4j + 3]) as the A fragment of k-step kk (columns 16kk..16kk+15).
-template <int R>
-__device__ __forceinline__ void acc_to_a_frag(uint32_t (&a)[4], const float (&d)[R], int kk) {
-  a[0] = pack_bf16(d[8 * kk + 0], d[8 * kk + 1]);
-  a[1] = pack_bf16(d[8 * kk + 2], d[8 * kk + 3]);
-  a[2] = pack_bf16(d[8 * kk + 4], d[8 * kk + 5]);
-  a[3] = pack_bf16(d[8 * kk + 6], d[8 * kk + 7]);
-}
-
-// Rows r0 and r0 + 8 of a 64-column half accumulator into bf16 output rows.
-__device__ __forceinline__ void store_half(bf16* base, ll st, ll r0, int col0, int c2, const float (&d)[32]) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int col = col0 + j * 8 + c2;
-    *reinterpret_cast<uint32_t*>(base + r0 * st + col) = pack_bf16(d[4 * j], d[4 * j + 1]);
-    *reinterpret_cast<uint32_t*>(base + (r0 + 8) * st + col) = pack_bf16(d[4 * j + 2], d[4 * j + 3]);
-  }
 }
 
 template <int DH>
@@ -314,7 +282,7 @@ __global__ void __launch_bounds__(kThreads, dq_min_blocks<DH, MODE>()) bwd_dq_wg
       sm90::wgmma_ss_n64(dp, sm90::desc_kmajor(do_s + off), sm90::desc_kmajor(vs + off), kk > 0);
     }
     sm90::wg_commit();
-    sm90::wg_wait_all();
+    sm90::wg_wait<0>();
     sm90::fence_regs(sc);
     sm90::fence_regs(dp);
 
@@ -353,7 +321,7 @@ __global__ void __launch_bounds__(kThreads, dq_min_blocks<DH, MODE>()) bwd_dq_wg
       }
     }
     sm90::wg_commit();
-    sm90::wg_wait_all();
+    sm90::wg_wait<0>();
 #pragma unroll
     for (int h = 0; h < kH; ++h) {
       sm90::fence_regs(acc[h]);
@@ -486,7 +454,7 @@ __global__ void __launch_bounds__(kThreads, 1) bwd_dkdv_wgmma_kernel(
                          sm90::desc_kmajor(dos + (kk / 4) * kQHalf + col), kk > 0);
     }
     sm90::wg_commit();
-    sm90::wg_wait_all();
+    sm90::wg_wait<0>();
     sm90::fence_regs(sc);
     sm90::fence_regs(dp);
 
@@ -523,7 +491,7 @@ __global__ void __launch_bounds__(kThreads, 1) bwd_dkdv_wgmma_kernel(
       }
     }
     sm90::wg_commit();
-    sm90::wg_wait_all();
+    sm90::wg_wait<0>();
 #pragma unroll
     for (int h = 0; h < kH; ++h) {
       sm90::fence_regs(dk_acc[h]);

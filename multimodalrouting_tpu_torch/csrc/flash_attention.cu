@@ -16,24 +16,26 @@
 // whose pad queries attend the valid keys and whose all-pad rows are uniform.
 //
 // Design. The kernels are attention_fwd.cuh's (K1's), instantiated with the
-// segment test (kSegment): one block per (64-query tile, head, chunk) reads
-// the strided [N, T, H, dh] view of the packed [N, T, H*dh] projections in
-// place, so none of the TPU side's head transposes is made; keys stream in
-// tiles of 64 with an online softmax, so T has no upper limit; bf16 on
-// mma.sync m16n8k16, fp32 on FMA. Under a gradient the wrapper (ops/flash.py)
-// asks for each row's log-sum-exp, which the backward
+// segment test (kSegment): the persistent bf16 kernel takes (128-query
+// tile, head, chunk) items in turn, reads the strided [N, T, H, dh] view of
+// the packed [N, T, H*dh] projections in place through TMA tensor maps, so
+// none of the TPU side's head transposes is made, and streams keys in tiles
+// of 128 (64 at dh 128) through a shared-memory ring with an online softmax,
+// so T has no upper limit; both products on wgmma, fp32 on FMA. Under a gradient the
+// wrapper (ops/flash.py) asks for each row's log-sum-exp, which the backward
 // (flash_attention_bwd.cu) uses to recompute p.
 //
 // What bounds it on an H100: the same work as K1 at the same shape; at
 // [128, 512, 768] bf16 the bytes (q, k, v, out: 403 MB, 0.120 ms at
-// 3.35 TB/s) against 103 GFLOP (0.104 ms at 989 TFLOP/s). Like K1, this first
-// version keeps no loads in flight during the products; PERF.md has its time.
+// 3.35 TB/s) against 103 GFLOP (0.104 ms at 989 TFLOP/s). The segment test
+// is a compare-select per key for a thread's two rows where K1 adds a key
+// term; PERF.md has its time.
 //
 // The upstream flash kernel at T <= 512 (one key block) normalises p before
 // rounding it to bf16, at T = 1024 (two blocks of 512) it rounds p relative
 // to each block's running maximum; this kernel rounds p relative to the
-// running maximum of 64-key tiles. The results differ by rounding only (the
-// bf16 limits in chip_smoke.py).
+// running maximum of 128-key tiles (64 at dh 128). The results differ by
+// rounding only (the bf16 limits in chip_smoke.py).
 
 #include "attention_fwd.cuh"
 

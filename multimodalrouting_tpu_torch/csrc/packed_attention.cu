@@ -10,20 +10,22 @@
 //
 // Design. The kernels are attention_fwd.cuh's, instantiated with the key
 // mask (kKeyMask); K4 (flash_attention.cu) instantiates the same kernels with
-// segment ids. One block per (64-query tile, head, chunk); four warps, each
-// owning 16 query rows. The kernel reads the strided [N, T, H, dh] view of the
-// packed tensors in place (row strides are arguments), so no transpose or copy
-// is made around it. Keys and values stream through shared memory in tiles of
-// 64 with an online softmax, so a block holds O(64 * dh) state whatever T is.
-// The bf16 path multiplies with mma.sync m16n8k16 (fp32 accumulators); the
-// fp32 path (the tight check and fp32 serving) is plain FMA, one key per lane.
+// segment ids. They read the strided [N, T, H, dh] view of the packed tensors
+// in place (row strides are arguments), so no transpose or copy is made
+// around them. The bf16 kernel is persistent (one block per SM, each taking
+// (128-query tile, head, chunk) items in turn): a producer warpgroup streams
+// Q, K and V tiles by TMA into shared memory (a 3-stage K/V ring that runs on
+// across items), and two consumer warpgroups run both products on wgmma
+// (p stays in registers as the A operand of p @ v), taking turns so that one's
+// softmax overlaps the other's products. The fp32 path (the tight check and
+// fp32 serving) is plain FMA, one key per lane.
 //
 // What bounds it on an H100: at the flagship shape [128, 512, 768] bf16 one
 // call reads q, k, v and writes out, 403 MB (0.120 ms at 3.35 TB/s), and does
 // 4 * 128 * 12 * 512^2 * 64 = 103 GFLOP (0.104 ms at 989 TFLOP/s): it sits
-// near the ridge. This first version keeps no loads in flight during the
-// products (no cp.async/TMA pipeline, mma.sync rather than wgmma), so it is
-// latency-bound well above that line; PERF.md has its measured time.
+// near the ridge, so both the loads (TMA, kept in flight by the producer) and
+// the tensor cores (wgmma, fed while the other consumer does its softmax)
+// have to run at once; PERF.md has its measured time.
 //
 // The online softmax rounds p to bf16 before it is normalised, where the TPU
 // kernel rounds the normalised p; bf16 results therefore differ from the
@@ -36,7 +38,7 @@
 
 #include "attention_fwd.cuh"
 
-// The wrapper (ops/flash_packed.py) has checked: t % 64 == 0, dh in {64, 128},
+// The wrapper (ops/flash_packed.py) has checked: t % 128 == 0, dh in {64, 128},
 // inner dimension contiguous, row strides and base pointers 16-byte aligned,
 // mask a contiguous fp32 [n, t]; lse is null or a contiguous fp32 [n, heads, t].
 // Returns the cudaError_t of the launch.

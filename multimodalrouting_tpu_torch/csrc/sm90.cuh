@@ -1,6 +1,7 @@
-// Hopper (sm_90a) building blocks for the attention backward kernels: TMA
-// tensor maps and copies, mbarriers, and warpgroup matrix multiplies
-// (wgmma) on shared-memory tiles in the 128-byte swizzle.
+// Hopper (sm_90a) building blocks for the attention kernels: TMA tensor maps
+// and copies, mbarriers, named barriers, warpgroup register reallocation
+// (setmaxnreg) and warpgroup matrix multiplies (wgmma) on shared-memory tiles
+// in the 128-byte swizzle.
 //
 // Tiles. Every bf16 tile in shared memory is a stack of 128-byte rows (64
 // bf16 values), written by TMA with CU_TENSOR_MAP_SWIZZLE_128B, its base
@@ -72,6 +73,30 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 }
 
+// ------------------------------------------- named barriers and registers
+
+// Barrier `id` (1..15; 0 is __syncthreads') completes once `count` threads
+// have arrived: sync arrives and waits, arrive only arrives.
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// The calling warpgroup's registers per thread, lowered (a producer) or
+// raised (a consumer); every warp of the warpgroup executes it.
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
 // -------------------------------------------------------------------- TMA
 
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1,
@@ -106,14 +131,64 @@ __device__ __forceinline__ uint64_t desc_mnmajor(const void* p) { return desc_sw
 
 __device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wg_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_wait_all() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+// Wait until at most N committed groups of products are still in flight.
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
 
-// Keeps the compiler from moving accesses of accumulator registers across
-// the asynchronous products.
+// Keeps the compiler from moving accesses of accumulator (and register A
+// operand) registers across the asynchronous products, and keeps an operand
+// of a product in flight live, so that its registers are not reused.
 template <int R>
 __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int K>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[K][4]) {
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[k][i])::"memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// This thread's accumulator columns 8j + c2, 8j + c2 + 1 of rows g, g + 8
+// (d[4j .. 4j + 3]) as the register A fragment of k-step kk (columns
+// 16kk .. 16kk + 15): the m16n8k16 A layout of each warp's 16 rows.
+template <int R>
+__device__ __forceinline__ void acc_to_a_frag(uint32_t (&a)[4], const float (&d)[R], int kk) {
+  a[0] = pack_bf16(d[8 * kk + 0], d[8 * kk + 1]);
+  a[1] = pack_bf16(d[8 * kk + 2], d[8 * kk + 3]);
+  a[2] = pack_bf16(d[8 * kk + 4], d[8 * kk + 5]);
+  a[3] = pack_bf16(d[8 * kk + 6], d[8 * kk + 7]);
+}
+
+// D[64 x 128] (+)= A[64 x 16] B[16 x 128]^T, A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
 }
 
 // D[64 x 64] (+)= A[64 x 16] B[16 x 64]^T, A and B K-major in shared memory.
@@ -145,8 +220,10 @@ __device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da, uint64
 
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int accumulate) {
-  static_assert(N == 32 || N == 64, "wgmma_ss: N is 32 or 64");
-  if constexpr (N == 64) {
+  static_assert(N == 32 || N == 64 || N == 128, "wgmma_ss: N is 32, 64 or 128");
+  if constexpr (N == 128) {
+    wgmma_ss_n128(d, da, db, accumulate);
+  } else if constexpr (N == 64) {
     wgmma_ss_n64(d, da, db, accumulate);
   } else {
     wgmma_ss_n32(d, da, db, accumulate);

@@ -26,6 +26,11 @@ backward takes di = rowsum(o * do) from the saved output with the di kernel
 that K2 launches too (``csrc/attention_bwd.cuh``), ahead of its two product
 kernels, as the upstream backward takes it from XLA before its kernels.
 
+``attention_fwd_tiled_reference`` is the plain version of the bf16 forward
+kernel (K1's and K4's) in its own order, key tile by key tile; only the
+tests and chip_smoke.py use it, to hold the kernel at tighter limits than
+the TPU order allows.
+
 ``attention_impl`` is the JAX package's selector: MMR_ATTN = flash
 (default) | packed | splash | xla, with MMR_FLASH=0 selecting xla.
 The JAX package's TPU tiling variables (MMR_FLASH_BLOCK_*, MMR_SPLASH_BLOCK_*)
@@ -104,6 +109,45 @@ def segment_attention_reference(q, k, v, kv_mask) -> torch.Tensor:
         acc = acc * (l_corr * inv) + pv * inv
         m_prev, l_prev = m_next, l_next
     return acc.transpose(1, 2).to(dt)
+
+
+def fwd_block_k(head_dim: int) -> int:
+    """The forward kernel's key tile (csrc/attention_fwd.cuh:fwd_block_k)."""
+    return 128 if head_dim == 64 else 64
+
+
+def attention_fwd_tiled_reference(q4, k4, v4, kv_mask, mode: str, block_k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the bf16 forward kernel (K1 and K4 alike) in its own
+    order, on [N, T, H, dh] views: fp32 logits plus the mask term of `mode`
+    ("key_mask", K1: (1 - m_key) * -1e30; "segment", K4: where(m_q == m_k, 0,
+    MASK_VALUE)), then an online softmax over key tiles of `block_k`: per
+    tile m_new = max(m, rowmax), p = exp(s - m_new) rounded to the input type
+    unnormalised, acc = acc * exp(m - m_new) + p @ v and l = l * exp(m - m_new)
+    + rowsum(p) (p in fp32), in fp32. -> (out = acc * (1 / l) in the input type
+    [N, T, H, dh], lse = m + log l fp32 [N, H, T]). For the tests and
+    chip_smoke.py only; the wrappers' plain versions keep the TPU order."""
+    dt = q4.dtype
+    if mode == "key_mask":
+        s = torch.einsum("bqhd,bkhd->bhqk", q4.float(), k4.float())
+        s = s + ((1.0 - kv_mask.float()) * -1e30)[:, None, None, :]
+    elif mode == "segment":
+        s = segment_logits(q4, k4, kv_mask)
+    else:
+        raise ValueError(f"mode is key_mask or segment, got {mode!r}")
+    vf = v4.float()
+    m = torch.full(s.shape[:-1] + (1,), -float("inf"), dtype=torch.float32, device=s.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(s.shape[:-1] + (v4.shape[-1],), dtype=torch.float32, device=s.device)
+    for k0 in range(0, s.shape[-1], block_k):
+        sb = s[..., k0 : k0 + block_k]
+        m_new = torch.maximum(m, sb.amax(dim=-1, keepdim=True))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(sb - m_new)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        acc = acc * corr + torch.einsum("bhqk,bkhd->bhqd", p.to(dt).float(), vf[:, k0 : k0 + block_k])
+        m = m_new
+    out = (acc * (1.0 / l)).transpose(1, 2).to(dt)
+    return out, (m + torch.log(l))[..., 0]
 
 
 def segment_attention_bwd_reference(q, k, v, kv_mask, out, do) -> Tuple[torch.Tensor, ...]:

@@ -1,5 +1,8 @@
 """The Hopper kernels against their plain versions, on the card: K1 (packed
-attention), K2 (its backward) alone and through autograd, K3 (capsule
+attention), K2 (its backward) alone and through autograd, the bf16 forward
+that K1 and K4 share against its plain version in its own order (tight
+limits, lse on every row, fully masked key tiles, strided views, repeat
+launches, with and without lse), K3 (capsule
 routing) and its autograd gradient, K4 (segment attention, the kernel pair
 of K4a flash and K4b splash) forward and backward alone and through
 autograd, with its two launch counters; the attention backward that K2 and
@@ -22,13 +25,18 @@ from chip_smoke import (
     K1_FP32_TOL,
     K2_FP32_TOL,
     K4_FP32_TOL,
+    LSE_TOL,
     bf16_errors,
     describe_bf16,
+    describe_tiled,
     within_bf16_limits,
+    within_tiled_limits,
 )
 from multimodalrouting_tpu_torch.ops.capsule import capsule_weight_init
 from multimodalrouting_tpu_torch.ops.flash import (
+    attention_fwd_tiled_reference,
     flash_self_attention,
+    fwd_block_k,
     segment_attention_bwd,
     segment_attention_bwd_reference,
     segment_attention_fwd,
@@ -109,6 +117,114 @@ def test_packed_attention_kernel_reads_strided_views(cuda):
         got = packed_attention(q, k, v, m, h)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     _assert_close(got, packed_attention_reference(q, k, v, m, h), q, k, v, m, h)
+
+
+def _fwd(kind, q, k, v, m, h, want_lse):
+    """The bf16 forward kernel as K1 (key mask) or K4 (segment ids) on the
+    packed [N, T, H*dh] tensors -> (out [N, T, H, dh], lse or None)."""
+    if kind == "K1":
+        out, lse = packed_attention_fwd(q, k, v, m, h, want_lse=want_lse)
+        return out.unflatten(2, (h, out.shape[2] // h)), lse
+    q4, k4, v4 = (x.unflatten(2, (h, x.shape[2] // h)) for x in (q, k, v))
+    return segment_attention_fwd(q4, k4, v4, m, want_lse, flash_self_attention)
+
+
+def _masked_tiles(n, t, dev):
+    """Masks with key tiles fully masked for some rows in both modes: chunk
+    0 a ragged tail, chunk 1 all padding, chunk 2 its first 128 keys padding
+    (under the key mask the first tile is masked for every row), chunk 3
+    only keys 128-255 valid (under segment ids a pad query meets a tile of
+    valid keys, a valid query tiles of pad keys)."""
+    m = torch.ones((n, t), device=dev)
+    m[0, 190:] = 0.0
+    m[1] = 0.0
+    m[2, :128] = 0.0
+    m[3, :128] = 0.0
+    m[3, 256:] = 0.0
+    return m
+
+
+def _assert_fwd_tight(kind, q, k, v, m, h, out, lse):
+    """The kernel against the plain version in its own order: the tight
+    limits (chip_smoke.py says why), and lse on every row."""
+    mode = "key_mask" if kind == "K1" else "segment"
+    q4, k4, v4 = (x.unflatten(2, (h, x.shape[2] // h)) for x in (q, k, v))
+    bk = fwd_block_k(q4.shape[-1])
+    ref, ref_lse = attention_fwd_tiled_reference(q4, k4, v4, m, mode, bk)
+    exact, _ = attention_fwd_tiled_reference(q4.float(), k4.float(), v4.float(), m, mode, bk)
+    errors = bf16_errors(out, ref, exact)
+    assert within_tiled_limits(errors), describe_tiled(errors)
+    atol, rtol = LSE_TOL
+    torch.testing.assert_close(lse, ref_lse, rtol=rtol, atol=atol)
+    if kind == "K1":  # an all-pad row's lse rounds to -1e30 (K2 takes such rows by lse <= -1e29)
+        assert bool((lse[(m.sum(1) == 0)] <= -1e29).all())
+
+
+@pytest.mark.parametrize("kind", ["K1", "K4"])
+@pytest.mark.parametrize("h,dh", [(3, 64), (2, 128)])
+@pytest.mark.parametrize("t", [256, 512, 1024])
+def test_attention_fwd_kernel_matches_tiled_plain(cuda, kind, h, dh, t):
+    """The bf16 forward (K1 and K4) against its plain version in its own
+    order at the tight limits, its lse on every row, at T 256/512/1024 and
+    dh 64/128, with key tiles fully masked for some rows."""
+    q, k, v, _ = _attn_inputs(4, t, h, dh, torch.bfloat16, cuda)
+    m = _masked_tiles(4, t, cuda)
+    with torch.no_grad():
+        out, lse = _fwd(kind, q, k, v, m, h, True)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    _assert_fwd_tight(kind, q, k, v, m, h, out, lse)
+
+
+@pytest.mark.parametrize("kind", ["K1", "K4"])
+def test_attention_fwd_fully_masked_tiles_within_both_limits(cuda, kind):
+    """Key tiles fully masked for some rows (all padding for a valid query,
+    all valid keys for a pad query under segment ids; a leading pad tile
+    under the key mask): finite, within the TPU order's limits and the
+    tight ones; a K1 all-pad row is uniform."""
+    n, t, h, dh = 4, 512, 4, 64
+    q, k, v, _ = _attn_inputs(n, t, h, dh, torch.bfloat16, cuda)
+    m = _masked_tiles(n, t, cuda)
+    with torch.no_grad():
+        out, lse = _fwd(kind, q, k, v, m, h, True)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    if kind == "K1":
+        ref = packed_attention_reference(q, k, v, m, h).unflatten(2, (h, dh))
+        exact = packed_attention_reference(q.float(), k.float(), v.float(), m, h).unflatten(2, (h, dh))
+        uniform = v[1].unflatten(1, (h, dh)).float().mean(dim=0)  # the all-pad chunk: mean of v
+        torch.testing.assert_close(out[1].float(), uniform.expand(t, h, dh), rtol=2e-2, atol=2e-2)
+    else:
+        q4, k4, v4 = (x.unflatten(2, (h, dh)) for x in (q, k, v))
+        ref = segment_attention_reference(q4, k4, v4, m)
+        exact = segment_attention_reference(q4.float(), k4.float(), v4.float(), m)
+    errors = bf16_errors(out, ref, exact)
+    assert within_bf16_limits(errors), describe_bf16(errors)
+    _assert_fwd_tight(kind, q, k, v, m, h, out, lse)
+
+
+@pytest.mark.parametrize("kind", ["K1", "K4"])
+@pytest.mark.parametrize("dh", [64, 128])
+def test_attention_fwd_reads_strided_views_and_repeats_bit_for_bit(cuda, kind, dh):
+    """q, k, v as column slices of one fused [N, T, 3D] projection (TMA maps
+    over the caller's strides) give the bits of contiguous copies; a repeat
+    launch gives the same bits; the output is the same with and without the
+    lse write."""
+    n, t, h = 3, 512, 4 if dh == 64 else 2
+    d = h * dh
+    g = torch.Generator(device=cuda).manual_seed(13)
+    qkv = torch.randn((n, t, 3 * d), generator=g, device=cuda).to(torch.bfloat16)
+    q, k, v = qkv.split(d, dim=-1)
+    m = _masked_tiles(n + 1, t, cuda)[1:]
+    with torch.no_grad():
+        strided, lse = _fwd(kind, q, k, v, m, h, True)
+        again, lse_again = _fwd(kind, q, k, v, m, h, True)
+        serving, none = _fwd(kind, q, k, v, m, h, False)
+        dense, lse_dense = _fwd(kind, q.contiguous(), k.contiguous(), v.contiguous(), m, h, True)
+    assert none is None
+    assert torch.equal(strided, again) and torch.equal(lse, lse_again), "a repeat launch gave other bits"
+    assert torch.equal(strided, serving), "the output differs with and without the lse write"
+    assert torch.equal(strided, dense) and torch.equal(lse, lse_dense), "strided views gave other bits"
 
 
 def test_packed_attention_kernel_refuses_grad(cuda):
