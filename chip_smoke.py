@@ -23,9 +23,13 @@ toolkit. It
    cotangent on every row, requires a repeat launch to give the same bits,
    holds the di kernel alone against its plain version, and shows that the
    bf16 limits reject two planted faults;
-4. holds K3 (fused capsule routing) against its plain version at
-   [16, 10, 32] x [10, 32, 2, 64], and its autograd gradients against
-   autograd through the plain program;
+4. holds K3 (fused capsule routing, a thread-block cluster kernel) against
+   its plain version at the mortality ([B, 10, 32] x [10, 32, 2, 64]) and
+   phenotype ([B, 10, 32] x [10, 32, 25, 64]) heads, B = 1 and 16, fp32
+   and bf16 inputs, with a repeat launch giving the same bits, times it as
+   every kernel of one call beside an empty kernel's launch (floor_ms),
+   checks B = 256 and the 7-route heads, and holds its autograd gradients
+   at both heads against autograd through the plain program;
 5. holds K4 (segment attention, the kernel pair of K4a flash and K4b
    splash), forward and backward, against its plain versions on every row at
    the flagship shape, at head_dim 128, at T = 1024 with 3 heads and in
@@ -52,7 +56,11 @@ toolkit. It
    backward, and one serving forward through K4b against the default one;
 10. train_model over 32 + 16 stays for one epoch, whose checkpoint
    Predictor(device="cuda") serves;
-11. prints a {"kernels": [...]} line (each kernel with its launches on its
+11. the 25-phenotype model (configs/pheno_25.yaml on the same encoders):
+   a checkpoint served at 1 and 16 records (K1 = 12, K3 = 1 per forward)
+   against fp32 on the CPU, then one training step on the config read from
+   the YAML and one on that config read back from a checkpoint;
+12. prints a {"kernels": [...]} line (each kernel with its launches on its
    own path and on every path), the card's name and power limit, and the
    {"ok": true, "device": ...} line last.
 
@@ -75,7 +83,7 @@ import urllib.request
 import numpy as np
 import torch
 
-from multimodalrouting_tpu_torch.ckpt import save_checkpoint
+from multimodalrouting_tpu_torch.ckpt import load_config, save_checkpoint
 from multimodalrouting_tpu_torch.configs import load_cfg
 from multimodalrouting_tpu_torch.data.batches import batch_to
 from multimodalrouting_tpu_torch.data.synthetic import make_synthetic_cohort
@@ -101,7 +109,7 @@ from multimodalrouting_tpu_torch.ops.flash_packed import (
     packed_attention_fwd,
     packed_attention_reference,
 )
-from multimodalrouting_tpu_torch.ops.fused_capsule import capsule_routing_fused, capsule_routing_reference
+from multimodalrouting_tpu_torch.ops.fused_capsule import capsule_routing_fused, capsule_routing_reference, empty_launch
 from multimodalrouting_tpu_torch.serve import Predictor, batch_from_records, make_http_server
 from multimodalrouting_tpu_torch.train.loop import note_pack_bucket, train_model
 from multimodalrouting_tpu_torch.train.state import create_train_state
@@ -162,6 +170,12 @@ LSE_TOL = (1e-5, 1e-6)
 # products in another order.
 DI_TOL = (2e-5, 2e-5)
 K3_TOL = (1e-5, 1e-5)  # fp32 routing, sums in another order
+# ... or, where the routing's conditioning makes the plain version's own
+# fp32 error the larger (k3_errors says when), rms(got - ref) <= 2 *
+# rms(ref - exact), exact the plain program in float64: two fp32
+# evaluations of the same function that round independently differ by
+# ~sqrt(2) times one's own error, as K1_BF16_RMS_RATIO reasons for bf16.
+K3_RMS_RATIO = 2.0
 # End to end, bf16 on the card against fp32 on the CPU through 12 BERT
 # layers, the ResNet and the MulT streams: bf16 keeps ~3 significant digits.
 E2E_TOL = 2e-2
@@ -204,20 +218,6 @@ def device_spans(fn, iters: int):
             fn()
         torch.cuda.synchronize()
     return [(e.name, e.time_range.elapsed_us()) for e in prof.events() if e.device_type == DeviceType.CUDA]
-
-
-def kernel_ms(fn, name_parts, iters: int) -> float:
-    """Device time of one call: for each name part, the mean duration of the
-    CUDA kernels whose name contains it, summed over the parts; the kernels'
-    own time, without the host's launch overhead. Fails if the trace holds
-    no kernel of a part."""
-    spans = device_spans(fn, iters)
-    total = 0.0
-    for part in (name_parts,) if isinstance(name_parts, str) else name_parts:
-        hits = [us for name, us in spans if part in name]
-        require(len(hits) > 0, f"no kernel named *{part}* in the profiler trace")
-        total += sum(hits) / len(hits) / 1e3
-    return total
 
 
 # The attention forward's kernel (K1 and K4 alike) and the backward's
@@ -688,61 +688,141 @@ def phase_k4(dev) -> list:
     return rows
 
 
+# K3's two heads: (N, A, M, D) of the mortality (M = 2) and phenotype
+# (M = 25) capsule heads; the tables list both at B = 1 (one scored stay)
+# and B = 16 (the serving and training batch).
+K3_HEADS = {"mortality": (10, 32, 2, 64), "phenotype": (10, 32, 25, 64)}
+
+
+def k3_inputs(b: int, head: str, dtype, dev, seed: int = SEED):
+    """Seeded pose ~ N(0, 1), the head's routing acts (the route mask: some
+    stays miss N or I) and w at its init scale, in `dtype`."""
+    n, a, m, d = K3_HEADS[head]
+    rng = np.random.default_rng(seed)
+    pose = torch.from_numpy(rng.normal(size=(b, n, a)).astype(np.float32))
+    act = torch.from_numpy((rng.random((b, n)) > 0.3).astype(np.float32))
+    w = capsule_weight_init(n, a, m, d, torch.Generator().manual_seed(seed))
+    return tuple(x.to(device=dev, dtype=dtype) for x in (pose, act, w))
+
+
+def k3_errors(got, ref, exact) -> dict:
+    """K3's outputs against the plain version `ref`, beside the plain
+    version's own fp32 rounding error against `exact` (the plain program in
+    float64). At M = 25 the routing amplifies rounding: on N(0, 1) poses the
+    plain version itself lands up to a few 1e-5 from the exact value
+    (this script on an H100, fp32), so where K3_TOL does not hold
+    element by element the kernel is held to K3_RMS_RATIO."""
+    excess = max(((x - y).abs() - (K3_TOL[0] + K3_TOL[1] * y.abs())).max().item() for x, y in zip(got, ref))
+    # pose and coef (the decision act is exact on both sides)
+    diff = torch.cat([(x.double() - y.double()).flatten() for x, y in zip(got[::2], ref[::2])])
+    own = torch.cat([(y.double() - e).flatten() for y, e in zip(ref[::2], exact[::2])])
+    return {
+        "finite": all(bool(torch.isfinite(x).all()) for x in got),
+        "max_abs_err": max((x - y).abs().max().item() for x, y in zip(got, ref)),
+        "plain_err": max((y.double() - e).abs().max().item() for y, e in zip(ref, exact)),
+        "rms_ratio": (diff.norm() / own.norm().clamp_min(1e-300)).item(),
+        "within_tol": excess <= 0,
+    }
+
+
+def within_k3_limits(e: dict) -> bool:
+    return e["finite"] and (e["within_tol"] or e["rms_ratio"] <= K3_RMS_RATIO)
+
+
+def check_k3(tag: str, pose, act, w, iters: int = 3) -> dict:
+    """K3 against its plain version (K3_TOL, or K3_RMS_RATIO against the
+    plain version's own error); a second launch must give the same bits."""
+    with torch.no_grad():
+        got = capsule_routing_fused(pose, act, w, iters)
+        again = capsule_routing_fused(pose, act, w, iters)
+        torch.cuda.synchronize()
+        ref = capsule_routing_reference(pose, act, w, iters)
+        exact = capsule_routing_reference(pose, act, w, iters, compute_dtype=torch.float64)
+    require(all(torch.equal(x, y) for x, y in zip(got, again)), f"K3 {tag}: a repeat launch gave other bits")
+    e = k3_errors(got, ref, exact)
+    log(f"[check] K3 {tag}: max_abs_err={e['max_abs_err']:.3e} (within {K3_TOL} elementwise: {e['within_tol']}; "
+        f"the plain version's own error {e['plain_err']:.3e}, rms ratio {e['rms_ratio']:.3f}), repeat bit-identical")
+    require(within_k3_limits(e), f"K3 {tag}: outside its limits")
+    return e
+
+
 def phase_k3_grad(dev) -> None:
     """The K3 autograd Function's gradients (kernel forward, the plain
-    program's VJP backward) against autograd through the plain program."""
-    b, n, a, m, d = 16, 10, 32, 2, 64
-    rng = np.random.default_rng(SEED + 2)
-    pose = torch.from_numpy(rng.normal(size=(b, n, a)).astype(np.float32)).to(dev)
-    act = torch.from_numpy((rng.random((b, n)) > 0.3).astype(np.float32)).to(dev)
-    w = capsule_weight_init(n, a, m, d, torch.Generator().manual_seed(SEED)).to(dev)
-    cot = [torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(dev) for s in ((b, m, d), (b, m), (b, n, m))]
-    grads = []
-    for fn in (capsule_routing_fused, capsule_routing_reference):
-        p, ww = pose.clone().requires_grad_(), w.clone().requires_grad_()
-        before = capsule_routing_fused.launches
-        outs = fn(p, act, ww, 3)
-        loss = sum((o * c).sum() for o, c in zip(outs, cot) if o.requires_grad)
-        grads.append(torch.autograd.grad(loss, (p, ww)))
-        if fn is capsule_routing_fused:
-            require(capsule_routing_fused.launches == before + 1, "K3 did not launch under autograd")
-    for name, x, y in zip(("pose", "w"), *grads):
-        check_close(f"K3 gradient d{name}", x, y, *K3_TOL)
+    program's VJP backward) against autograd through the plain program, at
+    both heads."""
+    for head in K3_HEADS:
+        pose, act, w = k3_inputs(16, head, torch.float32, dev, SEED + 2)
+        b, n, a = pose.shape
+        m, d = w.shape[2:]
+        rng = np.random.default_rng(SEED + 3)
+        cot = [torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(dev) for s in ((b, m, d), (b, m), (b, n, m))]
+        grads = []
+        for fn in (capsule_routing_fused, capsule_routing_reference):
+            p, ww = pose.clone().requires_grad_(), w.clone().requires_grad_()
+            before = capsule_routing_fused.launches
+            outs = fn(p, act, ww, 3)
+            loss = sum((o * c).sum() for o, c in zip(outs, cot) if o.requires_grad)
+            grads.append(torch.autograd.grad(loss, (p, ww)))
+            if fn is capsule_routing_fused:
+                require(capsule_routing_fused.launches == before + 1, "K3 did not launch under autograd")
+        for name, x, y in zip(("pose", "w"), *grads):
+            check_close(f"K3 {head} gradient d{name}", x, y, *K3_TOL)
+
+
+def k3_bound(b: int, n: int, a: int, m: int, d: int, es: int, iters: int = 3):
+    """Each input read once (in its own type), each fp32 output written
+    once; the votes' and each iteration's products (agreement and decision
+    pose, 2 FLOPs a term each)."""
+    flops = 2 * b * n * a * m * d + iters * (2 * b * n * m * d * 2)
+    bytes_moved = es * (b * n * a + b * n + n * a * m * d) + 4 * (b * m * d + b * m + b * n * m)
+    return bound(bytes_moved, flops, "fp32")
 
 
 def phase_k3(dev) -> dict:
-    b, n, a, m, d = 16, 10, 32, 2, 64
-    rng = np.random.default_rng(SEED)
-    pose = torch.from_numpy(rng.normal(size=(b, n, a)).astype(np.float32)).to(dev)
-    # the head's routing acts are the route mask: some stays miss N or I
-    act = torch.from_numpy((rng.random((b, n)) > 0.3).astype(np.float32)).to(dev)
-    w = capsule_weight_init(n, a, m, d, torch.Generator().manual_seed(SEED)).to(dev)
-    with torch.no_grad():
-        got = capsule_routing_fused(pose, act, w, 3)
-        torch.cuda.synchronize()
-        ref = capsule_routing_reference(pose, act, w, 3)
-        err = max(check_close(f"K3 {name}", x, y, *K3_TOL) for name, x, y in zip(("pose", "act", "coef"), got, ref))
-        ms = kernel_ms(lambda: capsule_routing_fused(pose, act, w, 3), "capsule_routing_kernel", 50)
-        plain_ms = device_time_ms(lambda: capsule_routing_reference(pose, act, w, 3), 50)
-    iters = 3
-    flops = 2 * b * n * a * m * d + iters * (2 * b * n * m * d * 2)
-    bytes_moved = 4 * (b * n * a + b * n + n * a * m * d + b * m * d + b * m + b * n * m)
-    bound_ms, bound_by = bound(bytes_moved, flops, "fp32")
-    log(f"[k3] kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.6f} ({bound_by})")
+    """K3 at both heads, B = 1 and 16, fp32 and bf16 inputs: errors, repeat
+    bits, time as every kernel of one call beside the empty kernel's
+    (floor_ms), the plain version's and the bound; also B = 256 and the
+    7-route heads (errors only). -> the kernels-line row (the phenotype
+    head at B = 16 in bf16, the model's path, with every row in `rows`)."""
+    floor_ms = call_ms(lambda: empty_launch(dev), {"empty": "capsule_routing_empty_kernel"}, 50)[0]
+    rows = []
+    for head, (n, a, m, d) in K3_HEADS.items():
+        for b in (1, 16):
+            for dtype in (torch.float32, torch.bfloat16):
+                pose, act, w = k3_inputs(b, head, dtype, dev)
+                tag = f"{head} [{b},{n},{a}] x [{n},{a},{m},{d}] {str(dtype)[6:]}"
+                e = check_k3(tag, pose, act, w)
+                with torch.no_grad():
+                    ms = call_ms(lambda: capsule_routing_fused(pose, act, w, 3), {"k3": "capsule_routing_kernel"}, 50)[0]
+                    plain_ms = device_time_ms(lambda: capsule_routing_reference(pose, act, w, 3), 20)
+                bound_ms, bound_by = k3_bound(b, n, a, m, d, pose.element_size())
+                log(f"[k3] {tag}: kernel_ms={ms:.5f} floor_ms={floor_ms:.5f} plain_ms={plain_ms:.4f} "
+                    f"bound_ms={bound_ms:.6f} ({bound_by})")
+                rows.append({"head": head, "b": b, "dtype": str(dtype)[6:], "max_abs_err": e["max_abs_err"],
+                             "plain_err": e["plain_err"], "rms_ratio": e["rms_ratio"], "within_tol": e["within_tol"], "ms": ms,
+                             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by})
+    for head in K3_HEADS:  # beyond one cluster's tile, and the 7-route heads
+        for dtype in (torch.float32, torch.bfloat16):
+            check_k3(f"{head} B=256 {str(dtype)[6:]}", *k3_inputs(256, head, dtype, dev, SEED + 4))
+            pose, act, w = k3_inputs(16, head, dtype, dev, SEED + 5)
+            check_k3(f"{head} 7 routes {str(dtype)[6:]}", pose[:, :7].contiguous(), act[:, :7].contiguous(), w[:7])
+    main = next(r for r in rows if r["head"] == "phenotype" and r["b"] == 16 and r["dtype"] == "bfloat16")
     return {
         "name": "capsule_routing", "route": "cuda",
         "source": "multimodalrouting_tpu_torch/csrc/capsule_routing.cu",
         "replaces": "multimodalrouting_tpu/ops/pallas_capsule.py:41",
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": None,
+        "max_abs_err": max(r["max_abs_err"] for r in rows), "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"], "floor_ms": floor_ms, "library_ms": None,
+        "rows": rows,
     }
 
 
-def flagship_checkpoint(ckpt_dir: str):
-    """Full-width flagship config at the real serving shapes (a real-cohort
-    checkpoint: synthetic off, data_root set — never read), seeded random
-    weights, nonzero BatchNorm running statistics and head embedding."""
-    cfg = flagship_cfg()
+def flagship_checkpoint(ckpt_dir: str, cfg=None):
+    """Full-width flagship config (or `cfg`) at the real serving shapes (a
+    real-cohort checkpoint: synthetic off, data_root set — never read),
+    seeded random weights, nonzero BatchNorm running statistics and head
+    embedding."""
+    cfg = cfg or flagship_cfg()
     torch.manual_seed(SEED)
     model = build_model(cfg, device="cpu")
     g = torch.Generator().manual_seed(SEED)
@@ -773,11 +853,12 @@ def records_from_cohort(cohort, n: int, drop_image=()):
     return recs
 
 
-def check_rows(name: str, rows, n: int) -> None:
+def check_rows(name: str, rows, n: int, labels: int = 1) -> None:
     require(len(rows) == n, f"{name}: {len(rows)} rows for {n} records")
     for row in rows:
         p = np.asarray(row["probs"], np.float64)
-        require(bool(np.isfinite(p).all() and ((0 <= p) & (p <= 1)).all()), f"{name}: bad probs {p}")
+        require(p.size == labels and bool(np.isfinite(p).all() and ((0 <= p) & (p <= 1)).all()),
+                f"{name}: bad probs {p}")
         require(len(row["alpha"]) == 10 and len(row["top_routes"]) == 3, f"{name}: bad route audit")
 
 
@@ -895,12 +976,12 @@ def phase_serving(dev, tmp: str) -> dict:
     return launches
 
 
-def flagship_cfg(**overrides):
-    """configs/trimodal_mort.yaml on the defaults, as a real-cohort run (so a
-    checkpoint serves the full L=512 and 224^2 shapes; data_root is never
-    read)."""
+def flagship_cfg(yaml: str = "trimodal_mort.yaml", **overrides):
+    """configs/trimodal_mort.yaml (or `yaml`) on the defaults, as a
+    real-cohort run (so a checkpoint serves the full L=512 and 224^2 shapes;
+    data_root is never read)."""
     return load_cfg(
-        os.path.join(ROOT, "configs", "trimodal_mort.yaml"),
+        os.path.join(ROOT, "configs", yaml),
         overrides={"data.synthetic": False, "data.data_root": "real-cohort", **overrides},
         environ={},
     )
@@ -910,7 +991,7 @@ def full_width_cohort(cfg, n: int, seed: int):
     e = cfg.encoder
     return make_synthetic_cohort(
         n, t=e.structured_seq_len, f=e.structured_n_feats, s=e.notes_max_chunks, l=e.text_max_len,
-        image_size=e.image_size, vocab_size=e.bert_vocab_size, seed=seed,
+        image_size=e.image_size, vocab_size=e.bert_vocab_size, seed=seed, task=cfg.model.task,
     )
 
 
@@ -927,7 +1008,7 @@ COUNTED = {
 
 MAIN_PATH = {
     "packed_attention": "train_finetune", "packed_attention_bwd": "train_finetune",
-    "capsule_routing": "train_finetune", "flash_attention": "serving_pp",
+    "capsule_routing": "train_pheno", "flash_attention": "serving_pp",
     "flash_attention_bwd": "train_pp_finetune", "splash_attention": "train_splash",
     "splash_attention_bwd": "train_splash",
 }
@@ -1181,6 +1262,79 @@ def phase_entry_point(dev, tmp: str) -> None:
     torch.cuda.empty_cache()
 
 
+def pheno_step(cfg, dev, label: str) -> dict:
+    """One training step of the full-width phenotype model on `cfg`, frozen
+    notes (the default), batch 16 of the synthetic phenotype cohort:
+    launches, loss. -> launches."""
+    torch.manual_seed(SEED)
+    model = build_model(cfg, device="cuda", train=True)
+    state = create_train_state(cfg, model)
+    cohort = full_width_cohort(cfg, cfg.train.batch_size, SEED + 6)
+    step = make_train_step(cfg, model)
+    gen = torch.Generator(device=dev).manual_seed(cfg.train.seed)
+    batch = batch_to(cohort, dev)
+    reset_counts()
+    m = step(state, batch, gen, cfg.train.lr, cfg.train.lr, note_pack=note_pack_bucket(cfg, cohort))
+    torch.cuda.synchronize()
+    launches = read_counts()
+    log(f"[pheno] {label}: pos_weight_clip={cfg.train.pos_weight_clip!r} loss={float(m.loss):.5f} "
+        f"task_loss={float(m.task_loss):.5f} launches {launches}")
+    require(np.isfinite(float(m.loss)) and m.grad_finite, f"{label}: non-finite loss or gradient")
+    expect = expected(packed_attention=cfg.encoder.bert_layers, capsule_routing=1)
+    require(launches == expect, f"{label} launches {launches}, expected {expect}")
+    del model, state, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_pheno(dev, tmp: str) -> dict:
+    """configs/pheno_25.yaml (25 phenotype labels, 10 routes) on the
+    flagship's encoder defaults at full width: a seeded-random checkpoint
+    served by Predictor(device="cuda") at 1 and 16 records through K1 and K3
+    (M = 25), against the same weights in fp32 on the CPU; then one
+    training step on the config load_cfg reads from the YAML and one on
+    that config read back from a checkpoint (ckpt.load_config): both take
+    train.pos_weight_clip as a tuple (fault F1 fixed). -> {path: launches}."""
+    cfg = flagship_cfg("pheno_25.yaml")
+    require(cfg.model.task == "pheno" and cfg.model.num_classes == 25 and cfg.train.pos_weight_clip == (0.1, 5.0),
+            f"pheno_25.yaml loaded as {cfg.model.task}, {cfg.model.num_classes}, {cfg.train.pos_weight_clip!r}")
+    ckpt = os.path.join(tmp, "pheno")
+    flagship_checkpoint(ckpt, cfg)
+    predictor = Predictor(ckpt, device="cuda")
+    records = serving_records(cfg)
+    predictor.predict_records(records[:2])
+    torch.cuda.synchronize()
+    reset_counts()
+    single = predictor.predict_records(records[:1])
+    batch = predictor.predict_records(records)
+    torch.cuda.synchronize()
+    out = {"serving_pheno": read_counts()}
+    log(f"[pheno] serving launches over 2 forwards: {out['serving_pheno']}")
+    layers = cfg.encoder.bert_layers
+    require(out["serving_pheno"] == expected(packed_attention=2 * layers, capsule_routing=2),
+            f"phenotype serving launches {out['serving_pheno']}")
+    check_rows("pheno single", single, 1, labels=25)
+    check_rows("pheno batch16", batch, 16, labels=25)
+    out16 = predictor.predict(batch_from_records(cfg, records))
+    require(out16["r_matrix"].shape == (16, 10, 25), f"bad r_matrix shape {out16['r_matrix'].shape}")
+    ref_dir = checkpoint_variant(ckpt, os.path.join(tmp, "pheno_fp32"), "model", "dtype", "float32")
+    ref_rows = Predictor(ref_dir, device="cpu").predict_records(records[:2])
+    dp = max(float(np.abs(np.asarray(g["probs"]) - np.asarray(r["probs"])).max()) for g, r in zip(batch, ref_rows))
+    da = max(abs(g["alpha"][k] - r["alpha"][k]) for g, r in zip(batch, ref_rows) for k in r["alpha"])
+    log(f"[pheno] card bf16 vs CPU fp32: max|dprob|={dp:.3e} over 25 labels x 2 records, "
+        f"max|dalpha|={da:.3e} (tol {E2E_TOL})")
+    require(dp <= E2E_TOL and da <= E2E_TOL, "phenotype serving disagrees with the fp32 CPU reference")
+    profile_forward(predictor, batch_from_records(cfg, records), top=8)
+    del predictor
+    torch.cuda.empty_cache()
+    out["train_pheno"] = pheno_step(cfg, dev, "step on configs/pheno_25.yaml")
+    save_checkpoint(os.path.join(tmp, "pheno_cfg"), {}, cfg)
+    again = load_config(os.path.join(tmp, "pheno_cfg"))
+    require(again == cfg, "the phenotype config did not survive a checkpoint's config.json")
+    out["train_pheno_ckpt"] = pheno_step(again, dev, "step on the config read back by ckpt.load_config")
+    return out
+
+
 def ptxas_report() -> None:
     """Print each library's ptxas lines (the kernel each group of lines is
     for, its registers, spills and any warning) and fail if an instance of
@@ -1232,6 +1386,7 @@ def main() -> int:
             layer_key="pp_layers.i_kernel", **{"train.pipeline_parallel": True})
         by_path.update(phase_splash(dev, tmp))
         phase_entry_point(dev, tmp)
+        by_path.update(phase_pheno(dev, tmp))
     for k in kernels:  # each kernel's own main path: the path this slice or an earlier one brought it up on
         k["launches"] = by_path[MAIN_PATH[k["name"]]][k["name"]]
         k["launches_by_path"] = {path: counts.get(k["name"], 0) for path, counts in by_path.items()}

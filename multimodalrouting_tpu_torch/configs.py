@@ -347,8 +347,12 @@ def _coerce(value: Any, typ: Any) -> Any:
         return float(value)
     if typ is str:
         return str(value)
-    if isinstance(value, str) and (typ in (tuple, Tuple) or "Tuple" in str(typ)):
-        return tuple(float(v) for v in value.split(","))
+    if typ is tuple:
+        # a tuple or a list (JSON, YAML), "(0.1, 5.0)" (a repr, as a JSON
+        # config written by an older build holds it) or "0.1,5.0" (--set)
+        if isinstance(value, str):
+            value = [v for v in value.strip().strip("()[]").split(",") if v.strip()]
+        return tuple(float(v) for v in value)
     return value
 
 
@@ -401,7 +405,11 @@ def apply_overrides(cfg: Config, overrides: Mapping[str, Any]) -> Config:
 
 
 def _resolve_type(t: Any) -> Any:
+    """A field's annotation (a string under postponed annotations) as the
+    type `_coerce` converts to; every Tuple[...] field holds floats."""
     if isinstance(t, str):
+        if t.startswith(("Tuple[", "tuple[")):
+            return tuple
         return {"int": int, "float": float, "str": str, "bool": bool}.get(t, str)
     return t
 

@@ -56,23 +56,25 @@ def routing_plain(
     gate_max: float = 1.0,
     dropout_rate: float = 0.0,
     generator: Optional[torch.Generator] = None,
+    compute_dtype: torch.dtype = torch.float32,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The routing program in float32 -> (pose, act, coef), all float32.
+    """The routing program in float32 -> (pose, act, coef), all float32
+    (`compute_dtype=torch.float64` gives a reference without fp32 rounding).
 
     Decision-pose dropout (inverted, at the end of every iteration) runs only
     when `dropout_rate > 0` and a `generator` is given, as the JAX function
     runs it only with a dropout key."""
     n_in, _, m_out, d_out = w.shape
     b = pose.shape[0]
-    pose32, act32, w32 = pose.float(), act.float(), w.float()
+    pose32, act32, w32 = (x.to(compute_dtype) for x in (pose, act, w))
     scale = 1.0 / math.sqrt(d_out)
     dev = pose.device
 
     if mode == "sigmoid_routes":
         act32 = _gate_temp_and_clamp(act32, gate_temp, gate_min, gate_max)
-        seed_coef = torch.full((n_in, m_out), 1.0 / n_in, dtype=torch.float32, device=dev)
+        seed_coef = torch.full((n_in, m_out), 1.0 / n_in, dtype=compute_dtype, device=dev)
     elif mode in ("softmax_out", "uniform"):
-        seed_coef = torch.full((n_in, m_out), 1.0 / m_out, dtype=torch.float32, device=dev)
+        seed_coef = torch.full((n_in, m_out), 1.0 / m_out, dtype=compute_dtype, device=dev)
     else:
         raise ValueError(f"Unknown capsule routing mode {mode!r}")
 
@@ -88,7 +90,7 @@ def routing_plain(
     for _ in range(int(num_iters)):
         if uniform:
             fill = 1.0 / n_in if mode == "sigmoid_routes" else 1.0 / m_out
-            coef = torch.full((b, n_in, m_out), fill, dtype=torch.float32, device=dev)
+            coef = torch.full((b, n_in, m_out), fill, dtype=compute_dtype, device=dev)
         else:
             agree = torch.einsum("bnmd,bmd->bnm", votes, next_pose) * scale
             if mode == "sigmoid_routes":
@@ -102,7 +104,7 @@ def routing_plain(
             keep = torch.rand(next_pose.shape, generator=generator, device=dev) < keep_p
             next_pose = torch.where(keep, next_pose / keep_p, torch.zeros_like(next_pose))
         if act_type == "ONES":
-            next_act = torch.ones((b, m_out), dtype=torch.float32, device=dev)
+            next_act = torch.ones((b, m_out), dtype=compute_dtype, device=dev)
     return next_pose, next_act, coef
 
 

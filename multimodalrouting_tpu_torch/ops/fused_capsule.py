@@ -2,8 +2,10 @@
 
 Counterpart of multimodalrouting_tpu/ops/pallas_capsule.py. The kernel
 (``csrc/capsule_routing.cu``) computes ``ops/capsule.py:capsule_routing`` in
-its softmax_out / ONES mode with the votes of a batch row resident in shared
-memory across iterations. ``capsule_routing_fused`` launches it on CUDA
+its softmax_out / ONES mode as one thread-block cluster per tile of up to 16
+batch rows, the votes resident in the CTAs' shared memory across
+iterations; it reads fp32 or bf16 inputs as they are and writes fp32.
+``capsule_routing_fused`` launches it on CUDA
 tensors (or raises) and runs ``capsule_routing_reference``, the plain
 version, on CPU tensors. Under a gradient it goes through
 ``FusedCapsuleRouting``, an autograd Function with that forward whose
@@ -20,9 +22,10 @@ from multimodalrouting_tpu_torch.ops import hopper
 from multimodalrouting_tpu_torch.ops.capsule import routing_plain
 
 
-def capsule_routing_reference(pose, act, w, num_iters: int) -> Tuple[torch.Tensor, ...]:
-    """Plain version of K3: the routing program in softmax_out / ONES mode."""
-    return routing_plain(pose, act, w, num_iters, mode="softmax_out", act_type="ONES")
+def capsule_routing_reference(pose, act, w, num_iters: int, compute_dtype=torch.float32) -> Tuple[torch.Tensor, ...]:
+    """Plain version of K3: the routing program in softmax_out / ONES mode
+    (in float64 with `compute_dtype`, the checks' exact reference)."""
+    return routing_plain(pose, act, w, num_iters, mode="softmax_out", act_type="ONES", compute_dtype=compute_dtype)
 
 
 class FusedCapsuleRouting(torch.autograd.Function):
@@ -62,31 +65,46 @@ def capsule_routing_fused(
     return _launch(pose, act, w, num_iters)
 
 
+_ENTRY = {torch.float32: "capsule_routing_f32", torch.bfloat16: "capsule_routing_bf16"}
+
+
 def _launch(pose, act, w, num_iters: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K3 on CUDA tensors (or raises)."""
+    """K3 on CUDA tensors (or raises). The kernel reads pose, act and w in
+    their own type (all fp32 or all bf16, as the head hands them over), so
+    nothing is cast before the launch."""
     if not pose.is_cuda:
         raise ValueError(f"capsule routing runs on CUDA or CPU tensors, got {pose.device}")
     b, n, a = pose.shape
     n_w, a_w, m, d = w.shape
     if (n_w, a_w) != (n, a) or tuple(act.shape) != (b, n):
         raise ValueError(f"shape mismatch: pose {tuple(pose.shape)}, act {tuple(act.shape)}, w {tuple(w.shape)}")
-    lib = hopper.library("capsule_routing")
+    if pose.dtype not in _ENTRY or act.dtype != pose.dtype or w.dtype != pose.dtype:
+        raise ValueError(f"K3 takes pose, act and w all fp32 or all bf16, got {pose.dtype}, {act.dtype}, {w.dtype}")
+    if act.device != pose.device or w.device != pose.device:
+        raise ValueError(f"pose, act and w must be on one device, got {pose.device}, {act.device}, {w.device}")
     dev = pose.device
-    pose32 = pose.to(torch.float32).contiguous()
-    act32 = act.to(device=dev, dtype=torch.float32).contiguous()
-    w32 = w.to(device=dev, dtype=torch.float32).contiguous()
+    # the kernel reads pose and w through TMA tensor maps: 16-byte aligned starts
+    pose, w = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (pose.contiguous(), w.contiguous()))
+    act = act.contiguous()
     pose_out = torch.empty((b, m, d), dtype=torch.float32, device=dev)
     act_out = torch.empty((b, m), dtype=torch.float32, device=dev)
     coef_out = torch.empty((b, n, m), dtype=torch.float32, device=dev)
-    rc = lib.capsule_routing_f32(
-        pose32.data_ptr(), act32.data_ptr(), w32.data_ptr(),
+    rc = getattr(hopper.library("capsule_routing"), _ENTRY[pose.dtype])(
+        pose.data_ptr(), act.data_ptr(), w.data_ptr(),
         pose_out.data_ptr(), act_out.data_ptr(), coef_out.data_ptr(),
         b, n, a, m, d, int(num_iters), torch.cuda.current_stream(dev).cuda_stream,
     )
-    # cudaErrorInvalidValue: one row's votes exceed a block's 48 KB of shared memory
-    hopper.check(rc, f"capsule_routing of N={n}, A={a}, M={m}, D={d}")
+    # cudaErrorInvalidValue: beyond the limits in csrc/capsule_routing.cu's note
+    hopper.check(rc, f"capsule_routing of B={b}, N={n}, A={a}, M={m}, D={d} in {pose.dtype}")
     capsule_routing_fused.launches += 1
     return pose_out, act_out, coef_out
+
+
+def empty_launch(device) -> None:
+    """One launch of K3's library's empty kernel: the device time any single
+    launch costs (chip_smoke.py's floor_ms). Not counted as a K3 launch."""
+    lib = hopper.library("capsule_routing")
+    hopper.check(lib.capsule_routing_empty(torch.cuda.current_stream(device).cuda_stream), "capsule_routing_empty")
 
 
 capsule_routing_fused.launches = 0

@@ -54,7 +54,10 @@ _SIGNATURES = {
         name: (_I, [_PTR] * 11 + [_I] * 4 + [_LL] * 12 + [_PTR])
         for name in ("flash_attention_bwd_bf16", "flash_attention_bwd_f32")
     },
-    "capsule_routing": {"capsule_routing_f32": (_I, [_PTR] * 6 + [_I] * 6 + [_PTR])},
+    "capsule_routing": {
+        **{name: (_I, [_PTR] * 6 + [_I] * 6 + [_PTR]) for name in ("capsule_routing_f32", "capsule_routing_bf16")},
+        "capsule_routing_empty": (_I, [_PTR]),
+    },
 }
 
 

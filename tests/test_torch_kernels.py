@@ -3,7 +3,8 @@ attention), K2 (its backward) alone and through autograd, the bf16 forward
 that K1 and K4 share against its plain version in its own order (tight
 limits, lse on every row, fully masked key tiles, strided views, repeat
 launches, with and without lse), K3 (capsule
-routing) and its autograd gradient, K4 (segment attention, the kernel pair
+routing: both heads, B up to 256, fp32 and bf16, refusals) and its
+autograd gradient, K4 (segment attention, the kernel pair
 of K4a flash and K4b splash) forward and backward alone and through
 autograd, with its two launch counters; the attention backward that K2 and
 K4 share (the di kernel, then the dq and dk/dv kernels) on strided views,
@@ -25,11 +26,15 @@ from chip_smoke import (
     K1_FP32_TOL,
     K2_FP32_TOL,
     K4_FP32_TOL,
+    K3_HEADS,
     LSE_TOL,
     bf16_errors,
     describe_bf16,
     describe_tiled,
+    k3_errors,
+    k3_inputs,
     within_bf16_limits,
+    within_k3_limits,
     within_tiled_limits,
 )
 from multimodalrouting_tpu_torch.ops.capsule import capsule_weight_init
@@ -320,13 +325,69 @@ def test_capsule_kernel_gradient_matches_plain_autograd(cuda):
         torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b", [1, 16, 256])
+@pytest.mark.parametrize("head", list(K3_HEADS))
+def test_capsule_kernel_matches_plain_at_both_heads(cuda, head, b, dtype):
+    """The mortality (M = 2) and phenotype (M = 25) heads, one tile, a full
+    tile and 16 tiles, in fp32 and in the model's bf16: chip_smoke's K3
+    limits, the outputs' shapes and dtype, one launch, and a repeat launch
+    giving the same bits. M = 25 at D = 64 was refused before the cluster
+    design (one row's votes beyond a block's 48 KB)."""
+    pose, act, w = k3_inputs(b, head, dtype, cuda, seed=b)
+    n, _, m, d = K3_HEADS[head]
+    before = capsule_routing_fused.launches
+    with torch.no_grad():
+        got = capsule_routing_fused(pose, act, w, 3)
+        again = capsule_routing_fused(pose, act, w, 3)
+    torch.cuda.synchronize()
+    assert capsule_routing_fused.launches == before + 2
+    assert [tuple(x.shape) for x in got] == [(b, m, d), (b, m), (b, n, m)]
+    assert all(x.dtype == torch.float32 for x in got)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    ref = capsule_routing_reference(pose, act, w, 3)
+    exact = capsule_routing_reference(pose, act, w, 3, compute_dtype=torch.float64)
+    errors = k3_errors(got, ref, exact)
+    assert within_k3_limits(errors), errors
+
+
+def test_capsule_kernel_gradient_at_the_phenotype_head(cuda):
+    """K3 under autograd at M = 25: the plain program's VJP backward."""
+    pose, act, w = k3_inputs(16, "phenotype", torch.float32, cuda, seed=5)
+    b, n, _ = pose.shape
+    m, d = w.shape[2:]
+    rng = np.random.default_rng(5)
+    cot = [torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(cuda) for s in ((b, m, d), (b, n, m))]
+    grads = []
+    for fn in (capsule_routing_fused, capsule_routing_reference):
+        p, ww = pose.clone().requires_grad_(), w.clone().requires_grad_()
+        before = capsule_routing_fused.launches
+        pose_out, _, coef = fn(p, act, ww, 3)
+        grads.append(torch.autograd.grad((pose_out * cot[0]).sum() + (coef * cot[1]).sum(), (p, ww)))
+        assert capsule_routing_fused.launches == before + (fn is capsule_routing_fused)
+    for x, y in zip(*grads):
+        torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-5)
+
+
 def test_capsule_kernel_refuses_rows_beyond_shared_memory(cuda):
-    """One row's votes must fit a block's 48 KB of shared memory."""
+    """A CTA's own row (its votes, 4 N M D bytes) must fit a block's 227 KB
+    of shared memory: N = 10, M = 25, D = 256 is 256 KB."""
     pose = torch.zeros((2, 10, 32), device=cuda)
     act = torch.ones((2, 10), device=cuda)
-    w = torch.zeros((10, 32, 25, 64), device=cuda)  # 10 x 25 x 64 fp32 votes = 64 KB
-    with torch.no_grad(), pytest.raises(RuntimeError, match="capsule_routing of N=10, A=32, M=25, D=64"):
+    w = torch.zeros((10, 32, 25, 256), device=cuda)
+    with torch.no_grad(), pytest.raises(RuntimeError, match="capsule_routing of B=2, N=10, A=32, M=25, D=256"):
         capsule_routing_fused(pose, act, w, 3)
+
+
+def test_capsule_kernel_refuses_what_its_tensor_maps_cannot_read(cuda):
+    """D and A times the element size must be multiples of 16 bytes (D = 6
+    in fp32 is 24), and pose, act and w must share one type."""
+    with torch.no_grad(), pytest.raises(RuntimeError, match="capsule_routing of B=2, N=3, A=8, M=2, D=6"):
+        capsule_routing_fused(torch.zeros((2, 3, 8), device=cuda), torch.ones((2, 3), device=cuda),
+                              torch.zeros((3, 8, 2, 6), device=cuda), 3)
+    with torch.no_grad(), pytest.raises(ValueError, match="all fp32 or all bf16"):
+        capsule_routing_fused(torch.zeros((2, 3, 8), device=cuda), torch.ones((2, 3), device=cuda),
+                              torch.zeros((3, 8, 2, 8), device=cuda, dtype=torch.bfloat16), 3)
 
 
 def _assert_k4_close(name, got, ref, exact, dtype):

@@ -131,6 +131,31 @@ def test_capsule_plain_matches_pallas_kernel(act_kind):
         torch.testing.assert_close(g, c, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("act_kind", ["ones", "route_mask"])
+@pytest.mark.parametrize(
+    "b,m,dtype",
+    [(4, 2, torch.bfloat16), (3, 25, torch.float32), (3, 25, torch.bfloat16)],
+    ids=["mortality-bf16", "phenotype-fp32", "phenotype-bf16"],
+)
+def test_capsule_plain_matches_pallas_kernel_at_both_heads(b, m, dtype, act_kind):
+    """K3's plain version == the TPU kernel in interpret mode at the
+    phenotype head's widths (M = 25) and with bf16 inputs (the model's
+    dtype: the TPU kernel gets the same bf16-rounded values in fp32, as both
+    cast to fp32 on load). Tolerance 1e-5 + 1e-5 |ref|, K3's on the card: at
+    M = 25 pose entries near 0 take absolute differences of a few 1e-6 from
+    sums taken in another order."""
+    pose, act, w = _capsule_inputs(b, 10, 32, m, 64, seed=4, act_kind=act_kind)
+    tp, ta, tw = (t(x).to(dtype) for x in (pose, act, w))
+    pose, act, w = (x.float().numpy() for x in (tp, ta, tw))
+    ref = capsule_routing_pallas(jnp.asarray(pose), jnp.asarray(act), jnp.asarray(w), 3, True)
+    got = capsule_routing_reference(tp, ta, tw, 3)
+    for g, r, name in zip(got, ref, ("pose", "act", "coef")):
+        assert g.dtype == torch.float32
+        assert_close(g, r, rtol=1e-5, atol=1e-5, err_msg=name)
+    for g, c in zip(capsule_routing_fused(tp, ta, tw, 3), got):
+        torch.testing.assert_close(g, c, rtol=0, atol=0)
+
+
 @pytest.mark.parametrize(
     "kw",
     [
@@ -197,3 +222,22 @@ def test_ctypes_signatures_match_the_cuda_sources():
             want = [ctypes.c_void_p if "*" in p else c_types[p.replace("const ", "")] for p in params]
             assert argtypes == want, name
             assert restype == c_types[ret], name
+
+
+def test_k3_phase_clocks_finds_every_phase_mark_in_the_kernel_source():
+    """scripts/k3_phase_clocks.py instruments K3's source at fixed lines;
+    each must stand exactly once in csrc/capsule_routing.cu (an edit that
+    moves one would show only on the card)."""
+    import importlib.util
+    import os
+
+    from multimodalrouting_tpu_torch.ops import hopper
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location("k3_phase_clocks", os.path.join(root, "scripts", "k3_phase_clocks.py"))
+    clocks = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(clocks)
+    with open(os.path.join(hopper.CSRC_DIR, "capsule_routing.cu")) as f:
+        out = clocks.instrumented_source(f.read())
+    # the start, each phase, the outputs and the end
+    assert out.count("  MARK\n") == len(clocks.MARKS) + 3
