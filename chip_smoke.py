@@ -60,7 +60,13 @@ toolkit. It
    a checkpoint served at 1 and 16 records (K1 = 12, K3 = 1 per forward)
    against fp32 on the CPU, then one training step on the config read from
    the YAML and one on that config read back from a checkpoint;
-12. prints a {"kernels": [...]} line (each kernel with its launches on its
+12. the port's CLI in-process on configs/trimodal_mort.yaml at full width
+   over a 64-stay synthetic cohort (notes clipped to 128 tokens and images
+   to 96^2 by the CLI, as the JAX CLI clips them): train one epoch, resume
+   to two from the train-state checkpoint (under --profile-dir), eval with
+   the drop table and predict the test split, with K3 = 1 launch per
+   forward and no attention kernel (T = 128 is below their gate);
+13. prints a {"kernels": [...]} line (each kernel with its launches on its
    own path and on every path), the card's name and power limit, and the
    {"ok": true, "device": ...} line last.
 
@@ -69,6 +75,8 @@ line. Without a CUDA card it exits 2 before doing anything.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
 import os
@@ -83,7 +91,8 @@ import urllib.request
 import numpy as np
 import torch
 
-from multimodalrouting_tpu_torch.ckpt import load_config, save_checkpoint
+from multimodalrouting_tpu_torch import cli as port_cli
+from multimodalrouting_tpu_torch.ckpt import load_config, load_meta, save_checkpoint
 from multimodalrouting_tpu_torch.configs import load_cfg
 from multimodalrouting_tpu_torch.data.batches import batch_to
 from multimodalrouting_tpu_torch.data.synthetic import make_synthetic_cohort
@@ -1335,6 +1344,98 @@ def phase_pheno(dev, tmp: str) -> dict:
     return out
 
 
+CLI_N, CLI_BATCH = 64, 16  # stays per split, batch: 4 steps an epoch at full width
+
+
+def run_cli(argv: list) -> list:
+    """port_cli.main(argv) in-process on the card, its time logged; -> (the
+    lines it printed, which it logs too; the launches it made)."""
+    torch.cuda.synchronize()
+    reset_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = port_cli.main(argv)
+    torch.cuda.synchronize()
+    secs, launches = time.perf_counter() - t0, read_counts()
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        log(f"[cli] {line}")
+    log(f"[cli] {argv[0]}: rc={rc} in {secs:.1f}s, launches {launches}")
+    require(rc == 0, f"cli {argv[0]} exited {rc}")
+    torch.cuda.empty_cache()
+    return lines, launches
+
+
+def phase_cli(dev, tmp: str) -> dict:
+    """The north star's command, `cli train --family capsule --task mort
+    --routes 10`, through the port's CLI at full width (BERT-base, ResNet34,
+    MulT d=256, the 10-route head; configs/trimodal_mort.yaml) on the
+    synthetic cohort, which the CLI clips to 128-token notes and 96^2
+    images: one epoch with train-state checkpoints, a resume to two epochs
+    under --profile-dir, eval with the drop table, predict. K3 must launch
+    once per forward (training steps, validation, calibration, test, drop
+    table, predict) and no attention kernel at all. -> launches summed."""
+    yaml = os.path.join(ROOT, "configs", "trimodal_mort.yaml")
+    out, trace = os.path.join(tmp, "cli"), os.path.join(tmp, "cli_trace")
+    sets = []
+    for kv in (f"data.synthetic_n={CLI_N}", f"train.batch_size={CLI_BATCH}", "train.min_epochs=0"):
+        sets += ["--set", kv]
+    train = ["train", "--family", "capsule", "--task", "mort", "--routes", "10", "--config", yaml, "--out", out,
+             "--device", "cuda", *sets]
+    steps = CLI_N // CLI_BATCH
+    batches = -(-CLI_N // CLI_BATCH)  # validation, test and predict
+    epoch_fwd = steps + batches  # training steps, then the validation pass
+    total = expected()
+
+    def check(label: str, launches: dict, k3: int) -> None:
+        expect = expected(capsule_routing=k3)
+        require(launches == expect, f"cli {label} launches {launches}, expected {expect}")
+        for name in total:
+            total[name] += launches[name]
+
+    # ckpt_every=1 writes best, best_f1 and last; the resume reads last
+    lines, launches = run_cli([*train, "--epochs", "1", "--set", "train.ckpt_every=1"])
+    summary = json.loads(lines[-1])
+    require(summary["epochs_ran"] == 1 and np.isfinite(summary["best_val_auroc"]), f"cli train: {summary}")
+    check("train", launches, epoch_fwd + batches)
+    step = load_meta(os.path.join(out, "last"))["step"]
+    require(step == steps, f"last checkpoint at step {step}, expected {steps}")
+
+    # ckpt_every=0: only final, which eval and predict read
+    lines, launches = run_cli([*train, "--epochs", "2", "--resume", out, "--set", "train.ckpt_every=0",
+                               "--profile-dir", trace])
+    require(f"[resume] {out}/last at step {steps}" in lines, "cli resume: restored step not reported")
+    summary = json.loads(lines[-1])
+    with open(os.path.join(out, "history.json")) as f:
+        history = json.load(f)
+    require(summary["epochs_ran"] == 1 and [r["epoch"] for r in history] == [1]
+            and np.isfinite(history[0]["train_loss"]), f"cli resume: {summary}, history {history}")
+    check("resume", launches, epoch_fwd + batches)
+    traces = os.listdir(trace)
+    require(len(traces) == 1, f"--profile-dir wrote {traces}")
+    log(f"[cli] resumed epoch: train_loss={history[0]['train_loss']:.5f} sec={history[0]['sec']:.2f}; "
+        f"trace {traces[0]} {os.path.getsize(os.path.join(trace, traces[0]))} bytes")
+
+    lines, launches = run_cli(["eval", "--ckpt", out, "--drop-table", "--device", "cuda"])
+    metrics = json.loads("\n".join(lines[lines.index("{"): lines.index("}") + 1]))
+    rows = [line.split()[0] for line in lines if line.split()[:1] and line.split()[0] in
+            ("full", "dropL", "dropN", "dropI", "rand1")]
+    require(np.isfinite(metrics["auroc"]) and rows == ["full", "dropL", "dropN", "dropI", "rand1"],
+            f"cli eval: auroc {metrics.get('auroc')}, drop-table rows {rows}")
+    require(os.path.exists(os.path.join(out, "test_route_audit.json")), "cli eval wrote no test_route_audit.json")
+    check("eval", launches, batches + 5 * (CLI_N // CLI_BATCH))
+
+    lines, launches = run_cli(["predict", "--ckpt", out, "--split", "test", "--device", "cuda"])
+    with open(os.path.join(out, "predictions_test.jsonl")) as f:
+        preds = [json.loads(line) for line in f]
+    require(len(preds) == CLI_N and all(0.0 <= p["probs"] <= 1.0 for p in preds),
+            f"cli predict wrote {len(preds)} rows for {CLI_N} stays")
+    check("predict", launches, batches)
+    log(f"[cli] launches over train, resume, eval and predict: {total}")
+    return total
+
+
 def ptxas_report() -> None:
     """Print each library's ptxas lines (the kernel each group of lines is
     for, its registers, spills and any warning) and fail if an instance of
@@ -1387,6 +1488,7 @@ def main() -> int:
         by_path.update(phase_splash(dev, tmp))
         phase_entry_point(dev, tmp)
         by_path.update(phase_pheno(dev, tmp))
+        by_path["cli"] = phase_cli(dev, tmp)
     for k in kernels:  # each kernel's own main path: the path this slice or an earlier one brought it up on
         k["launches"] = by_path[MAIN_PATH[k["name"]]][k["name"]]
         k["launches_by_path"] = {path: counts.get(k["name"], 0) for path, counts in by_path.items()}

@@ -7,7 +7,8 @@ PyTorch, and every Pallas kernel of the JAX package on the ported path as a
 hand-written Hopper kernel under ``csrc/``. This package imports neither JAX
 nor the JAX package; its tests hold it against that package on the CPU.
 
-Ported so far: the flagship capsule model's serving path (``serve.py``).
+Ported so far: the capsule family's serving path (``serve.py``), training
+(``train/``) and command line (``cli.py``: train, eval, predict).
 """
 
 __version__ = "0.1.0"

@@ -7,11 +7,20 @@ sample order from ``train.seed``, optional chunk bucketing, the chunk-pack
 capacity per batch, encoder LR warm-up, detach-priors epochs, the
 act-temperature anneal, ReduceLROnPlateau on validation AUROC, early
 stopping, EMA evaluation, best / best_f1 / last / final checkpoints
-(``ckpt.py``: EMA weights as the serving weights) and post-training
-temperature and threshold calibration.
+(``ckpt.py``: EMA weights as the serving weights, and the train state),
+post-training temperature and threshold calibration and the validation
+reliability diagram.
 
-Not ported: meshes, streaming splits, the frozen-BERT embedding cache and
-the reliability plot (ROADMAP.md); the first three raise.
+A run given a restored state starts at epoch ``state.step //
+steps_per_epoch``, as the JAX loop does. Unlike the JAX loop, it also
+continues the schedule the checkpoint carries (``state.loop``: the sampler's
+and the dropout generator's states, the LR scale, the plateau count and the
+best values), so that one epoch and a resume to two give the same state as
+two epochs without a break.
+
+Not ported: meshes, streaming splits and the frozen-BERT embedding cache
+(ROADMAP.md §1 items 12, 10 and 3); they raise, as do background
+checkpoint saves (``train.ckpt_backend=orbax_async``, item 13).
 """
 from __future__ import annotations
 
@@ -23,14 +32,20 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from multimodalrouting_tpu_torch.ckpt import save_checkpoint
+from multimodalrouting_tpu_torch.audit.exports import save_reliability_diagram
+from multimodalrouting_tpu_torch.ckpt import TRAIN_STATE, save_checkpoint
 from multimodalrouting_tpu_torch.configs import Config
 from multimodalrouting_tpu_torch.data.batches import Batch, batch_to
 from multimodalrouting_tpu_torch.metrics.calibration import find_best_thresholds, fit_temperature
 from multimodalrouting_tpu_torch.metrics.classification import epoch_metrics
 from multimodalrouting_tpu_torch.parallel.pp import validate_pp
 from multimodalrouting_tpu_torch.serve import probs_from_logits
-from multimodalrouting_tpu_torch.train.state import TrainState, create_train_state, serving_state_dict
+from multimodalrouting_tpu_torch.train.state import (
+    TrainState,
+    create_train_state,
+    serving_state_dict,
+    train_state_dict,
+)
 from multimodalrouting_tpu_torch.train.steps import make_eval_step, make_train_step
 
 
@@ -85,14 +100,21 @@ def _take(cohort: Batch, idx) -> Batch:
     return Batch(*(None if v is None else v[idx] for v in cohort))
 
 
-def predict_probs(eval_step, state: TrainState, cohort: Batch, batch_size: int, task: str) -> np.ndarray:
-    """Full-split inference in slices of `batch_size` -> probabilities."""
+def predict_probs(eval_step, state: TrainState, cohort: Batch, batch_size: int, task: str):
+    """Full-split inference in slices of `batch_size` -> (probs, alpha
+    [N, R], r_matrix [N, R, K]) on the host; the route audit is None where
+    the model gives none."""
     dev = next(state.model.parameters()).device
-    probs = []
+    probs, alphas, rms = [], [], []
     for start in range(0, cohort.batch_size, batch_size):
         out = eval_step(state, batch_to(_take(cohort, slice(start, start + batch_size)), dev))
         probs.append(probs_from_logits(out.logits.cpu().numpy(), task))
-    return np.concatenate(probs, 0)
+        if out.alpha is not None:
+            alphas.append(out.alpha.cpu().numpy())
+        if out.r_matrix is not None:
+            rms.append(out.r_matrix.cpu().numpy())
+    cat = lambda xs: np.concatenate(xs, 0) if xs else None  # noqa: E731
+    return cat(probs), cat(alphas), cat(rms)
 
 
 def train_model(
@@ -107,16 +129,19 @@ def train_model(
     ckpt_dir: Optional[str] = None,
 ) -> TrainResult:
     """Train `model` (from ``build_model(..., train=True)``, on its device)
-    on numpy cohorts; checkpoints go to ``ckpt_dir/<best|best_f1|last|final>``."""
+    on numpy cohorts, from `state` where given (a restored one resumes);
+    checkpoints go to ``ckpt_dir/<best|best_f1|last|final>``."""
     t, m = cfg.train, cfg.model
     if t.num_data_shards * t.num_model_shards > 1:
         if t.pipeline_parallel:  # the JAX package's checks and messages first
             validate_pp(cfg, t.num_model_shards)
-        raise NotImplementedError("device meshes are not ported yet (ROADMAP.md)")
+        raise NotImplementedError("device meshes are not ported yet (ROADMAP.md §1 item 12)")
     if hasattr(train_cohort, "epoch_iter"):
-        raise NotImplementedError("streaming splits are not ported yet (ROADMAP.md)")
+        raise NotImplementedError("streaming splits are not ported yet (ROADMAP.md §1 item 10)")
     if cfg.encoder.text_embedding_cache:
-        raise NotImplementedError("the frozen-BERT embedding cache is not ported yet (ROADMAP.md)")
+        raise NotImplementedError("the frozen-BERT embedding cache is not ported yet (ROADMAP.md §1 item 3)")
+    if ckpt_dir and t.ckpt_backend == "orbax_async":
+        raise NotImplementedError("background checkpoint saves are not ported yet (ROADMAP.md §1 item 13)")
     rng = np.random.default_rng(t.seed)
     dev = next(model.parameters()).device
     generator = torch.Generator(device=dev).manual_seed(t.seed)
@@ -131,11 +156,20 @@ def train_model(
     steps_per_epoch = max(n_train // t.batch_size, 1)
 
     def save(name: str, **meta) -> None:
-        save_checkpoint(os.path.join(ckpt_dir, name), serving_state_dict(state), cfg, **meta)
+        t0 = time.perf_counter()
+        path = save_checkpoint(os.path.join(ckpt_dir, name), serving_state_dict(state), cfg,
+                               train_state=train_state_dict(state), **meta)
+        size = os.path.getsize(os.path.join(path, TRAIN_STATE))
+        log_fn(f"[ckpt] {name}: {TRAIN_STATE} {size} bytes, saved in {time.perf_counter() - t0:.2f}s")
 
     lr_scale = 1.0
     best_metric, best_epoch, best_f1 = -np.inf, -1, -np.inf
     plateau_count = 0
+    if state.loop:  # a restored state continues its run's schedule
+        rng.bit_generator.state = state.loop["sampler"]
+        generator.set_state(state.loop["generator"])
+        lr_scale, plateau_count = state.loop["lr_scale"], state.loop["plateau_count"]
+        best_metric, best_epoch, best_f1 = state.loop["best_metric"], state.loop["best_epoch"], state.loop["best_f1"]
     history: List[Dict[str, float]] = []
     for epoch in range(state.step // steps_per_epoch, t.epochs):
         order = weighted_sample_order(np.asarray(train_cohort.y)[:n_train], rng, mode=t.sampler_mode)
@@ -169,7 +203,7 @@ def train_model(
             log_fn(f"[ROUTE HEALTH] collapse alarm: max mean route activation {a.max():.3f} "
                    f"(alpha={np.round(a, 3).tolist()})")
 
-        probs = predict_probs(eval_step, state, val_cohort, t.batch_size, m.task)
+        probs, _, _ = predict_probs(eval_step, state, val_cohort, t.batch_size, m.task)
         val_m = epoch_metrics(np.asarray(val_cohort.y)[: len(probs)], probs)
         monitor = val_m.get("auroc", val_m.get("auroc_macro", 0.0))
         if np.isnan(monitor):
@@ -180,11 +214,9 @@ def train_model(
         log_fn(f"[epoch {epoch:03d}] loss={row['train_loss']:.4f} val_auroc={monitor:.4f} "
                f"lr_scale={lr_scale:.3f} ({dt:.1f}s, {skipped} skipped)")
 
-        checkpoints = ckpt_dir and t.ckpt_every > 0
-        if monitor > best_metric + 1e-6:
+        improved = monitor > best_metric + 1e-6
+        if improved:
             best_metric, best_epoch, plateau_count = monitor, epoch, 0
-            if checkpoints:
-                save("best")
         else:
             plateau_count += 1
             if plateau_count >= t.plateau_patience:
@@ -192,24 +224,36 @@ def train_model(
                 plateau_count = 0
                 log_fn(f"[plateau] lr_scale -> {lr_scale:.4f}")
         val_f1 = float(val_m.get("f1", val_m.get("f1_macro", 0.0)))
-        if np.isfinite(val_f1) and val_f1 > best_f1 + 1e-6:
+        improved_f1 = np.isfinite(val_f1) and val_f1 > best_f1 + 1e-6
+        if improved_f1:
             best_f1 = val_f1
-            if checkpoints:
+        state.loop = {
+            "sampler": rng.bit_generator.state, "generator": generator.get_state(), "lr_scale": lr_scale,
+            "plateau_count": plateau_count, "best_metric": float(best_metric), "best_epoch": best_epoch,
+            "best_f1": float(best_f1),
+        }
+        if ckpt_dir and t.ckpt_every > 0:
+            if improved:
+                save("best")
+            if improved_f1:
                 save("best_f1")
-        if checkpoints and (epoch + 1) % t.ckpt_every == 0:
-            save("last")
+            if (epoch + 1) % t.ckpt_every == 0:
+                save("last")
         if epoch >= t.min_epochs and epoch - best_epoch >= t.early_stop_patience:
             log_fn(f"[early stop] epoch {epoch}, best {best_metric:.4f} @ {best_epoch}")
             break
 
     # post-training calibration on the validation split
-    probs = predict_probs(eval_step, state, val_cohort, t.batch_size, m.task)
+    probs, _, _ = predict_probs(eval_step, state, val_cohort, t.batch_size, m.task)
     y_val = np.asarray(val_cohort.y)[: len(probs)]
     eps = 1e-7
     logits_val = np.log(np.clip(probs, eps, 1 - eps)) - np.log1p(-np.clip(probs, eps, 1 - eps))
     if y_val.ndim == 1:
         temperature = fit_temperature(logits_val, y_val)
-        ths, _ = find_best_thresholds(y_val, 1 / (1 + np.exp(-logits_val / temperature)))
+        calibrated = 1 / (1 + np.exp(-logits_val / temperature))
+        ths, _ = find_best_thresholds(y_val, calibrated)
+        if ckpt_dir:  # reliability diagram of the calibrated validation probabilities
+            save_reliability_diagram(y_val, calibrated, ckpt_dir, split="val")
     else:
         temperature = 1.0
         ths, _ = find_best_thresholds(y_val, probs, beta=2.0 if m.task == "pheno" else 1.0)

@@ -18,12 +18,17 @@ gradient, carry no moments and are skipped by the EMA (decay
 count, EMA and BatchNorm statistics as they were; ``step`` still advances.
 Updates are in place: PyTorch parameters are mutable, where the JAX state is
 rebuilt each step.
+
+``train_state_dict`` and ``load_train_state_dict`` are the state's on-disk
+form (``ckpt.py`` writes it as ``train_state.pt``): step, count, the model's
+raw state_dict (trained parameters, not the EMA; BatchNorm statistics), the
+moments, the EMA and the train loop's schedule (``loop``).
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 from torch import nn
@@ -56,6 +61,10 @@ class TrainState:
     weight_decay: float
     count: int = 0  # Adam's count: finite steps taken
     step: int = 0  # every step, finite or not
+    # the train loop's schedule at the end of its last epoch (sampler and
+    # dropout generator states, LR scale, plateau and best values), so that
+    # a resumed run continues it; empty for a fresh state
+    loop: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
     def params(self) -> List[torch.Tensor]:
         named = dict(self.model.named_parameters())
@@ -149,3 +158,45 @@ def serving_state_dict(state: TrainState) -> Dict[str, torch.Tensor]:
     """The weights a checkpoint serves: the EMA where the run keeps one."""
     with ema_weights(state) as model:
         return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def train_state_dict(state: TrainState) -> Dict[str, Any]:
+    """Everything a resume needs, as CPU tensors and plain values."""
+
+    def cpu(d):
+        return {k: v.detach().cpu() for k, v in d.items()}
+
+    return {
+        "step": state.step, "count": state.count, "model": cpu(state.model.state_dict()),
+        "mu": cpu(state.mu), "nu": cpu(state.nu), "ema": None if state.ema is None else cpu(state.ema),
+        "loop": dict(state.loop),
+    }
+
+
+def load_train_state_dict(state: TrainState, saved: Dict[str, Any], *, params_only: bool = False) -> TrainState:
+    """Load `saved` (``train_state_dict``'s form, in the model's BERT layout)
+    into `state` in place, each tensor cast to the dtype `state` holds it in.
+
+    A full load takes step, count, weights, buffers, moments, EMA and the
+    loop's schedule. ``params_only`` takes the weights, buffers and EMA and
+    keeps the fresh moments, count, step and schedule (stage chaining). An
+    EMA the checkpoint lacks, or lacks for a parameter, starts from the
+    restored parameter."""
+    if not params_only and sorted(saved["mu"]) != sorted(state.names):
+        raise ValueError(
+            f"the checkpoint's optimizer covers {len(saved['mu'])} parameters and this run trains "
+            f"{len(state.names)}; a full restore needs the same trainable set (warm-start with --init-from)"
+        )
+    state.model.load_state_dict(saved["model"])
+    with torch.no_grad():
+        if state.ema is not None:
+            ema = saved.get("ema") or {}
+            for n in state.names:
+                state.ema[n].copy_(ema.get(n, saved["model"][n]))
+        if not params_only:
+            for n in state.names:
+                state.mu[n].copy_(saved["mu"][n])
+                state.nu[n].copy_(saved["nu"][n])
+    if not params_only:
+        state.count, state.step, state.loop = int(saved["count"]), int(saved["step"]), dict(saved.get("loop") or {})
+    return state
