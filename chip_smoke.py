@@ -26,10 +26,11 @@ toolkit. It
 4. holds K3 (fused capsule routing, a thread-block cluster kernel) against
    its plain version at the mortality ([B, 10, 32] x [10, 32, 2, 64]) and
    phenotype ([B, 10, 32] x [10, 32, 25, 64]) heads, B = 1 and 16, fp32
-   and bf16 inputs, with a repeat launch giving the same bits, times it as
-   every kernel of one call beside an empty kernel's launch (floor_ms),
-   checks B = 256 and the 7-route heads, and holds its autograd gradients
-   at both heads against autograd through the plain program;
+   and bf16 inputs, and at the 7-route heads (N = 7, M = 2 and 25) at
+   B = 16, with a repeat launch giving the same bits, times it as every
+   kernel of one call beside an empty kernel's launch (floor_ms), checks
+   B = 256, and holds its autograd gradients at the four heads against
+   autograd through the plain program;
 5. holds K4 (segment attention, the kernel pair of K4a flash and K4b
    splash), forward and backward, against its plain versions on every row at
    the flagship shape, at head_dim 128, at T = 1024 with 3 heads and in
@@ -60,13 +61,30 @@ toolkit. It
    a checkpoint served at 1 and 16 records (K1 = 12, K3 = 1 per forward)
    against fp32 on the CPU, then one training step on the config read from
    the YAML and one on that config read back from a checkpoint;
-12. the port's CLI in-process on configs/trimodal_mort.yaml at full width
+12. the other families at full width on the same encoders (FAMILY_PATHS:
+   gated concat with learned and loss-based gates, FAME++ with the learned
+   and the loss-based gate on configs/fame_missing.yaml, the 7-route
+   capsule head at M = 2 and M = 25, LateFusion, TriMF): each a seeded
+   checkpoint served by Predictor(family=..., device="cuda") at 1 and 16
+   records (K1 = 12 per forward, K3 = 1 on the capsule paths, nothing
+   else) against fp32 on the CPU (probabilities, gates, block weights,
+   alpha), its batch-16 profile and peak memory, and one frozen step; then
+   one step per curriculum stage, gated step1 (fine-tuned notes: K2 = 12)
+   -> step2 -> step3 and FAME++ uni -> bi -> tri under the loss-based
+   gate, warm-started as --init-from does, with the frozen parameters (and
+   the route-head slices outside the stage) bit-identical and the
+   route-loss EMA moving;
+13. the port's CLI in-process on configs/trimodal_mort.yaml at full width
    over a 64-stay synthetic cohort (notes clipped to 128 tokens and images
    to 96^2 by the CLI, as the JAX CLI clips them): train one epoch, resume
    to two from the train-state checkpoint (under --profile-dir), eval with
    the drop table and predict the test split, with K3 = 1 launch per
-   forward and no attention kernel (T = 128 is below their gate);
-13. prints a {"kernels": [...]} line (each kernel with its launches on its
+   forward and no attention kernel (T = 128 is below their gate); then the
+   FAME++ curriculum uni -> bi -> tri (configs/fame_missing.yaml) and the
+   gated one step1 -> step3, each stage with --init-from the last, eval
+   --drop-table and predict on FAME++'s tri, one epoch each of LateFusion
+   and TriMF, with no K3 and no attention kernel on any of them;
+14. prints a {"kernels": [...]} line (each kernel with its launches on its
    own path and on every path), the card's name and power limit, and the
    {"ok": true, "device": ...} line last.
 
@@ -81,6 +99,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -119,10 +138,22 @@ from multimodalrouting_tpu_torch.ops.flash_packed import (
     packed_attention_reference,
 )
 from multimodalrouting_tpu_torch.ops.fused_capsule import capsule_routing_fused, capsule_routing_reference, empty_launch
-from multimodalrouting_tpu_torch.serve import Predictor, batch_from_records, make_http_server
+from multimodalrouting_tpu_torch.serve import (
+    Predictor,
+    batch_from_records,
+    calibrate_probs,
+    make_http_server,
+    probs_from_logits,
+)
 from multimodalrouting_tpu_torch.train.loop import note_pack_bucket, train_model
-from multimodalrouting_tpu_torch.train.state import create_train_state
-from multimodalrouting_tpu_torch.train.steps import make_train_step
+from multimodalrouting_tpu_torch.train.state import (
+    create_train_state,
+    leaf_trainable,
+    load_train_state_dict,
+    n_route_loss_ema_for,
+    train_state_dict,
+)
+from multimodalrouting_tpu_torch.train.steps import loss_family, make_train_step
 
 SEED = 0
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -701,12 +732,16 @@ def phase_k4(dev) -> list:
 # (M = 25) capsule heads; the tables list both at B = 1 (one scored stay)
 # and B = 16 (the serving and training batch).
 K3_HEADS = {"mortality": (10, 32, 2, 64), "phenotype": (10, 32, 25, 64)}
+# The 7-route heads (model.routes=7): at M = 2 the planner gives a cluster of
+# 7 x 2 CTAs, one route each; at M = 25 one route group of 16 label CTAs,
+# each streaming 7 routes.
+K3_HEADS_7 = {"mortality_7": (7, 32, 2, 64), "phenotype_7": (7, 32, 25, 64)}
 
 
 def k3_inputs(b: int, head: str, dtype, dev, seed: int = SEED):
     """Seeded pose ~ N(0, 1), the head's routing acts (the route mask: some
     stays miss N or I) and w at its init scale, in `dtype`."""
-    n, a, m, d = K3_HEADS[head]
+    n, a, m, d = {**K3_HEADS, **K3_HEADS_7}[head]
     rng = np.random.default_rng(seed)
     pose = torch.from_numpy(rng.normal(size=(b, n, a)).astype(np.float32))
     act = torch.from_numpy((rng.random((b, n)) > 0.3).astype(np.float32))
@@ -758,8 +793,8 @@ def check_k3(tag: str, pose, act, w, iters: int = 3) -> dict:
 def phase_k3_grad(dev) -> None:
     """The K3 autograd Function's gradients (kernel forward, the plain
     program's VJP backward) against autograd through the plain program, at
-    both heads."""
-    for head in K3_HEADS:
+    both heads, 10 and 7 routes."""
+    for head in {**K3_HEADS, **K3_HEADS_7}:
         pose, act, w = k3_inputs(16, head, torch.float32, dev, SEED + 2)
         b, n, a = pose.shape
         m, d = w.shape[2:]
@@ -788,15 +823,15 @@ def k3_bound(b: int, n: int, a: int, m: int, d: int, es: int, iters: int = 3):
 
 
 def phase_k3(dev) -> dict:
-    """K3 at both heads, B = 1 and 16, fp32 and bf16 inputs: errors, repeat
-    bits, time as every kernel of one call beside the empty kernel's
-    (floor_ms), the plain version's and the bound; also B = 256 and the
-    7-route heads (errors only). -> the kernels-line row (the phenotype
-    head at B = 16 in bf16, the model's path, with every row in `rows`)."""
+    """K3 at both heads, B = 1 and 16, and at the 7-route heads, B = 16, fp32
+    and bf16 inputs: errors, repeat bits, time as every kernel of one call
+    beside the empty kernel's (floor_ms), the plain version's and the bound;
+    also B = 256 (errors only). -> the kernels-line row (the phenotype head
+    at B = 16 in bf16, the model's path, with every row in `rows`)."""
     floor_ms = call_ms(lambda: empty_launch(dev), {"empty": "capsule_routing_empty_kernel"}, 50)[0]
     rows = []
-    for head, (n, a, m, d) in K3_HEADS.items():
-        for b in (1, 16):
+    for head, (n, a, m, d) in {**K3_HEADS, **K3_HEADS_7}.items():
+        for b in ((1, 16) if head in K3_HEADS else (16,)):
             for dtype in (torch.float32, torch.bfloat16):
                 pose, act, w = k3_inputs(b, head, dtype, dev)
                 tag = f"{head} [{b},{n},{a}] x [{n},{a},{m},{d}] {str(dtype)[6:]}"
@@ -810,11 +845,9 @@ def phase_k3(dev) -> dict:
                 rows.append({"head": head, "b": b, "dtype": str(dtype)[6:], "max_abs_err": e["max_abs_err"],
                              "plain_err": e["plain_err"], "rms_ratio": e["rms_ratio"], "within_tol": e["within_tol"], "ms": ms,
                              "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by})
-    for head in K3_HEADS:  # beyond one cluster's tile, and the 7-route heads
+    for head in {**K3_HEADS, **K3_HEADS_7}:  # beyond one cluster's tile
         for dtype in (torch.float32, torch.bfloat16):
             check_k3(f"{head} B=256 {str(dtype)[6:]}", *k3_inputs(256, head, dtype, dev, SEED + 4))
-            pose, act, w = k3_inputs(16, head, dtype, dev, SEED + 5)
-            check_k3(f"{head} 7 routes {str(dtype)[6:]}", pose[:, :7].contiguous(), act[:, :7].contiguous(), w[:7])
     main = next(r for r in rows if r["head"] == "phenotype" and r["b"] == 16 and r["dtype"] == "bfloat16")
     return {
         "name": "capsule_routing", "route": "cuda",
@@ -826,14 +859,13 @@ def phase_k3(dev) -> dict:
     }
 
 
-def flagship_checkpoint(ckpt_dir: str, cfg=None):
-    """Full-width flagship config (or `cfg`) at the real serving shapes (a
-    real-cohort checkpoint: synthetic off, data_root set — never read),
-    seeded random weights, nonzero BatchNorm running statistics and head
-    embedding."""
-    cfg = cfg or flagship_cfg()
+def family_checkpoint(ckpt_dir: str, cfg, family: str) -> None:
+    """A seeded random checkpoint of `family` at `cfg`, temperature 1.25 and
+    threshold 0.4 (nonzero BatchNorm running statistics and capsule head
+    embedding; under the loss-based sMRO gate a seeded route-loss EMA in the
+    meta)."""
     torch.manual_seed(SEED)
-    model = build_model(cfg, device="cpu")
+    model = build_model(cfg, family, device="cpu")
     g = torch.Generator().manual_seed(SEED)
     with torch.no_grad():
         for name, buf in model.named_buffers():
@@ -841,10 +873,23 @@ def flagship_checkpoint(ckpt_dir: str, cfg=None):
                 buf.copy_(0.1 * torch.randn(buf.shape, generator=g))
             elif name.endswith("running_var"):
                 buf.copy_(0.5 + torch.rand(buf.shape, generator=g))
-        head = model.capsule_head
-        head.embedding.copy_(torch.randn(head.embedding.shape, generator=g))
-        head.bias.copy_(0.1 * torch.randn(head.bias.shape, generator=g))
+        if family == "capsule":
+            model.capsule_head.embedding.copy_(torch.randn(model.capsule_head.embedding.shape, generator=g))
+            model.capsule_head.bias.copy_(0.1 * torch.randn(model.capsule_head.bias.shape, generator=g))
     save_checkpoint(ckpt_dir, model.state_dict(), cfg, temperature=1.25, thresholds=[0.4])
+    if n_route_loss_ema_for(cfg, loss_family(family)):  # the meta a trained run writes
+        meta = load_meta(ckpt_dir)
+        meta["route_loss_ema"] = (0.3 + 0.7 * torch.rand(7, generator=g)).tolist()
+        with open(os.path.join(ckpt_dir, "meta.json"), "w") as f:
+            json.dump(meta, f)
+
+
+def flagship_checkpoint(ckpt_dir: str, cfg=None):
+    """Full-width flagship config (or `cfg`) at the real serving shapes (a
+    real-cohort checkpoint: synthetic off, data_root set — never read),
+    seeded random weights (family_checkpoint)."""
+    cfg = cfg or flagship_cfg()
+    family_checkpoint(ckpt_dir, cfg, "capsule")
     return cfg
 
 
@@ -862,13 +907,18 @@ def records_from_cohort(cohort, n: int, drop_image=()):
     return recs
 
 
-def check_rows(name: str, rows, n: int, labels: int = 1) -> None:
+def check_rows(name: str, rows, n: int, labels: int = 1, routes: int = 10) -> None:
+    """Probabilities of the checkpoint's labels, and the route audit of
+    `routes` routes (0: the family has none, and no row may carry one)."""
     require(len(rows) == n, f"{name}: {len(rows)} rows for {n} records")
     for row in rows:
         p = np.asarray(row["probs"], np.float64)
         require(p.size == labels and bool(np.isfinite(p).all() and ((0 <= p) & (p <= 1)).all()),
                 f"{name}: bad probs {p}")
-        require(len(row["alpha"]) == 10 and len(row["top_routes"]) == 3, f"{name}: bad route audit")
+        if routes:
+            require(len(row["alpha"]) == routes and len(row["top_routes"]) == 3, f"{name}: bad route audit")
+        else:
+            require("alpha" not in row, f"{name}: a route audit from a family without one")
 
 
 def http_roundtrip(predictor, records) -> dict:
@@ -1344,6 +1394,187 @@ def phase_pheno(dev, tmp: str) -> dict:
     return out
 
 
+# The other families on the flagship's encoders at full width: (path, family,
+# config YAML, overrides). fame runs on configs/fame_missing.yaml (BASELINE.json
+# configs[4]: multitask, 3 heads, route dropout 0.25, fairness gamma 0.1).
+FAMILY_PATHS = (
+    ("gated_learned", "gated_concat", "trimodal_mort.yaml", {"model.gate_mode": "learned"}),
+    ("gated_loss_based", "gated_concat", "trimodal_mort.yaml", {"model.gate_mode": "loss_based"}),
+    ("fame_learned", "fame", "fame_missing.yaml", {"model.smro_gate_mode": "learned"}),
+    ("fame_loss_based", "fame", "fame_missing.yaml", {"model.smro_gate_mode": "loss_based"}),
+    ("capsule7_mort", "capsule", "trimodal_mort.yaml", {"model.routes": "7"}),
+    ("capsule7_pheno", "capsule", "pheno_25.yaml", {"model.routes": "7", "model.bi_fusion_mode": "linear"}),
+    ("late_fusion", "late_fusion", "trimodal_mort.yaml", {}),
+    ("trimf", "trimf", "trimodal_mort.yaml", {}),
+)
+
+
+def max_diff(a, b) -> float:
+    return float((a.detach().float().cpu() - b.detach().float().cpu()).abs().max())
+
+
+def serve_family(label: str, family: str, cfg, tmp: str) -> dict:
+    """A seeded checkpoint of the path served by Predictor(family=...,
+    device="cuda") at 1 and 16 records (launches read around exactly those
+    two forwards), against the same weights in fp32 on the CPU (2 records):
+    probabilities of every label, and gates, block weights and alpha where
+    the family has them. Then the batch-16 forward's profile and peak memory."""
+    ckpt = os.path.join(tmp, label)
+    t0 = time.perf_counter()
+    family_checkpoint(ckpt, cfg, family)
+    predictor = Predictor(ckpt, family, device="cuda")
+    records = serving_records(cfg)
+    predictor.predict_records(records[:2])
+    torch.cuda.synchronize()
+    reset_counts()
+    single = predictor.predict_records(records[:1])
+    rows = predictor.predict_records(records)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    layers = cfg.encoder.bert_layers
+    k3 = 2 if family == "capsule" else 0
+    log(f"[families] {label}: serving launches over 2 forwards: {launches}")
+    require(launches == expected(packed_attention=2 * layers, capsule_routing=k3),
+            f"{label} serving launches {launches}, expected K1 = {2 * layers}, K3 = {k3}")
+    labels = cfg.model.num_classes if cfg.model.task != "mort" else 1
+    routes = len(predictor.routes) if family == "capsule" else 0
+    check_rows(f"{label} single", single, 1, labels, routes)
+    check_rows(f"{label} batch16", rows, 16, labels, routes)
+
+    ref_dir = checkpoint_variant(ckpt, os.path.join(tmp, label + "_fp32"), "model", "dtype", "float32")
+    ref = Predictor(ref_dir, family, device="cpu")
+    two = batch_from_records(cfg, records[:2])
+    out, ref_out = predictor.forward(two), ref.forward(two)
+    ref_probs = calibrate_probs(probs_from_logits(ref_out.logits.numpy(), cfg.model.task), ref.temperature)
+    diffs = {"prob": float(np.abs(np.asarray([r["probs"] for r in rows[:2]], np.float64).reshape(2, -1)
+                                  - np.asarray(ref_probs, np.float64).reshape(2, -1)).max())}
+    for name in ("gates", "block_w", "alpha"):
+        if getattr(ref_out, name) is not None:
+            diffs[name] = max_diff(getattr(out, name), getattr(ref_out, name))
+    log(f"[families] {label}: card bf16 vs CPU fp32 over 2 records: "
+        + ", ".join(f"max|d{k}|={v:.3e}" for k, v in diffs.items()) + f" (tol {E2E_TOL}); "
+        f"checkpoint and references in {time.perf_counter() - t0:.1f}s")
+    require(all(v <= E2E_TOL for v in diffs.values()), f"{label}: serving disagrees with the fp32 CPU reference")
+    del ref
+    torch.cuda.reset_peak_memory_stats()
+    profile_forward(predictor, batch_from_records(cfg, records), top=8)
+    log(f"[families] {label}: batch-16 forward peak_memory_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    del predictor
+    torch.cuda.empty_cache()
+    shutil.rmtree(ckpt)
+    shutil.rmtree(ref_dir)
+    return launches
+
+
+def family_step(label: str, family: str, cfg, dev) -> dict:
+    """One frozen training step at batch 16 -> launches (K1 = 12, K3 = 1 on
+    the capsule family, nothing else)."""
+    torch.manual_seed(SEED)
+    model = build_model(cfg, family, device="cuda", train=True)
+    lf = loss_family(family)
+    state = create_train_state(cfg, model, n_route_loss_ema=n_route_loss_ema_for(cfg, lf))
+    cohort = full_width_cohort(cfg, cfg.train.batch_size, SEED + 7)
+    step = make_train_step(cfg, model, lf)
+    gen = torch.Generator(device=dev).manual_seed(cfg.train.seed)
+    batch = batch_to(cohort, dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    m = step(state, batch, gen, cfg.train.lr, cfg.train.lr, note_pack=note_pack_bucket(cfg, cohort))
+    torch.cuda.synchronize()
+    launches = read_counts()
+    log(f"[families] {label}: frozen step loss={float(m.loss):.5f} launches {launches}")
+    require(np.isfinite(float(m.loss)) and m.grad_finite, f"{label}: non-finite loss or gradient")
+    expect = expected(packed_attention=cfg.encoder.bert_layers, capsule_routing=1 if family == "capsule" else 0)
+    require(launches == expect, f"{label} step launches {launches}, expected {expect}")
+    del model, state, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
+def stage_chain(dev, family: str, yaml: str, stages, overrides: dict, finetune_first: bool) -> dict:
+    """One training step per curriculum stage at batch 16, each stage's
+    state warm-started from the last one's as --init-from does (weights,
+    EMA and route-loss EMA; a fresh optimizer). The first stage with
+    fine-tuned notes where `finetune_first` (K2 = 12 on it). Every stage:
+    the parameters leaf_trainable freezes stay bit-identical; under the
+    loss-based sMRO gate the route-head slices outside the stage's block too
+    (weight decay on) and the route-loss EMA moves. -> {path: launches}."""
+    out, saved = {}, None
+    for i, stage in enumerate(stages):
+        finetune = finetune_first and i == 0
+        cfg = flagship_cfg(yaml, **{**overrides, "encoder.finetune_text": finetune})
+        lf = loss_family(family)
+        torch.manual_seed(SEED)
+        model = build_model(cfg, family, device="cuda", train=True)
+        state = create_train_state(cfg, model, stage=stage, n_route_loss_ema=n_route_loss_ema_for(cfg, lf))
+        if saved is not None:
+            load_train_state_dict(state, saved, params_only=True)
+        named = dict(model.named_parameters())
+        frozen = {n: p.detach().clone() for n, p in named.items() if n not in state.names}
+        watched = state.names[-1]
+        watched_before = named[watched].detach().clone()
+        require(all(not leaf_trainable(n, finetune, stage) for n in frozen), f"{stage}: frozen set")
+        blocks = {"uni": [0, 1, 2], "bi": [3, 4, 5], "tri": [6]}
+        head_frozen = {}
+        if state.route_loss_ema is not None:
+            keep = [r for r in range(7) if r not in blocks[stage]]
+            head_frozen = {n: named[n].detach()[keep].clone() for n in named if n.startswith("route_heads.")}
+            ema_before = state.route_loss_ema.clone()
+        cohort = full_width_cohort(cfg, cfg.train.batch_size, SEED + 8 + i)
+        step = make_train_step(cfg, model, lf, stage=stage)
+        gen = torch.Generator(device=dev).manual_seed(cfg.train.seed)
+        batch = batch_to(cohort, dev)
+        torch.cuda.synchronize()
+        reset_counts()
+        m = step(state, batch, gen, cfg.train.lr, cfg.train.lr, note_pack=note_pack_bucket(cfg, cohort))
+        torch.cuda.synchronize()
+        launches = read_counts()
+        label = f"chain_{family}_{stage}"
+        log(f"[families] {label}: {len(state.names)} of {len(named)} parameter tensors trained, "
+            f"{len(frozen)} frozen; loss={float(m.loss):.5f} launches {launches}")
+        require(np.isfinite(float(m.loss)) and m.grad_finite, f"{label}: non-finite loss or gradient")
+        expect = expected(packed_attention=12, packed_attention_bwd=12 if finetune else 0)
+        require(launches == expect, f"{label} launches {launches}, expected {expect}")
+        moved = [n for n, p in frozen.items() if not torch.equal(named[n].detach(), p)]
+        require(not moved, f"{label}: frozen parameters moved: {moved[:4]}")
+        require(not torch.equal(named[watched].detach(), watched_before), f"{label}: {watched} did not move")
+        if state.route_loss_ema is not None:
+            keep = [r for r in range(7) if r not in blocks[stage]]
+            still = [n for n, p in head_frozen.items() if not torch.equal(named[n].detach()[keep], p)]
+            require(not still, f"{label}: route-head slices outside {stage} moved: {still}")
+            require(not torch.equal(state.route_loss_ema, ema_before), f"{label}: the route-loss EMA did not move")
+            log(f"[families] {label}: route_loss_ema {np.round(state.route_loss_ema.cpu().numpy(), 4).tolist()}")
+        out[label] = launches
+        saved = train_state_dict(state)
+        del model, state, batch, frozen, head_frozen
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_families(dev, tmp: str) -> dict:
+    """The other routing families at full width (flagship_cfg: 512-token
+    notes, 224^2 images; seeded random weights): for each FAMILY_PATHS path
+    a checkpoint served at 1 and 16 records and one frozen step at batch 16;
+    then the curricula gated step1 -> step2 -> step3 (step1 with fine-tuned
+    notes) and fame uni -> bi -> tri under the loss-based gate (weight decay
+    0.05, so that a frozen slice that took decay would move). -> {path:
+    launches}."""
+    out = {}
+    for label, family, yaml, overrides in FAMILY_PATHS:
+        t0 = time.perf_counter()
+        cfg = flagship_cfg(yaml, **overrides)
+        out[f"serving_{label}"] = serve_family(label, family, cfg, tmp)
+        out[f"train_{label}"] = family_step(label, family, cfg, dev)
+        log(f"[families] {label}: path done in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    out.update(stage_chain(dev, "gated_concat", "trimodal_mort.yaml", ("step1", "step2", "step3"), {}, True))
+    out.update(stage_chain(dev, "fame", "fame_missing.yaml", ("uni", "bi", "tri"),
+                           {"model.smro_gate_mode": "loss_based", "train.weight_decay": 0.05}, False))
+    log(f"[families] stage chains done in {time.perf_counter() - t0:.1f}s")
+    return out
+
+
+
 CLI_N, CLI_BATCH = 64, 16  # stays per split, batch: 4 steps an epoch at full width
 
 
@@ -1375,7 +1606,9 @@ def phase_cli(dev, tmp: str) -> dict:
     images: one epoch with train-state checkpoints, a resume to two epochs
     under --profile-dir, eval with the drop table, predict. K3 must launch
     once per forward (training steps, validation, calibration, test, drop
-    table, predict) and no attention kernel at all. -> launches summed."""
+    table, predict) and no attention kernel at all. Then the other
+    families' commands at the same shapes, with no kernel launched at all.
+    -> launches summed."""
     yaml = os.path.join(ROOT, "configs", "trimodal_mort.yaml")
     out, trace = os.path.join(tmp, "cli"), os.path.join(tmp, "cli_trace")
     sets = []
@@ -1432,7 +1665,55 @@ def phase_cli(dev, tmp: str) -> dict:
     require(len(preds) == CLI_N and all(0.0 <= p["probs"] <= 1.0 for p in preds),
             f"cli predict wrote {len(preds)} rows for {CLI_N} stays")
     check("predict", launches, batches)
-    log(f"[cli] launches over train, resume, eval and predict: {total}")
+
+    # the other families at the same shapes: each curriculum chained stage by
+    # stage with --init-from (final checkpoints only), eval with the drop
+    # table and predict on the last fame stage, the baselines for one epoch;
+    # no K3 and no attention kernel on any of them
+    once = []
+    for kv in (f"data.synthetic_n={CLI_N}", f"train.batch_size={CLI_BATCH}", "train.min_epochs=0",
+               "train.ckpt_every=0"):
+        once += ["--set", kv]
+    fame_yaml = os.path.join(ROOT, "configs", "fame_missing.yaml")
+    chains = (("fame", ("uni", "bi", "tri"), ["--config", fame_yaml, "--set", "model.smro_gate_mode=loss_based"]),
+              ("gated_concat", ("step1", "step2", "step3"), ["--config", yaml, "--task", "mort"]))
+    for family, stages, extra in chains:
+        prev = None
+        for stage in stages:
+            dst = os.path.join(tmp, f"cli_{family}_{stage}")
+            lines, launches = run_cli(["train", "--family", family, "--stage", stage, *extra, "--out", dst,
+                                       "--epochs", "1", "--device", "cuda", *once,
+                                       *(["--init-from", prev] if prev else [])])
+            summary = json.loads(lines[-1])
+            require(summary["family"] == family and summary["stage"] == stage and summary["epochs_ran"] == 1
+                    and np.isfinite(summary["best_val_auroc"]), f"cli {family} {stage}: {summary}")
+            check(f"{family} {stage}", launches, 0)
+            if prev is not None:
+                shutil.rmtree(prev)  # keep the disk small: ~1.4 GB a checkpoint
+            prev = dst
+        if family == "fame":
+            lines, launches = run_cli(["eval", "--ckpt", prev, "--family", "fame", "--drop-table", "--device", "cuda"])
+            rows = [line.split()[0] for line in lines if line.split()[:1] and line.split()[0] in
+                    ("full", "dropL", "dropN", "dropI", "rand1")]
+            require(rows == ["full", "dropL", "dropN", "dropI", "rand1"], f"cli fame eval: drop-table rows {rows}")
+            check("fame eval", launches, 0)
+            lines, launches = run_cli(["predict", "--ckpt", prev, "--family", "fame", "--split", "test",
+                                       "--device", "cuda"])
+            with open(os.path.join(prev, "predictions_test.jsonl")) as f:
+                preds = [json.loads(line) for line in f]
+            require(len(preds) == CLI_N and all(len(p["probs"]) == 3 for p in preds),
+                    f"cli fame predict wrote {len(preds)} rows")
+            check("fame predict", launches, 0)
+        shutil.rmtree(prev)
+    for family in ("late_fusion", "trimf"):
+        dst = os.path.join(tmp, f"cli_{family}")
+        lines, launches = run_cli(["train", "--family", family, "--config", yaml, "--task", "mort", "--out", dst,
+                                   "--epochs", "1", "--device", "cuda", *once])
+        summary = json.loads(lines[-1])
+        require(summary["family"] == family and np.isfinite(summary["best_val_auroc"]), f"cli {family}: {summary}")
+        check(family, launches, 0)
+        shutil.rmtree(dst)
+    log(f"[cli] launches over every command: {total}")
     return total
 
 
@@ -1488,6 +1769,7 @@ def main() -> int:
         by_path.update(phase_splash(dev, tmp))
         phase_entry_point(dev, tmp)
         by_path.update(phase_pheno(dev, tmp))
+        by_path.update(phase_families(dev, tmp))
         by_path["cli"] = phase_cli(dev, tmp)
     for k in kernels:  # each kernel's own main path: the path this slice or an earlier one brought it up on
         k["launches"] = by_path[MAIN_PATH[k["name"]]][k["name"]]

@@ -9,6 +9,7 @@ flax leaf path maps onto a state_dict key mechanically:
 - Dense ``kernel [in, out]`` becomes Linear ``weight [out, in]``;
 - Conv ``kernel`` HWIO becomes ``weight`` OIHW;
 - Embed ``embedding`` and LayerNorm / BatchNorm ``scale`` become ``weight``;
+- a scalar (a fusion's ``res_scale``) stays 0-d;
 - BatchNorm ``batch_stats`` ``mean`` / ``var`` become ``running_mean`` /
   ``running_var``.
 
@@ -20,9 +21,10 @@ state carries ``ema_params``, those are the serving weights
 
 ``train_state_from_jax`` carries a whole JAX ``TrainState`` for resuming
 training: ``params`` into the model, ``batch_stats`` into its buffers,
-``ema_params`` into the EMA, and the Adam moments and count out of the optax
-state (found by their ``mu`` / ``nu`` / ``count`` fields, frozen leaves
-masked out), all as numpy.
+``ema_params`` into the EMA, ``route_loss_ema`` (the loss-based sMRO gate's)
+into the port's, and the Adam moments and count out of the optax state
+(found by their ``mu`` / ``nu`` / ``count`` fields, leaves frozen by the
+BERT rule or the curriculum stage masked out), all as numpy.
 """
 from __future__ import annotations
 
@@ -82,7 +84,7 @@ def state_dict_from_jax(variables: Mapping[str, Any], model: torch.nn.Module) ->
         ref = target[key]
         if tuple(value.shape) != tuple(ref.shape):
             raise ValueError(f"{key}: JAX shape {value.shape} vs port shape {tuple(ref.shape)}")
-        out[key] = torch.from_numpy(np.ascontiguousarray(value)).to(ref.dtype)
+        out[key] = torch.from_numpy(np.ascontiguousarray(value).reshape(value.shape)).to(ref.dtype)
     missing = sorted(set(target) - set(out))
     if missing:
         raise KeyError(f"model keys with no JAX leaf: {missing[:8]}{' ...' if len(missing) > 8 else ''}")
@@ -97,7 +99,8 @@ def _converted(tree: Mapping[str, Any], target: Mapping[str, torch.Tensor]) -> D
     for path, value in _array_leaves(tree):
         key, value = _param_key(path, value, target)
         ref = target[key]
-        out[key] = torch.from_numpy(np.ascontiguousarray(value)).to(device=ref.device, dtype=torch.float32)
+        value = np.ascontiguousarray(value).reshape(value.shape)
+        out[key] = torch.from_numpy(value).to(device=ref.device, dtype=torch.float32)
     return out
 
 
@@ -116,15 +119,19 @@ def _adam_state(opt_state) -> Optional[Any]:
     return None
 
 
-def train_state_from_jax(cfg, model: torch.nn.Module, jax_state: Mapping[str, Any]):
-    """A port TrainState from a JAX TrainState's fields as numpy trees:
-    {"params", "batch_stats", "ema_params", "opt_state", "step"}."""
+def train_state_from_jax(cfg, model: torch.nn.Module, jax_state: Mapping[str, Any], stage: str = ""):
+    """A port TrainState at curriculum `stage` from a JAX TrainState's fields
+    as numpy trees: {"params", "batch_stats", "ema_params", "opt_state",
+    "step", "route_loss_ema"}."""
     from multimodalrouting_tpu_torch.train.state import create_train_state
 
     model.load_state_dict(
         state_dict_from_jax({"params": jax_state["params"], "batch_stats": jax_state.get("batch_stats")}, model)
     )
-    state = create_train_state(cfg, model)
+    rle = jax_state.get("route_loss_ema")
+    state = create_train_state(cfg, model, stage=stage, n_route_loss_ema=0 if rle is None else len(rle))
+    if rle is not None:
+        state.route_loss_ema.copy_(torch.from_numpy(np.array(rle, dtype=np.float32)))
     target = dict(model.named_parameters())
     adam = _adam_state(jax_state["opt_state"])
     for name, tree in (("mu", adam.mu), ("nu", adam.nu)):

@@ -2,12 +2,16 @@
 
 - ``config.json`` — ``configs.to_dict(cfg)``;
 - ``meta.json`` — ``step``, ``temperature`` and ``thresholds``, the keys the
-  JAX package's meta carries;
+  JAX package's meta carries, and ``route_loss_ema`` where the train state
+  keeps one (the loss-based sMRO gate's [7] route losses, which serving
+  needs beside the weights; the JAX package keeps them in its state file);
 - ``weights.pt`` — the model's state_dict (serving weights: the EMA ones
   where the run kept an EMA);
 - ``train_state.pt`` — where a train state was given: the train state as
   ``train/state.py:train_state_dict`` gives it (step, Adam's count, the raw
-  state_dict, moments, EMA, the loop's schedule).
+  state_dict, moments, EMA, the route-loss EMA, the loop's schedule). A
+  train state written without a route-loss EMA restores into one that
+  keeps it, which then stays zero.
 
 ``train/loop.py:train_model`` writes one such directory, train state
 included, per checkpoint name under its ``ckpt_dir`` (``best``, ``best_f1``,
@@ -56,6 +60,9 @@ def save_checkpoint(
         "temperature": float(temperature),
         "thresholds": None if thresholds is None else [float(t) for t in thresholds],
     }
+    rle = None if train_state is None else train_state.get("route_loss_ema")
+    if rle is not None:
+        meta["route_loss_ema"] = [float(v) for v in rle]
     with open(os.path.join(ckpt_dir, "meta.json"), "w") as f:
         json.dump(meta, f, indent=2)
     torch.save({k: v.detach().cpu() for k, v in state_dict.items()}, os.path.join(ckpt_dir, "weights.pt"))

@@ -1,11 +1,21 @@
-"""Command-line entry point of the port (counterpart of multimodalrouting_tpu/cli.py),
-for the capsule family:
+"""Command-line entry point of the port (counterpart of multimodalrouting_tpu/cli.py):
 
   python -m multimodalrouting_tpu_torch.cli train --family capsule --task mort \\
       --routes 10 --out runs/capsule       # the flagship (MortModel/Paired_Cross_Attention)
+  python -m multimodalrouting_tpu_torch.cli train --family capsule --task pheno \\
+      --routes 7 --set model.bi_fusion_mode=linear   # PhenoModel/main.py
+  python -m multimodalrouting_tpu_torch.cli train --family gated_concat \\
+      --stage step1|step2|step3 [--init-from DIR]    # Model/train_step{1,2,3}
+  python -m multimodalrouting_tpu_torch.cli train --family fame \\
+      --stage uni|bi|tri [--init-from DIR]           # train_fame.py curriculum
+  python -m multimodalrouting_tpu_torch.cli train --family late_fusion|trimf
   python -m multimodalrouting_tpu_torch.cli train ... --resume runs/capsule --epochs 12
-  python -m multimodalrouting_tpu_torch.cli eval --ckpt runs/capsule --drop-table
-  python -m multimodalrouting_tpu_torch.cli predict --ckpt runs/capsule --split test
+  python -m multimodalrouting_tpu_torch.cli eval --ckpt runs/capsule --drop-table [--family F]
+  python -m multimodalrouting_tpu_torch.cli predict --ckpt runs/capsule --split test [--family F]
+
+The baselines (late_fusion, trimf) train under the fame loss family, and
+``eval`` writes the route heatmap tables only for a family with alpha and an
+R-matrix (the capsule family), as the JAX CLI does.
 
 The parser is the JAX package's: the same subcommands, flags, defaults and
 choices, plus ``--device {cuda,cpu}`` on ``train``, ``eval`` and ``predict``
@@ -20,10 +30,11 @@ NAME`` reads ``DIR/NAME/``, ``--resume DIR`` reads ``DIR/last/`` and
 
 What the port does not have yet raises ``NotImplementedError`` naming its
 ROADMAP.md item, and never runs another path in its place: the ``unimodal``,
-``etl`` and ``interpret`` subcommands, families other than ``capsule`` and
-curriculum stages, ``--routes 7``, ``--artifact`` / ``--export-artifact``, a
-real cohort (``data.data_root`` with ``data.synthetic=false``), the
-frozen-BERT text cache, device meshes and multi-host runs.
+``etl`` and ``interpret`` subcommands, the capsule family's per-route MulT
+branch (``--routes 10`` with ``model.bi_fusion_mode=mult``), ``--artifact``
+/ ``--export-artifact``, a real cohort (``data.data_root`` with
+``data.synthetic=false``), the frozen-BERT text cache, device meshes and
+multi-host runs.
 
 Config resolution is the JAX package's: defaults <- --config file <-
 MIMICIV_* env vars <- --set key=value overrides.
@@ -57,17 +68,12 @@ def _parse_sets(pairs: List[str]) -> Dict[str, str]:
     return out
 
 
-def _check_family(family: str) -> None:
-    if family != "capsule":
-        raise _not_ported(f"--family {family}", "6")
-
-
-def _check_cfg(cfg) -> None:
-    """Refuse the configurations this slice does not run."""
+def _check_cfg(cfg, family: str) -> None:
+    """Refuse the configurations the port does not run."""
     if not (cfg.data.synthetic or not cfg.data.data_root):
         raise _not_ported(f"the real-cohort loaders (data.data_root={cfg.data.data_root!r})", "10")
-    if cfg.model.routes != "10":
-        raise _not_ported(f"--routes {cfg.model.routes} (the 7-route fusion branch)", "6")
+    if family == "capsule" and cfg.model.routes == "10" and cfg.model.bi_fusion_mode == "mult":
+        raise _not_ported("model.bi_fusion_mode=mult (the per-route MulT family, models/route_mult.py)", "6")
     if cfg.encoder.text_embedding_cache:
         raise _not_ported("encoder.text_embedding_cache (the frozen-BERT text cache)", "3")
     if cfg.train.num_data_shards * cfg.train.num_model_shards > 1:
@@ -107,12 +113,10 @@ def cmd_train(args) -> int:
     from multimodalrouting_tpu_torch.configs import load_cfg
     from multimodalrouting_tpu_torch.models.full import build_model
     from multimodalrouting_tpu_torch.train.loop import train_model
-    from multimodalrouting_tpu_torch.train.state import create_train_state
+    from multimodalrouting_tpu_torch.train.state import create_train_state, n_route_loss_ema_for
+    from multimodalrouting_tpu_torch.train.steps import loss_family
     from multimodalrouting_tpu_torch.utils.profiling import trace_context
 
-    _check_family(args.family)
-    if args.stage:
-        raise _not_ported(f"--stage {args.stage} (curriculum stages)", "6")
     if any(os.environ.get(k) for k in MULTIHOST_ENV):
         raise _not_ported("a multi-host run", "12")
     overrides = _parse_sets(args.set or [])
@@ -137,9 +141,11 @@ def cmd_train(args) -> int:
             key = "num_data_shards" if axis == "data" else "num_model_shards"
             overrides[f"train.{key}"] = n.strip()
     cfg = load_cfg(args.config, overrides)
-    _check_cfg(cfg)
+    _check_cfg(cfg, args.family)
 
     train_b, val_b, _ = _load_data(cfg, cfg.model.task)
+    family = loss_family(args.family)
+    stage = args.stage or ""
     torch.manual_seed(cfg.train.seed)
     model = build_model(cfg, args.family, device=args.device, train=True)
     out_dir = args.out or os.path.join(cfg.out_dir, args.family)
@@ -149,7 +155,7 @@ def cmd_train(args) -> int:
     if args.init_from or args.resume:
         # --resume: full restore (moments, step, schedule); --init-from: stage
         # chaining (weights and EMA, fresh optimizer)
-        state = create_train_state(cfg, model)
+        state = create_train_state(cfg, model, stage=stage, n_route_loss_ema=n_route_loss_ema_for(cfg, family))
         if args.resume:
             state = restore_train_state(os.path.join(args.resume, "last"), state)
             print(f"[resume] {args.resume}/last at step {state.step}")
@@ -157,14 +163,15 @@ def cmd_train(args) -> int:
             state = restore_train_state(os.path.join(args.init_from, args.init_name), state, params_only=True)
 
     with trace_context(args.profile_dir, cuda=args.device == "cuda"):
-        result = train_model(cfg, model, train_b, val_b, family=args.family, state=state, ckpt_dir=out_dir)
+        result = train_model(cfg, model, train_b, val_b, family=family, stage=stage, state=state,
+                             ckpt_dir=out_dir)
     with open(os.path.join(out_dir, "history.json"), "w") as f:
         json.dump(result.history, f, indent=2)
     print(
         json.dumps(
             {
                 "family": args.family,
-                "stage": args.stage or "",
+                "stage": stage,
                 "best_val_auroc": result.best_metric,
                 "temperature": result.temperature,
                 "epochs_ran": len(result.history),
@@ -187,17 +194,20 @@ def cmd_eval(args) -> int:
     from multimodalrouting_tpu_torch.routes import get_routes
     from multimodalrouting_tpu_torch.serve import calibrate_probs
     from multimodalrouting_tpu_torch.train.loop import predict_probs
-    from multimodalrouting_tpu_torch.train.state import create_train_state
-    from multimodalrouting_tpu_torch.train.steps import make_eval_step
+    from multimodalrouting_tpu_torch.train.state import create_train_state, n_route_loss_ema_for
+    from multimodalrouting_tpu_torch.train.steps import loss_family, make_eval_step
 
-    _check_family(args.family)
     ckpt = os.path.join(args.ckpt, args.name)
     cfg = load_config(ckpt)
-    _check_cfg(cfg)
+    _check_cfg(cfg, args.family)
     _, _, test_b = _load_data(cfg, cfg.model.task)
     model = build_model(cfg, args.family, device=args.device)
-    state = restore_train_state(ckpt, create_train_state(cfg, model))
-    eval_step = make_eval_step(cfg, model, args.family)
+    family = loss_family(args.family)
+    # eval reads the weights, their EMA and the route-loss EMA, not the
+    # optimizer: a checkpoint of any curriculum stage evaluates
+    state = create_train_state(cfg, model, n_route_loss_ema=n_route_loss_ema_for(cfg, family))
+    state = restore_train_state(ckpt, state, params_only=True)
+    eval_step = make_eval_step(cfg, model, family)
     bs = cfg.train.batch_size
     probs, alpha, r_matrix = predict_probs(eval_step, state, test_b, bs, cfg.model.task)
     y = np.asarray(test_b.y)[: len(probs)]
@@ -246,6 +256,7 @@ def cmd_predict(args) -> int:
     """Serving path: checkpoint -> calibrated predictions (JSONL or HTTP),
     with the validation-fitted temperature and thresholds and the route
     audit per prediction (``serve.py``)."""
+    from multimodalrouting_tpu_torch.ckpt import load_config
     from multimodalrouting_tpu_torch.serve import Predictor, make_http_server, write_predictions_jsonl
 
     if args.artifact and args.ckpt:
@@ -254,10 +265,9 @@ def cmd_predict(args) -> int:
         raise _not_ported("the serving artifact (--artifact / --export-artifact)", "11")
     if not args.ckpt:
         raise SystemExit("one of --ckpt or --artifact is required")
-    _check_family(args.family)
-    pred = Predictor(os.path.join(args.ckpt, args.name), args.family, batch_size=args.batch_size,
-                     device=args.device)
-    _check_cfg(pred.cfg)
+    ckpt = os.path.join(args.ckpt, args.name)
+    _check_cfg(load_config(ckpt), args.family)
+    pred = Predictor(ckpt, args.family, batch_size=args.batch_size, device=args.device)
 
     if args.port is not None:
         server = make_http_server(pred, port=args.port)

@@ -1,7 +1,18 @@
-"""The flagship model: encoders -> 10 MulT routes -> capsule head
-(counterpart of multimodalrouting_tpu/models/full.py, CapsuleRoutingModel on
-its MULTRouter branch). Encoder outputs are sanitized (nan_to_num and a row
-norm clamp at 20) and absent modalities are zeroed and masked.
+"""The model families: encoders -> routes -> routing -> heads (counterpart
+of multimodalrouting_tpu/models/full.py).
+
+- ``CapsuleRoutingModel``: the flagship, 10 MulT routes (``MULTRouter``) or
+  7 fused routes (``SevenRouteFusion``) -> projector -> priors ->
+  ``CapsuleHead`` (K3);
+- ``GatedConcatModel``: 7 routes -> per-route heads and gates (uniform,
+  learned or loss_based) -> ``FinalConcatHead``; at the curriculum stages
+  step1 / step2 the output is the stage's mean route logit;
+- ``FAMEPlusPlus``: per-route heads over the concatenated member
+  modalities -> the learned ``MMRouting`` gate or the loss-based EMA gate.
+
+``models/baselines.py`` holds LateFusion and TriMF. Encoder outputs are
+sanitized (nan_to_num and a row norm clamp at 20) and absent modalities are
+zeroed and masked.
 
 ``forward(batch, train=...)`` is JAX's ``apply(..., train=...)``: in training
 the dropouts draw from the ``generator`` it is given, BatchNorm uses batch
@@ -13,6 +24,7 @@ from __future__ import annotations
 from typing import Dict, NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from multimodalrouting_tpu_torch.configs import Config
@@ -20,9 +32,20 @@ from multimodalrouting_tpu_torch.data.batches import Batch
 from multimodalrouting_tpu_torch.models.behrt import BEHRTLabEncoder
 from multimodalrouting_tpu_torch.models.clinbert import BioClinBERTEncoder
 from multimodalrouting_tpu_torch.models.cxr import ImageEncoder, normalize_pixels
+from multimodalrouting_tpu_torch.models.fusions import SevenRouteFusion
 from multimodalrouting_tpu_torch.models.mult import MULTRouter
-from multimodalrouting_tpu_torch.routes import get_routes, route_mask_from_presence
+from multimodalrouting_tpu_torch.routes import ROUTES_7, get_routes, route_mask_from_presence
 from multimodalrouting_tpu_torch.routing.capsule_head import CapsuleHead, RoutePrimaryProjector, compose_priors
+from multimodalrouting_tpu_torch.routing.gates import (
+    FinalConcatHead,
+    RouteGateNet,
+    StackedRouteHeads,
+    concat_routes,
+    loss_based_gates,
+    uniform_gates,
+)
+from multimodalrouting_tpu_torch.routing.smro import MMRouting, loss_based_fuse
+from multimodalrouting_tpu_torch.train.losses import bce_with_logits
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -44,6 +67,9 @@ class ModelOutput(NamedTuple):
     logits: torch.Tensor  # [B,K]
     alpha: Optional[torch.Tensor] = None  # [B,R]
     r_matrix: Optional[torch.Tensor] = None  # [B,R,K]
+    gates: Optional[torch.Tensor] = None  # [B,R] gate weights
+    block_w: Optional[torch.Tensor] = None  # [B,3] sMRO block weights
+    route_logits: Optional[torch.Tensor] = None  # [B,R,K] per-route logits
     route_embs: Optional[Dict[str, torch.Tensor]] = None
     pooled: Optional[Dict[str, torch.Tensor]] = None
     chexpert_logits: Optional[torch.Tensor] = None
@@ -104,19 +130,24 @@ class TriEncoder(nn.Module):
         )
 
 
+def seven_route_fusion(cfg: Config, dtype) -> SevenRouteFusion:
+    m = cfg.model
+    return SevenRouteFusion(
+        d=m.d, d_in=cfg.encoder.d, feature_mode=m.fusion_feature_mode, bi_fusion_mode=m.bi_fusion_mode,
+        tri_fusion_mode=m.tri_fusion_mode, p_drop=m.fusion_dropout, dtype=dtype,
+    )
+
+
 class CapsuleRoutingModel(nn.Module):
-    """Flagship: TriEncoder -> MULTRouter (10 routes) -> projector -> priors -> CapsuleHead."""
+    """Flagship: TriEncoder -> MULTRouter (10 routes) or SevenRouteFusion
+    (7 routes) -> projector -> priors -> CapsuleHead."""
 
     def __init__(self, cfg: Config):
         super().__init__()
         m = cfg.model
-        if m.routes != "10":
+        if m.routes == "10" and m.bi_fusion_mode == "mult":
             raise NotImplementedError(
-                "the 7-route fusion branch is not ported yet (ROADMAP.md, modules still to port)"
-            )
-        if m.bi_fusion_mode == "mult":
-            raise NotImplementedError(
-                "the per-route MulT family (bi_fusion_mode=mult) is not ported yet "
+                "the per-route MulT family (bi_fusion_mode=mult, models/route_mult.py) is not ported yet "
                 "(ROADMAP.md, modules still to port)"
             )
         self.cfg = cfg
@@ -124,12 +155,15 @@ class CapsuleRoutingModel(nn.Module):
         self.routes = get_routes(m.routes)
         self.encoders = TriEncoder(cfg, dtype)
         d_enc = cfg.encoder.d
-        self.mult = MULTRouter(
-            d_enc, d_enc, d_enc, d=m.d, num_heads=m.mult_heads, layers=m.mult_layers,
-            self_layers=m.mult_self_layers, attn_mask=m.attn_mask, pool=m.mult_pool,
-            positions=m.mult_positions, dtype=dtype, attn_dropout=m.attn_dropout,
-            relu_dropout=m.relu_dropout, res_dropout=m.res_dropout, embed_dropout=m.embed_dropout,
-        )
+        if m.routes == "10":
+            self.mult = MULTRouter(
+                d_enc, d_enc, d_enc, d=m.d, num_heads=m.mult_heads, layers=m.mult_layers,
+                self_layers=m.mult_self_layers, attn_mask=m.attn_mask, pool=m.mult_pool,
+                positions=m.mult_positions, dtype=dtype, attn_dropout=m.attn_dropout,
+                relu_dropout=m.relu_dropout, res_dropout=m.res_dropout, embed_dropout=m.embed_dropout,
+            )
+        else:
+            self.fusion = seven_route_fusion(cfg, dtype)
         self.projector = RoutePrimaryProjector(
             self.routes, d_in=m.d, pc_dim=m.pc_dim,
             use_route_logit_bias=m.route_logit_bias_init != 0.0,
@@ -164,7 +198,10 @@ class CapsuleRoutingModel(nn.Module):
         enc = self.encoders(batch, train, gen, note_pack)
         if route_mask is None:
             route_mask = route_mask_from_presence(batch.has_l, batch.has_n, batch.has_i, self.routes)
-        route_embs = self.mult(enc.l_seq, enc.n_seq, enc.i_seq, enc.l_mask, enc.n_mask, enc.i_mask, generator=gen)
+        if m.routes == "10":
+            route_embs = self.mult(enc.l_seq, enc.n_seq, enc.i_seq, enc.l_mask, enc.n_mask, enc.i_mask, generator=gen)
+        else:
+            route_embs = self.fusion(enc.l_pool, enc.n_pool, enc.i_pool, gen)
         poses, acts = self.projector(route_embs)
         priors = compose_priors(
             acts, route_mask=route_mask,
@@ -180,6 +217,126 @@ class CapsuleRoutingModel(nn.Module):
             route_embs=route_embs,
             pooled={"L": enc.l_pool, "N": enc.n_pool, "I": enc.i_pool},
             chexpert_logits=enc.chexpert_logits.float(),
+            batch_stats=collect_batch_stats(self) if train else None,
+        )
+
+
+def _pooled(enc: EncodedModalities) -> Dict[str, torch.Tensor]:
+    return {"L": enc.l_pool, "N": enc.n_pool, "I": enc.i_pool}
+
+
+class GatedConcatModel(nn.Module):
+    """7 routes -> per-route heads and gates -> FinalConcatHead over the
+    gate-weighted concatenation."""
+
+    def __init__(self, cfg: Config):
+        super().__init__()
+        m = cfg.model
+        self.cfg = cfg
+        dtype = compute_dtype(cfg)
+        self.routes = ROUTES_7
+        r = len(self.routes)
+        self.encoders = TriEncoder(cfg, dtype)
+        self.fusion = seven_route_fusion(cfg, dtype)
+        self.route_heads = StackedRouteHeads(r, m.d, m.num_classes, p_drop=m.fusion_dropout, dtype=dtype)
+        if m.gate_mode == "learned":  # the gate net's parameters exist only where the config learns it
+            self.gate_net = RouteGateNet(3 * cfg.encoder.d, r, hidden=m.gate_hidden, p_drop=m.fusion_dropout,
+                                         dtype=dtype)
+        self.final_head = FinalConcatHead(r, m.d, m.num_classes, p_drop=m.fusion_dropout, dtype=dtype)
+
+    def forward(
+        self,
+        batch: Batch,
+        train: bool = False,
+        gate_mode: Optional[str] = None,
+        route_losses: Optional[torch.Tensor] = None,  # [B,R] for loss_based
+        stage: str = "",  # "" | step1 | step2 | step3
+        generator: Optional[torch.Generator] = None,
+        note_pack: int = 0,
+    ) -> ModelOutput:
+        m = self.cfg.model
+        gen = generator if train else None
+        enc = self.encoders(batch, train, gen, note_pack)
+        zl, zn, zi = enc.l_pool, enc.n_pool, enc.i_pool
+        route_embs = self.fusion(zl, zn, zi, gen)
+        route_logits = self.route_heads(torch.stack([route_embs[r] for r in self.routes], dim=1), gen)
+
+        avail = route_mask_from_presence(batch.has_l, batch.has_n, batch.has_i, self.routes)
+        mode = gate_mode or m.gate_mode
+        if mode == "uniform":
+            gates = uniform_gates(avail)
+        elif mode == "loss_based":
+            if route_losses is None:
+                # per-sample per-route BCE of this forward's route logits, with
+                # gradient: it flows through the gates, as in the reference
+                y2 = batch.y if batch.y.dim() == 2 else batch.y[:, None]
+                per = bce_with_logits(route_logits, y2[:, None, :].expand_as(route_logits), reduce=False)
+                route_losses = per.mean(dim=-1)
+            gates = loss_based_gates(route_losses, avail, alpha=m.gate_alpha)
+        else:
+            gates = self.gate_net(zl, zn, zi, avail=avail, generator=gen)
+
+        x_cat, _ = concat_routes(route_embs, gates, self.routes, l2norm=m.l2norm_each)
+        logits = self.final_head(x_cat, gen)
+        # before step3 the final head is not trained: step1 and step2 output
+        # the mean logit of the stage's route heads (unimodal, bimodal)
+        if stage == "step1":
+            logits = route_logits[:, :3, :].mean(dim=1)
+        elif stage == "step2":
+            logits = route_logits[:, 3:6, :].mean(dim=1)
+        return ModelOutput(
+            logits=logits.float(), gates=gates.float(), route_logits=route_logits.float(),
+            route_embs=route_embs, pooled=_pooled(enc), chexpert_logits=enc.chexpert_logits.float(),
+            batch_stats=collect_batch_stats(self) if train else None,
+        )
+
+
+class FAMEPlusPlus(nn.Module):
+    """Per-route heads over the concatenated member modalities' embeddings
+    (zero-padded to 3d) -> the learned MMRouting gate or the loss-based EMA
+    gate (``model.smro_gate_mode``)."""
+
+    def __init__(self, cfg: Config):
+        super().__init__()
+        m = cfg.model
+        self.cfg = cfg
+        dtype = compute_dtype(cfg)
+        self.routes = ROUTES_7
+        self.encoders = TriEncoder(cfg, dtype)
+        self.route_heads = StackedRouteHeads(len(self.routes), 3 * m.d, m.num_classes, p_drop=m.smro_dropout,
+                                             dtype=dtype)
+        if m.smro_gate_mode != "loss_based":
+            self.mm_routing = MMRouting(self.routes, 3 * cfg.encoder.d, gate_hidden=m.smro_gate_hidden,
+                                        p_drop=m.smro_dropout, strict_freeze_gate=m.strict_freeze_gate,
+                                        dtype=dtype)
+
+    def forward(
+        self,
+        batch: Batch,
+        train: bool = False,
+        stage: Optional[str] = None,
+        route_losses_ema: Optional[torch.Tensor] = None,  # [R] for loss_based
+        generator: Optional[torch.Generator] = None,
+        note_pack: int = 0,
+    ) -> ModelOutput:
+        m = self.cfg.model
+        gen = generator if train else None
+        enc = self.encoders(batch, train, gen, note_pack)
+        pooled = _pooled(enc)
+        feats = []
+        for r in self.routes:
+            x = torch.cat([pooled[mod] for mod in r], dim=-1)
+            feats.append(F.pad(x, (0, 3 * m.d - x.shape[-1])))
+        route_logits = self.route_heads(torch.stack(feats, dim=1), gen)
+        if m.smro_gate_mode == "loss_based":
+            if route_losses_ema is None:
+                route_losses_ema = torch.zeros(len(self.routes), device=route_logits.device)
+            out = loss_based_fuse(route_logits, route_losses_ema, m.smro_alpha, self.routes)
+        else:
+            out = self.mm_routing(route_logits, pooled["L"], pooled["N"], pooled["I"], stage=stage, generator=gen)
+        return ModelOutput(
+            logits=out.fused.float(), gates=out.route_w.float(), block_w=out.block_w.float(),
+            route_logits=route_logits.float(), pooled=pooled, chexpert_logits=enc.chexpert_logits.float(),
             batch_stats=collect_batch_stats(self) if train else None,
         )
 
@@ -205,19 +362,26 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def build_model(cfg: Config, family: str = "capsule", *, device="cuda", train: bool = False) -> CapsuleRoutingModel:
-    """The model on `device`, in eval mode, or in train mode with `train`.
-    Parameters are fp32 masters; only under the frozen-text default with bf16
+FAMILIES = {"capsule": CapsuleRoutingModel, "gated_concat": GatedConcatModel, "fame": FAMEPlusPlus}
+
+
+def build_model(cfg: Config, family: str = "capsule", *, device="cuda", train: bool = False) -> nn.Module:
+    """The `family`'s model (capsule, gated_concat, fame, or the baselines
+    late_fusion and trimf) on `device`, in eval mode, or in train mode with
+    `train`. Parameters are fp32 masters; only under the frozen-text default with bf16
     compute is the BERT body held in bf16 (output-identical: the compute casts
     it to bf16 at every use anyway), layered or in the pipeline layout, and
     it then takes no gradient (JAX state.py:151-168)."""
-    if family != "capsule":
-        raise NotImplementedError(f"family {family!r} is not ported yet (ROADMAP.md, modules still to port)")
+    from multimodalrouting_tpu_torch.models.baselines import BASELINES
+
+    families = {**FAMILIES, **BASELINES}
+    if family not in families:
+        raise ValueError(f"Unknown model family {family!r}")
     e = cfg.encoder
     if e.int8_text:
         raise NotImplementedError("the int8 BERT body is not ported yet (ROADMAP.md)")
     dev = resolve_device(device)
-    model = CapsuleRoutingModel(cfg)
+    model = families[family](cfg)
     if not e.finetune_text:
         model.encoders.bbert.bert.requires_grad_(False)
         if e.frozen_text_bf16 and compute_dtype(cfg) == torch.bfloat16:

@@ -59,3 +59,20 @@ def route_mask_from_presence(
             m = m * has[mod]
         cols.append(m)
     return torch.clamp(torch.stack(cols, dim=-1), 0.0, 1.0)
+
+
+def block_mask_for_stage(stage: str, routes: Sequence[str]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(route_mask [R], block_mask [3]) of an sMRO curriculum stage: uni keeps
+    the unimodal routes and block, bi adds the bimodal ones, tri keeps all."""
+    blocks = get_blocks(routes)
+    if stage == "uni":
+        idx, bm = blocks["uni"], [1.0, 0.0, 0.0]
+    elif stage == "bi":
+        idx, bm = blocks["uni"] + blocks["bi"], [1.0, 1.0, 0.0]
+    elif stage == "tri":
+        idx, bm = blocks["uni"] + blocks["bi"] + blocks["tri"], [1.0, 1.0, 1.0]
+    else:
+        raise ValueError(f"Invalid stage {stage!r}; expected uni/bi/tri")
+    rm = torch.zeros(len(routes), dtype=torch.float32)
+    rm[list(idx)] = 1.0
+    return rm, torch.tensor(bm, dtype=torch.float32)

@@ -6,11 +6,15 @@ contract).
   ``batch_from_records`` pads or crops them to the checkpoint's static
   shapes and derives the ``has_*`` presence flags from what each record
   carries (missing modalities are zeroed and masked, never imputed).
-- ``Predictor`` loads a port checkpoint (``ckpt.py``) onto the card (or the
-  CPU when asked) and applies the checkpoint's temperature and per-label
-  thresholds to every prediction, with the route audit (alpha [R],
-  R-matrix [R, K], top routes) per row. Requests are scored in slices of at
-  most ``batch_size`` rows; eager PyTorch needs no padding to a static batch.
+- ``Predictor`` loads a port checkpoint (``ckpt.py``) of any family onto
+  the card (or the CPU when asked) and applies the checkpoint's temperature
+  and per-label thresholds to every prediction. Rows carry what the family
+  exposes: the capsule family's route audit (alpha [R], R-matrix [R, K],
+  top routes); the other families' rows carry probabilities and decisions
+  only (their routes are the 7). Under the loss-based sMRO gate the forward
+  takes the route-loss EMA the checkpoint's meta carries (zeros where it
+  carries none). Requests are scored in slices of at most ``batch_size``
+  rows; eager PyTorch needs no padding to a static batch.
 - ``make_http_server``: POST /predict, GET /health.
 """
 from __future__ import annotations
@@ -174,6 +178,9 @@ class Predictor:
     def __init__(self, ckpt_dir: str, family: str = "capsule", *, batch_size: Optional[int] = None, device="cuda"):
         from multimodalrouting_tpu_torch.ckpt import load_config, load_meta, load_weights
         from multimodalrouting_tpu_torch.models.full import build_model
+        from multimodalrouting_tpu_torch.routes import get_routes
+        from multimodalrouting_tpu_torch.train.state import n_route_loss_ema_for
+        from multimodalrouting_tpu_torch.train.steps import loss_family
 
         cfg = load_config(ckpt_dir)
         self.cfg = cfg
@@ -188,25 +195,40 @@ class Predictor:
         self.temperature = float(meta.get("temperature", 1.0) or 1.0)
         th = meta.get("thresholds")
         self.thresholds = np.asarray(th, np.float64) if th else None
-        self.routes: List[str] = list(self.model.routes)
+        self.routes: List[str] = list(get_routes(cfg.model.routes if family == "capsule" else "7"))
+        n_ema = n_route_loss_ema_for(cfg, loss_family(family))
+        self.route_loss_ema = None
+        if n_ema:
+            self.route_loss_ema = torch.tensor(meta.get("route_loss_ema") or [0.0] * n_ema, device=self.device)
         self._lock = threading.Lock()  # one request at a time on the device
 
-    def _forward(self, batch: Batch):
+    def forward(self, batch: Batch):
+        """The serving forward of a host Batch -> the model's ModelOutput."""
+        kwargs = {} if self.route_loss_ema is None else {"route_losses_ema": self.route_loss_ema}
         with torch.inference_mode():
-            out = self.model(batch_to(batch, self.device))
-        return tuple(x.cpu().numpy() for x in (out.logits, out.alpha, out.r_matrix))
+            return self.model(batch_to(batch, self.device), **kwargs)
+
+    def _forward(self, batch: Batch):
+        out = self.forward(batch)
+        return tuple(None if x is None else x.cpu().numpy() for x in (out.logits, out.alpha, out.r_matrix))
 
     def predict(self, batch: Batch) -> Dict[str, np.ndarray]:
-        """probs [N] or [N,K], pred, alpha [N,R], r_matrix [N,R,K]."""
+        """probs [N] or [N,K], pred, and where the family exposes routing
+        alpha [N,R] and r_matrix [N,R,K]."""
         n = batch.batch_size
         parts = []
         with self._lock:
             for start in range(0, n, self.batch_size):
                 sub = Batch(*(None if v is None else v[start : start + self.batch_size] for v in batch))
                 parts.append(self._forward(sub))
-        logits, alpha, r_matrix = (np.concatenate(xs, 0) for xs in zip(*parts))
+        logits, alpha, r_matrix = (None if xs[0] is None else np.concatenate(xs, 0) for xs in zip(*parts))
         probs = calibrate_probs(probs_from_logits(logits, self.task), self.temperature)
-        return {"probs": probs, "pred": decide(probs, self.thresholds), "alpha": alpha, "r_matrix": r_matrix}
+        out: Dict[str, np.ndarray] = {"probs": probs, "pred": decide(probs, self.thresholds)}
+        if alpha is not None:
+            out["alpha"] = alpha
+        if r_matrix is not None:
+            out["r_matrix"] = r_matrix
+        return out
 
     def predict_records(self, records: Sequence[Dict]) -> List[Dict]:
         out = self.predict(batch_from_records(self.cfg, records))
@@ -225,8 +247,9 @@ def write_predictions_jsonl(predictor: Predictor, batch: Batch, out_path: str, s
             row: Dict = {"probs": np.round(out["probs"][i], 6).tolist(), "pred": out["pred"][i].tolist()}
             if stay_ids is not None:
                 row["stay_id"] = int(stay_ids[i])
-            a = np.asarray(out["alpha"][i], np.float64).reshape(-1)
-            row["top_routes"] = [predictor.routes[j] for j in np.argsort(-a)[:3]]
+            if "alpha" in out:
+                a = np.asarray(out["alpha"][i], np.float64).reshape(-1)
+                row["top_routes"] = [predictor.routes[j] for j in np.argsort(-a)[:3]]
             fh.write(json.dumps(row) + "\n")
     return n
 

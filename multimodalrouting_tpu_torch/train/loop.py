@@ -1,6 +1,10 @@
-"""Epoch-level training driver for the capsule family on one device over a
-dense split (counterpart of multimodalrouting_tpu/train/loop.py:32-87 and
-:372-572).
+"""The epoch-level training loop of every family on one device over a dense
+split (counterpart of multimodalrouting_tpu/train/loop.py:32-87 and
+:152-572). ``family`` is the loss family (capsule, gated_concat or fame;
+the baselines train under fame) and ``stage`` the curriculum stage: the
+train step runs the stage's forward (gated step1 / step2 / step3, fame uni
+/ bi / tri), and the evaluation fuses only the trained blocks mid-curriculum
+(gated step1 / step2, fame uni / bi), as the JAX loop does.
 
 Weighted positive sampling (sqrt-clipped) with the JAX package's numpy
 sample order from ``train.seed``, optional chunk bucketing, the chunk-pack
@@ -25,6 +29,7 @@ checkpoint saves (``train.ckpt_backend=orbax_async``, item 13).
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 import time
 from typing import Callable, Dict, List, Optional
@@ -34,7 +39,7 @@ import torch
 
 from multimodalrouting_tpu_torch.audit.exports import save_reliability_diagram
 from multimodalrouting_tpu_torch.ckpt import TRAIN_STATE, save_checkpoint
-from multimodalrouting_tpu_torch.configs import Config
+from multimodalrouting_tpu_torch.configs import Config, to_dict
 from multimodalrouting_tpu_torch.data.batches import Batch, batch_to
 from multimodalrouting_tpu_torch.metrics.calibration import find_best_thresholds, fit_temperature
 from multimodalrouting_tpu_torch.metrics.classification import epoch_metrics
@@ -43,6 +48,7 @@ from multimodalrouting_tpu_torch.serve import probs_from_logits
 from multimodalrouting_tpu_torch.train.state import (
     TrainState,
     create_train_state,
+    n_route_loss_ema_for,
     serving_state_dict,
     train_state_dict,
 )
@@ -124,13 +130,15 @@ def train_model(
     val_cohort: Batch,
     *,
     family: str = "capsule",
+    stage: str = "",
     state: Optional[TrainState] = None,
     log_fn: Callable[[str], None] = print,
     ckpt_dir: Optional[str] = None,
 ) -> TrainResult:
     """Train `model` (from ``build_model(..., train=True)``, on its device)
-    on numpy cohorts, from `state` where given (a restored one resumes);
-    checkpoints go to ``ckpt_dir/<best|best_f1|last|final>``."""
+    on numpy cohorts under the loss `family` at curriculum `stage`, from
+    `state` where given (a restored one resumes); checkpoints go to
+    ``ckpt_dir/<best|best_f1|last|final>``."""
     t, m = cfg.train, cfg.model
     if t.num_data_shards * t.num_model_shards > 1:
         if t.pipeline_parallel:  # the JAX package's checks and messages first
@@ -146,14 +154,24 @@ def train_model(
     dev = next(model.parameters()).device
     generator = torch.Generator(device=dev).manual_seed(t.seed)
     if state is None:
-        state = create_train_state(cfg, model)
-    train_step = make_train_step(cfg, model, family)
-    eval_step = make_eval_step(cfg, model, family, use_ema=t.use_ema)
+        state = create_train_state(cfg, model, stage=stage, n_route_loss_ema=n_route_loss_ema_for(cfg, family))
+    staged = (family == "fame" and stage in ("uni", "bi", "tri")) or (
+        family == "gated_concat" and stage in ("step1", "step2", "step3"))
+    train_step = make_train_step(cfg, model, family, **({"stage": stage} if staged else {}))
+    # mid-curriculum evaluation fuses only the trained blocks: the stage's
+    # route heads (gated step1 / step2) or the stage-masked gates (fame uni / bi)
+    eval_staged = (family == "gated_concat" and stage in ("step1", "step2")) or (
+        family == "fame" and stage in ("uni", "bi"))
+    eval_step = make_eval_step(cfg, model, family, use_ema=t.use_ema, **({"stage": stage} if eval_staged else {}))
 
     n_train = train_cohort.batch_size
     if t.max_train_patients > 0:
         n_train = min(n_train, t.max_train_patients)
     steps_per_epoch = max(n_train // t.batch_size, 1)
+    if cfg.verbose:
+        log_fn(f"[config] {json.dumps(to_dict(cfg), sort_keys=True)}")
+        log_fn(f"[train] family={family} stage={stage or '-'} n_train={n_train} "
+               f"steps/epoch={steps_per_epoch} mesh=none")
 
     def save(name: str, **meta) -> None:
         t0 = time.perf_counter()
@@ -178,7 +196,7 @@ def train_model(
         lr_enc = 0.0 if epoch < t.encoder_warmup_epochs else t.encoder_lr * lr_scale
         detach = epoch < t.detach_priors_epochs
         act_temp = None
-        if m.act_temperature_start > 0 and m.act_temperature_epochs > 0:
+        if family == "capsule" and m.act_temperature_start > 0 and m.act_temperature_epochs > 0:
             frac = min(epoch / max(m.act_temperature_epochs, 1), 1.0)
             act_temp = torch.tensor(
                 m.act_temperature_start + frac * (m.act_temperature - m.act_temperature_start), device=dev

@@ -1,7 +1,8 @@
-"""The capsule family's loss terms (counterpart of
-multimodalrouting_tpu/train/losses.py:26-124): BCE over logits with
-pos_weight, label smoothing and sample weights, focal BCE, the death-logit
-contrast, the clamped pos_weight and the routing regularizers. All in fp32.
+"""Loss terms (counterpart of multimodalrouting_tpu/train/losses.py): BCE
+over logits with pos_weight, label smoothing and sample weights, focal BCE,
+the death-logit contrast, the clamped pos_weight, the routing regularizers,
+the differentiable fairness penalties (EDDI, soft equalized odds) and the
+2-class cross-entropy. All in fp32.
 """
 from __future__ import annotations
 
@@ -82,3 +83,47 @@ def routing_regularizers(
             n_avail = r.shape[1]
         loss = loss + uniform_penalty * ((r - 1.0 / n_avail) ** 2).sum(dim=1).mean()
     return loss
+
+
+def eddi_loss(probs: torch.Tensor, targets: torch.Tensor, groups: torch.Tensor, num_groups: int = 2) -> torch.Tensor:
+    """Differentiable EDDI: mean absolute deviation of each present group's
+    mean error |p - y| from the overall mean error."""
+    err = (probs.float() - targets.float()).abs()
+    overall = err.mean()
+    total = torch.zeros((), dtype=torch.float32, device=err.device)
+    count = torch.zeros((), dtype=torch.float32, device=err.device)
+    for g in range(num_groups):
+        m = (groups == g).float()
+        n = m.sum()
+        has = (n > 0).float()
+        total = total + has * ((err * m).sum() / torch.clamp(n, min=1.0) - overall).abs()
+        count = count + has
+    return total / torch.clamp(count, min=1.0)
+
+
+def soft_eq_odds_loss(probs: torch.Tensor, targets: torch.Tensor, groups: torch.Tensor,
+                      num_groups: int = 2) -> torch.Tensor:
+    """Soft equalized odds: squared gaps between groups' mean scores among
+    positives (a TPR proxy) and among negatives (an FPR proxy)."""
+    probs, targets = probs.float(), targets.float()
+    loss = torch.zeros((), dtype=torch.float32, device=probs.device)
+    for sel in (targets, 1.0 - targets):
+        rates, valid = [], []
+        for g in range(num_groups):
+            m = (groups == g).float() * sel
+            n = m.sum()
+            rates.append((probs * m).sum() / torch.clamp(n, min=1.0))
+            valid.append((n > 0).float())
+        for i in range(num_groups):
+            for j in range(i + 1, num_groups):
+                loss = loss + valid[i] * valid[j] * (rates[i] - rates[j]) ** 2
+    return loss
+
+
+def ce_two_class(logits: torch.Tensor, targets: torch.Tensor, label_smoothing: float = 0.0) -> torch.Tensor:
+    """2-class cross-entropy over [B, 2] logits, with label smoothing."""
+    targets = targets.float()
+    onehot = torch.stack([1.0 - targets, targets], dim=1)
+    if label_smoothing > 0.0:
+        onehot = onehot * (1.0 - label_smoothing) + 0.5 * label_smoothing
+    return -(onehot * F.log_softmax(logits.float(), dim=1)).sum(dim=1).mean()

@@ -12,9 +12,12 @@ The optimizer is written on tensors to match the JAX package's optax chain
 4. multiply by -lr, with ``lr_enc`` for leaves under ``encoders`` and
    ``lr_head`` for the rest.
 
-Frozen leaves (the BERT body unless ``encoder.finetune_text``) take no
-gradient, carry no moments and are skipped by the EMA (decay
-``train.ema_decay``). A non-finite gradient leaves the parameters, moments,
+Frozen leaves take no gradient, carry no moments and are skipped by the EMA
+(decay ``train.ema_decay``): the BERT body unless ``encoder.finetune_text``,
+and whatever the curriculum stage freezes (``leaf_trainable``). An update
+mask, where the step gives one, multiplies the post-optimizer updates of
+sliced leaves (the loss-based sMRO curriculum's frozen route heads), so
+that decoupled weight decay cannot move the frozen slices. A non-finite gradient leaves the parameters, moments,
 count, EMA and BatchNorm statistics as they were; ``step`` still advances.
 Updates are in place: PyTorch parameters are mutable, where the JAX state is
 rebuilt each step.
@@ -22,7 +25,8 @@ rebuilt each step.
 ``train_state_dict`` and ``load_train_state_dict`` are the state's on-disk
 form (``ckpt.py`` writes it as ``train_state.pt``): step, count, the model's
 raw state_dict (trained parameters, not the EMA; BatchNorm statistics), the
-moments, the EMA and the train loop's schedule (``loop``).
+moments, the EMA, the route-loss EMA of the loss-based sMRO gate and the
+train loop's schedule (``loop``).
 """
 from __future__ import annotations
 
@@ -43,11 +47,38 @@ def is_encoder(name: str) -> bool:
 
 
 def leaf_trainable(name: str, finetune_text: bool, stage: str = "") -> bool:
-    """Per-parameter trainability; only the capsule family's full-model
-    stage is ported."""
-    if stage not in ("", "full"):
-        raise NotImplementedError(f"curriculum stage {stage!r} is not ported yet (ROADMAP.md)")
-    return finetune_text or not name.startswith("encoders.bbert.bert.")
+    """Per-parameter trainability by curriculum stage, matched on the name's
+    components as the JAX package matches its path keys:
+
+    - step1 (unimodal): all but the fusions, MulT, gate net and final head;
+    - step2 (bimodal): the fusions, MulT and route heads, not the encoders;
+    - step3 (trimodal): the final head, the gate net and the LNI fusion;
+    - "" / full and sMRO uni / bi / tri: everything (the sMRO stages freeze
+      through stop-gradients or masked route-head slices instead).
+
+    The BERT body is frozen under every stage unless finetune_text."""
+    if not finetune_text and name.startswith("encoders.bbert.bert."):
+        return False
+    keys = set(name.split("."))
+
+    def has(*names):
+        return any(k in keys for k in names)
+
+    if stage in ("", None, "full", "uni", "bi", "tri"):
+        return True
+    if stage == "step1":
+        return not has("fusion", "mult", "gate_net", "final_head")
+    if stage == "step2":
+        return not has("encoders") and has("fusion", "mult", "route_heads")
+    if stage == "step3":
+        return has("final_head", "gate_net") or (has("fusion") and has("LNI"))
+    raise ValueError(f"Unknown stage {stage!r}")
+
+
+def n_route_loss_ema_for(cfg: Config, family: str) -> int:
+    """Routes tracked by the loss-based sMRO gate's EMA: 7 for the fame
+    family with model.smro_gate_mode=loss_based, else 0 (no buffer)."""
+    return 7 if family == "fame" and cfg.model.smro_gate_mode == "loss_based" else 0
 
 
 @dataclasses.dataclass
@@ -59,6 +90,10 @@ class TrainState:
     ema: Optional[Dict[str, torch.Tensor]]  # trainable parameters' EMA (frozen ones never move)
     grad_clip: float
     weight_decay: float
+    stage: str = ""
+    # EMA of the per-route losses for the loss-based sMRO gate, [R] fp32; None
+    # for the families that do not track it
+    route_loss_ema: Optional[torch.Tensor] = None
     count: int = 0  # Adam's count: finite steps taken
     step: int = 0  # every step, finite or not
     # the train loop's schedule at the end of its last epoch (sampler and
@@ -71,13 +106,14 @@ class TrainState:
         return [named[n] for n in self.names]
 
 
-def create_train_state(cfg: Config, model: nn.Module) -> TrainState:
-    """Zero moments and an EMA equal to the parameters. Marks each
-    parameter's requires_grad by its trainability."""
+def create_train_state(cfg: Config, model: nn.Module, stage: str = "", n_route_loss_ema: int = 0) -> TrainState:
+    """Zero moments, an EMA equal to the parameters and, with
+    `n_route_loss_ema`, a zero route-loss EMA. Marks each parameter's
+    requires_grad by its trainability at `stage`."""
     finetune = cfg.encoder.finetune_text
     names = []
     for name, p in model.named_parameters():
-        trainable = leaf_trainable(name, finetune, cfg.train.stage)
+        trainable = leaf_trainable(name, finetune, stage)
         p.requires_grad_(trainable)
         if trainable:
             names.append(name)
@@ -86,7 +122,10 @@ def create_train_state(cfg: Config, model: nn.Module) -> TrainState:
     return TrainState(
         model=model, names=names, mu=zeros(), nu=zeros(),
         ema={n: named[n].detach().clone() for n in names} if cfg.train.use_ema else None,
-        grad_clip=float(cfg.train.grad_clip), weight_decay=float(cfg.train.weight_decay),
+        grad_clip=float(cfg.train.grad_clip), weight_decay=float(cfg.train.weight_decay), stage=stage or "",
+        route_loss_ema=(
+            torch.zeros(n_route_loss_ema, device=next(model.parameters()).device) if n_route_loss_ema else None
+        ),
     )
 
 
@@ -98,9 +137,12 @@ def apply_gradients(
     lr_enc: float,
     ema_decay: float,
     new_batch_stats: Optional[Dict[str, torch.Tensor]] = None,
+    update_mask: Optional[Dict[str, torch.Tensor]] = None,
 ) -> bool:
     """One optimizer step with the finite-gradient guard; returns whether
-    the gradient was finite (and the step applied)."""
+    the gradient was finite (and the step applied). `update_mask` (by
+    parameter name, broadcastable) multiplies those parameters' updates
+    after Adam and weight decay, before the learning rate."""
     state.step += 1
     g = [grads[n].float() for n in state.names]
     finite = bool(torch.stack([torch.isfinite(x).all() for x in g]).all()) if g else True
@@ -124,6 +166,9 @@ def apply_gradients(
     updates = torch._foreach_div(mu_hat, denom)
     with torch.no_grad():
         torch._foreach_add_(updates, params, alpha=state.weight_decay)
+        for name, u in zip(state.names, updates):
+            if update_mask and name in update_mask:
+                u.mul_(update_mask[name])
         for name, p, u in zip(state.names, params, updates):
             p.add_(u, alpha=-(lr_enc if is_encoder(name) else lr_head))
         if state.ema is not None:
@@ -169,6 +214,7 @@ def train_state_dict(state: TrainState) -> Dict[str, Any]:
     return {
         "step": state.step, "count": state.count, "model": cpu(state.model.state_dict()),
         "mu": cpu(state.mu), "nu": cpu(state.nu), "ema": None if state.ema is None else cpu(state.ema),
+        "route_loss_ema": None if state.route_loss_ema is None else state.route_loss_ema.detach().cpu(),
         "loop": dict(state.loop),
     }
 
@@ -177,11 +223,14 @@ def load_train_state_dict(state: TrainState, saved: Dict[str, Any], *, params_on
     """Load `saved` (``train_state_dict``'s form, in the model's BERT layout)
     into `state` in place, each tensor cast to the dtype `state` holds it in.
 
-    A full load takes step, count, weights, buffers, moments, EMA and the
-    loop's schedule. ``params_only`` takes the weights, buffers and EMA and
-    keeps the fresh moments, count, step and schedule (stage chaining). An
-    EMA the checkpoint lacks, or lacks for a parameter, starts from the
-    restored parameter."""
+    A full load takes step, count, weights, buffers, moments, EMA, the
+    route-loss EMA and the loop's schedule. ``params_only`` takes the
+    weights, buffers, EMA and route-loss EMA and keeps the fresh moments,
+    count, step and schedule (stage chaining carries the route-loss EMA
+    across stages, as the reference's trainer does). An EMA the checkpoint
+    lacks, or lacks for a parameter, starts from the restored parameter; a
+    route-loss EMA it lacks (a checkpoint from before the buffer, or of
+    another gate) stays as `state` holds it."""
     if not params_only and sorted(saved["mu"]) != sorted(state.names):
         raise ValueError(
             f"the checkpoint's optimizer covers {len(saved['mu'])} parameters and this run trains "
@@ -193,6 +242,9 @@ def load_train_state_dict(state: TrainState, saved: Dict[str, Any], *, params_on
             ema = saved.get("ema") or {}
             for n in state.names:
                 state.ema[n].copy_(ema.get(n, saved["model"][n]))
+        rle = saved.get("route_loss_ema")
+        if state.route_loss_ema is not None and rle is not None:
+            state.route_loss_ema.copy_(rle)
         if not params_only:
             for n in state.names:
                 state.mu[n].copy_(saved["mu"][n])

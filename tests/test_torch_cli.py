@@ -200,13 +200,14 @@ def test_resume_from_a_serving_checkpoint_raises(two_epochs, tmp_path):
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["train", "--family", "fame"], "item 6"),
-    (["train", "--routes", "7"], "item 6"),
-    (["train", "--stage", "step1"], "item 6"),
+    (["train", "--set", "model.bi_fusion_mode=mult"], "item 6"),
+    (["train", "--config", os.path.join(os.path.dirname(__file__), "..", "configs", "pheno_atten_mult.yaml")],
+     "item 6"),
+    (["train", "--stage", "step1", "--set", "model.bi_fusion_mode=mult"], "item 6"),
     (["train", "--mesh", "data=2"], "item 12"),
     (["train", "--set", "encoder.text_embedding_cache=true"], "item 3"),
     (["train", "--set", "data.synthetic=false", "--set", "data.data_root=/nonexistent"], "item 10"),
-    (["eval", "--ckpt", "x", "--family", "trimf"], "item 6"),
+    (["predict", "--artifact", "x", "--family", "trimf"], "item 11"),
     (["predict", "--artifact", "x"], "item 11"),
     (["predict", "--ckpt", "x", "--export-artifact", "y"], "item 11"),
     (["unimodal"], "item 8"),

@@ -27,6 +27,7 @@ from chip_smoke import (
     K2_FP32_TOL,
     K4_FP32_TOL,
     K3_HEADS,
+    K3_HEADS_7,
     LSE_TOL,
     bf16_errors,
     describe_bf16,
@@ -334,8 +335,22 @@ def test_capsule_kernel_matches_plain_at_both_heads(cuda, head, b, dtype):
     limits, the outputs' shapes and dtype, one launch, and a repeat launch
     giving the same bits. M = 25 at D = 64 was refused before the cluster
     design (one row's votes beyond a block's 48 KB)."""
+    _check_k3_head(cuda, head, b, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b", [1, 16, 256])
+@pytest.mark.parametrize("head", list(K3_HEADS_7))
+def test_capsule_kernel_matches_plain_at_the_7_route_heads(cuda, head, b, dtype):
+    """The 7-route heads (model.routes=7): at M = 2 a cluster of 14 CTAs,
+    one route each; at M = 25 16 label CTAs streaming 7 routes each. As the
+    10-route heads are held."""
+    _check_k3_head(cuda, head, b, dtype)
+
+
+def _check_k3_head(cuda, head, b, dtype):
     pose, act, w = k3_inputs(b, head, dtype, cuda, seed=b)
-    n, _, m, d = K3_HEADS[head]
+    n, _, m, d = {**K3_HEADS, **K3_HEADS_7}[head]
     before = capsule_routing_fused.launches
     with torch.no_grad():
         got = capsule_routing_fused(pose, act, w, 3)
@@ -353,7 +368,16 @@ def test_capsule_kernel_matches_plain_at_both_heads(cuda, head, b, dtype):
 
 def test_capsule_kernel_gradient_at_the_phenotype_head(cuda):
     """K3 under autograd at M = 25: the plain program's VJP backward."""
-    pose, act, w = k3_inputs(16, "phenotype", torch.float32, cuda, seed=5)
+    _check_k3_gradient(cuda, "phenotype")
+
+
+@pytest.mark.parametrize("head", list(K3_HEADS_7))
+def test_capsule_kernel_gradient_at_the_7_route_heads(cuda, head):
+    _check_k3_gradient(cuda, head)
+
+
+def _check_k3_gradient(cuda, head):
+    pose, act, w = k3_inputs(16, head, torch.float32, cuda, seed=5)
     b, n, _ = pose.shape
     m, d = w.shape[2:]
     rng = np.random.default_rng(5)

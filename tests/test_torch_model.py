@@ -274,7 +274,8 @@ def test_entry_points_default_to_cuda():
 
 @pytest.mark.parametrize(
     "over",
-    [{"model.routes": "7"}, {"model.bi_fusion_mode": "mult"}, {"encoder.vision_backbone": "densenet121"},
+    [{"model.routes": "10", "model.bi_fusion_mode": "mult", "model.task": "pheno", "model.num_classes": 25},
+     {"model.bi_fusion_mode": "mult"}, {"encoder.vision_backbone": "densenet121"},
      {"encoder.int8_text": True}],
 )
 def test_unported_branches_raise(over):

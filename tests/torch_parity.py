@@ -5,6 +5,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from multimodalrouting_tpu import configs as jc
@@ -23,6 +24,20 @@ from multimodalrouting_tpu_torch.train.state import serving_state_dict
 from multimodalrouting_tpu_torch.train.steps import make_train_step
 
 RTOL, ATOL = 2e-4, 2e-5  # fp32 parity, as tests/test_pallas.py holds the kernels
+# XLA:CPU compile options for the JAX references: LLVM without its expensive
+# passes compiles a tiny model's step in about half the time, same numbers
+O0 = {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True}
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """One intra-op thread for a module's tiny models: the suite's workers
+    share the cores, and at these sizes threads only contend (a test module
+    uses it with ``pytestmark = pytest.mark.usefixtures(...)``)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def to_numpy(tree):
@@ -49,6 +64,36 @@ def jitter(variables, seed: int = 0, scale: float = 0.1):
                 lambda x: (x + scale * rng.normal(size=x.shape)).astype(x.dtype), tree
             )
     return out
+
+
+def seeded_like(shapes, seed: int):
+    """Numpy values for a tree of ShapeDtypeStructs (``jax.eval_shape`` of a
+    flax init), from a seeded generator: LayerNorm scales near 1, biases
+    near 0, residual scales near 0.5, kernels and tables N(0, 1/fan_in)."""
+    rng = np.random.default_rng(seed)
+
+    def fill(path, s):
+        name = str(getattr(path[-1], "key", path[-1]))
+        shape = s.shape
+        if name in ("scale", "ln_scale"):
+            x = 1.0 + 0.1 * rng.normal(size=shape)
+        elif name in ("bias", "ln_bias", "b1", "b2"):
+            x = 0.1 * rng.normal(size=shape)
+        elif name == "res_scale":
+            x = 0.5 + 0.1 * rng.normal(size=shape)
+        elif len(shape) >= 2:
+            fan_in = shape[-2] if len(shape) == 3 else int(np.prod(shape[:-1]))
+            x = rng.normal(size=shape) / np.sqrt(fan_in)
+        else:
+            x = 0.1 * rng.normal(size=shape)
+        return np.asarray(x, dtype=s.dtype)
+
+    return jax.tree_util.tree_map_with_path(fill, shapes)
+
+
+def compiled(fn, *args):
+    """fn(*args) as one program compiled with ``O0``."""
+    return jax.jit(fn).lower(*args).compile(compiler_options=O0)(*args)
 
 
 def torch_batch(batch) -> TorchBatch:
