@@ -84,7 +84,26 @@ toolkit. It
    gated one step1 -> step3, each stage with --init-from the last, eval
    --drop-table and predict on FAME++'s tri, one epoch each of LateFusion
    and TriMF, with no K3 and no attention kernel on any of them;
-14. prints a {"kernels": [...]} line (each kernel with its launches on its
+14. the per-route MulT family (configs/pheno_atten_mult.yaml: 25
+   phenotypes, every directional route its own MulT stack, the sigmoid
+   gate) at full width: a checkpoint served at 1 and 16 records against
+   fp32 on the CPU, one frozen step (K1 = 12 per forward and per step, K3
+   = 0: the sigmoid gate routes by the plain program), one `cli train`
+   epoch and `cli eval` at the CLI's shapes (no kernel);
+15. the frozen-BERT text cache (encoder.text_embedding_cache) at full
+   width: train_model over 64 + 32 stays with K1 = 72 in the cache passes
+   and K1 = 0, K3 = 1 in each step, cached against uncached forwards (fp32
+   LayerNorm: within E2E_TOL; bf16: the gap logged), the frozen step timed
+   with and without the cache, the epoch with and without it, and `cli eval
+   --drop-table` with the cache;
+16. a JAX-package checkpoint with no JAX on the machine: the full-width
+   flagship's train state after one frozen step written in flax's msgpack
+   layout (write_flax_checkpoint; the reader's time and rate logged) and as
+   a port checkpoint; Predictor(dir, name=...) at 16 records bit-identical
+   to the port checkpoint (K1 = 12, K3 = 1), `cli eval --ckpt DIR --name`,
+   and one `cli train --resume` step from each, bit-identical and continuing
+   the step counter;
+17. prints a {"kernels": [...]} line (each kernel with its launches on its
    own path and on every path), the card's name and power limit, and the
    {"ok": true, "device": ...} line last.
 
@@ -100,6 +119,7 @@ import math
 import os
 import re
 import shutil
+import struct
 import subprocess
 import sys
 import tempfile
@@ -112,7 +132,7 @@ import torch
 
 from multimodalrouting_tpu_torch import cli as port_cli
 from multimodalrouting_tpu_torch.ckpt import load_config, load_meta, save_checkpoint
-from multimodalrouting_tpu_torch.configs import load_cfg
+from multimodalrouting_tpu_torch.configs import apply_overrides, load_cfg, to_dict
 from multimodalrouting_tpu_torch.data.batches import batch_to
 from multimodalrouting_tpu_torch.data.synthetic import make_synthetic_cohort
 from multimodalrouting_tpu_torch.models.full import build_model
@@ -151,6 +171,7 @@ from multimodalrouting_tpu_torch.train.state import (
     leaf_trainable,
     load_train_state_dict,
     n_route_loss_ema_for,
+    serving_state_dict,
     train_state_dict,
 )
 from multimodalrouting_tpu_torch.train.steps import loss_family, make_train_step
@@ -859,13 +880,10 @@ def phase_k3(dev) -> dict:
     }
 
 
-def family_checkpoint(ckpt_dir: str, cfg, family: str) -> None:
-    """A seeded random checkpoint of `family` at `cfg`, temperature 1.25 and
-    threshold 0.4 (nonzero BatchNorm running statistics and capsule head
-    embedding; under the loss-based sMRO gate a seeded route-loss EMA in the
-    meta)."""
-    torch.manual_seed(SEED)
-    model = build_model(cfg, family, device="cpu")
+def seed_signal(model, family: str) -> torch.Generator:
+    """Seeded nonzero values where initialisation leaves zeros or ones that
+    would hide a difference: BatchNorm running statistics and the capsule
+    head's class embedding and bias. -> the generator, for more draws."""
     g = torch.Generator().manual_seed(SEED)
     with torch.no_grad():
         for name, buf in model.named_buffers():
@@ -874,8 +892,20 @@ def family_checkpoint(ckpt_dir: str, cfg, family: str) -> None:
             elif name.endswith("running_var"):
                 buf.copy_(0.5 + torch.rand(buf.shape, generator=g))
         if family == "capsule":
-            model.capsule_head.embedding.copy_(torch.randn(model.capsule_head.embedding.shape, generator=g))
-            model.capsule_head.bias.copy_(0.1 * torch.randn(model.capsule_head.bias.shape, generator=g))
+            head = model.capsule_head
+            head.embedding.copy_(torch.randn(head.embedding.shape, generator=g).to(head.embedding.device))
+            head.bias.copy_(0.1 * torch.randn(head.bias.shape, generator=g).to(head.bias.device))
+    return g
+
+
+def family_checkpoint(ckpt_dir: str, cfg, family: str) -> None:
+    """A seeded random checkpoint of `family` at `cfg`, temperature 1.25 and
+    threshold 0.4 (nonzero BatchNorm running statistics and capsule head
+    embedding; under the loss-based sMRO gate a seeded route-loss EMA in the
+    meta)."""
+    torch.manual_seed(SEED)
+    model = build_model(cfg, family, device="cpu")
+    g = seed_signal(model, family)
     save_checkpoint(ckpt_dir, model.state_dict(), cfg, temperature=1.25, thresholds=[0.4])
     if n_route_loss_ema_for(cfg, loss_family(family)):  # the meta a trained run writes
         meta = load_meta(ckpt_dir)
@@ -1166,15 +1196,18 @@ def phase_train_finetune(dev, warmup: int = 2, steps: int = 5, label: str = "fin
     return launches
 
 
-def checkpoint_variant(src: str, dst: str, section: str, key: str, value) -> str:
-    """The checkpoint `src` under one other config value: its weights and
-    meta hard-linked into `dst`, config.json with cfg[section][key] = value."""
+def checkpoint_variant(src: str, dst: str, section: str, key: str, value, also=()) -> str:
+    """The checkpoint `src` under other config values: its weights, meta and
+    train state (where it has one) hard-linked into `dst`, config.json with
+    cfg[section][key] = value and each (section, key, value) of `also`."""
     os.makedirs(dst)
-    for name in ("weights.pt", "meta.json"):
-        os.link(os.path.join(src, name), os.path.join(dst, name))
+    for name in ("weights.pt", "meta.json", "train_state.pt"):
+        if os.path.exists(os.path.join(src, name)):
+            os.link(os.path.join(src, name), os.path.join(dst, name))
     with open(os.path.join(src, "config.json")) as f:
         cfg_dict = json.load(f)
-    cfg_dict[section][key] = value
+    for sec, k, v in ((section, key, value), *also):
+        cfg_dict[sec][k] = v
     with open(os.path.join(dst, "config.json"), "w") as f:
         json.dump(cfg_dict, f)
     return dst
@@ -1432,7 +1465,7 @@ def serve_family(label: str, family: str, cfg, tmp: str) -> dict:
     torch.cuda.synchronize()
     launches = read_counts()
     layers = cfg.encoder.bert_layers
-    k3 = 2 if family == "capsule" else 0
+    k3 = 2 * k3_per_forward(cfg, family)
     log(f"[families] {label}: serving launches over 2 forwards: {launches}")
     require(launches == expected(packed_attention=2 * layers, capsule_routing=k3),
             f"{label} serving launches {launches}, expected K1 = {2 * layers}, K3 = {k3}")
@@ -1466,9 +1499,17 @@ def serve_family(label: str, family: str, cfg, tmp: str) -> dict:
     return launches
 
 
+def k3_per_forward(cfg, family: str) -> int:
+    """K3 launches per forward: one on the capsule family's softmax_out
+    routing; none under the sigmoid gate (configs/pheno_atten_mult.yaml),
+    which routes by the plain program, as the JAX head does, nor on the
+    other families."""
+    return int(family == "capsule" and cfg.model.capsule_act_type != "sigmoid_gate")
+
+
 def family_step(label: str, family: str, cfg, dev) -> dict:
-    """One frozen training step at batch 16 -> launches (K1 = 12, K3 = 1 on
-    the capsule family, nothing else)."""
+    """One frozen training step at batch 16 -> launches (K1 = 12, K3 as
+    k3_per_forward, nothing else)."""
     torch.manual_seed(SEED)
     model = build_model(cfg, family, device="cuda", train=True)
     lf = loss_family(family)
@@ -1484,7 +1525,7 @@ def family_step(label: str, family: str, cfg, dev) -> dict:
     launches = read_counts()
     log(f"[families] {label}: frozen step loss={float(m.loss):.5f} launches {launches}")
     require(np.isfinite(float(m.loss)) and m.grad_finite, f"{label}: non-finite loss or gradient")
-    expect = expected(packed_attention=cfg.encoder.bert_layers, capsule_routing=1 if family == "capsule" else 0)
+    expect = expected(packed_attention=cfg.encoder.bert_layers, capsule_routing=k3_per_forward(cfg, family))
     require(launches == expect, f"{label} step launches {launches}, expected {expect}")
     del model, state, batch
     torch.cuda.empty_cache()
@@ -1717,6 +1758,403 @@ def phase_cli(dev, tmp: str) -> dict:
     return total
 
 
+def set_args(*pairs) -> list:
+    """--set KEY=VALUE for each pair."""
+    return [arg for kv in pairs for arg in ("--set", kv)]
+
+
+# the CLI's synthetic cohort at full width, one epoch, no checkpoint but final
+CLI_ONCE = (f"data.synthetic_n={CLI_N}", f"train.batch_size={CLI_BATCH}", "train.min_epochs=0", "train.ckpt_every=0")
+
+
+def phase_route_mult(dev, tmp: str) -> dict:
+    """The per-route MulT family, configs/pheno_atten_mult.yaml (25
+    phenotypes, 10 routes, every directional route its own MulT stack with
+    cross_attn_layers=1 and the native-length causal bias, the sigmoid
+    gate), on the flagship's encoders at full width: a seeded checkpoint
+    served at 1 and 16 records against fp32 on the CPU, its batch-16 profile
+    and peak memory, one frozen step (K1 = 12 per forward and per step; K3 =
+    0: the sigmoid gate routes by the plain program, as the JAX head does;
+    no K2, no K4); then one `cli train` epoch on the YAML at the CLI's
+    synthetic shapes and `cli eval` of its checkpoint, with no kernel at all
+    (T = 128). -> {path: launches}."""
+    t0 = time.perf_counter()
+    yaml = os.path.join(ROOT, "configs", "pheno_atten_mult.yaml")
+    cfg = flagship_cfg("pheno_atten_mult.yaml")
+    m = cfg.model
+    require((m.task, m.num_classes, m.routes, m.bi_fusion_mode, m.cross_attn_layers, m.cross_attn_mask,
+             m.capsule_act_type) == ("pheno", 25, "10", "mult", 1, True, "sigmoid_gate"),
+            f"pheno_atten_mult.yaml loaded as {m}")
+    out = {"serving_route_mult": serve_family("route_mult", "capsule", cfg, tmp),
+           "train_route_mult": family_step("route_mult", "capsule", cfg, dev)}
+    dst = os.path.join(tmp, "cli_route_mult")
+    lines, launches = run_cli(["train", "--family", "capsule", "--task", "pheno", "--routes", "10", "--config", yaml,
+                               "--out", dst, "--epochs", "1", "--device", "cuda", *set_args(*CLI_ONCE)])
+    summary = json.loads(lines[-1])
+    require(summary["epochs_ran"] == 1 and np.isfinite(summary["best_val_auroc"]), f"cli route_mult: {summary}")
+    require(launches == expected(), f"cli route_mult train launches {launches}")
+    lines, launches = run_cli(["eval", "--ckpt", dst, "--device", "cuda"])
+    metrics = json.loads("\n".join(lines[lines.index("{"): lines.index("}") + 1]))
+    require(np.isfinite(metrics["auroc_macro"]) and launches == expected(),
+            f"cli route_mult eval: auroc_macro {metrics.get('auroc_macro')}, launches {launches}")
+    shutil.rmtree(dst)
+    log(f"[route-mult] phase done in {time.perf_counter() - t0:.1f}s")
+    return out
+
+
+def timed_steps(step, state, batch, gen, cap: int, warmup: int = 3, steps: int = 5) -> float:
+    """ms per train step: `warmup` steps, then `steps` ended by synchronize."""
+    lr = 1e-4
+    for _ in range(warmup):
+        step(state, batch, gen, lr, lr, note_pack=cap)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        m = step(state, batch, gen, lr, lr, note_pack=cap)
+    torch.cuda.synchronize()
+    require(np.isfinite(float(m.loss)), "non-finite loss in a timed step")
+    return (time.perf_counter() - t0) / steps * 1e3
+
+
+def phase_text_cache(dev, tmp: str) -> dict:
+    """encoder.text_embedding_cache on configs/trimodal_mort.yaml at full
+    width: train_model over 64 + 32 stays, batch 16, one epoch, with the
+    launch counters read around the cache passes (K1 = 12 x (4 + 2) = 72,
+    nothing else) and around each train step (K1 = 0, K3 = 1); the same run
+    without the cache for its epoch time; cached against uncached forwards
+    of the same weights (with the cache's own fp32 LayerNorm: |dprob| <=
+    E2E_TOL; under the default bf16 LayerNorm the gap is logged); the frozen
+    step timed with and without the cache; `cli eval --drop-table` with the
+    cache on the trained checkpoint at the CLI's synthetic shapes. -> {path:
+    launches}."""
+    import multimodalrouting_tpu_torch.train.loop as loop_mod
+    from multimodalrouting_tpu_torch.train.text_cache import attach_note_cache
+
+    t0 = time.perf_counter()
+    cfg = flagship_cfg(**{"encoder.text_embedding_cache": True, "train.epochs": 1, "train.min_epochs": 0,
+                          "train.ckpt_every": 0})
+    train_b, val_b = full_width_cohort(cfg, 64, SEED + 10), full_width_cohort(cfg, 32, SEED + 11)
+    passes, steps = [], []
+
+    def counted(fn, into):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            reset_counts()
+            result = fn(*a, **k)
+            torch.cuda.synchronize()
+            into.append(read_counts())
+            return result
+        return run
+
+    real_attach, real_make = loop_mod.attach_note_cache, loop_mod.make_train_step
+    loop_mod.attach_note_cache = counted(real_attach, passes)
+    loop_mod.make_train_step = lambda *a, **k: counted(real_make(*a, **k), steps)
+    try:
+        torch.manual_seed(SEED)
+        model = build_model(cfg, device="cuda", train=True)
+        cached = train_model(cfg, model, train_b, val_b, log_fn=log, ckpt_dir=os.path.join(tmp, "cache_run"))
+    finally:
+        loop_mod.attach_note_cache, loop_mod.make_train_step = real_attach, real_make
+    out = {"text_cache_pass": {k: sum(c[k] for c in passes) for k in COUNTED},
+           "train_text_cache": {k: sum(c[k] for c in steps) for k in COUNTED}}
+    layers = cfg.encoder.bert_layers
+    log(f"[text-cache] cache passes {passes}; {len(steps)} steps, launches summed {out['train_text_cache']}")
+    require(out["text_cache_pass"] == expected(packed_attention=layers * (64 // 16 + 32 // 16)),
+            f"cache pass launches {out['text_cache_pass']}, expected K1 = {layers * 6}")
+    require(len(steps) == 4 and all(c == expected(capsule_routing=1) for c in steps), f"cached step launches {steps}")
+    del model
+    torch.cuda.empty_cache()
+    uncached_cfg = flagship_cfg(**{"train.epochs": 1, "train.min_epochs": 0})
+    torch.manual_seed(SEED)
+    model = build_model(uncached_cfg, device="cuda", train=True)
+    plain = train_model(uncached_cfg, model, train_b, val_b, log_fn=lambda line: None)
+    log(f"[text-cache] epoch of 64 stays (4 steps, then 32 validation stays): cached {cached.history[0]['sec']:.2f}s "
+        f"(train loss {cached.history[0]['train_loss']:.5f}), uncached {plain.history[0]['sec']:.2f}s "
+        f"(train loss {plain.history[0]['train_loss']:.5f})")
+    del model
+    torch.cuda.empty_cache()
+
+    cohort = full_width_cohort(cfg, 16, SEED + 12)
+    for ln in ("fp32", "bf16"):
+        c = flagship_cfg(**{"encoder.bert_ln": ln})
+        torch.manual_seed(SEED)
+        model = build_model(c, device="cuda")
+        seed_signal(model, "capsule")
+        with torch.inference_mode():
+            ref = model(batch_to(cohort, dev))
+            got = model(batch_to(attach_note_cache(c, model, cohort), dev))
+        dp = float(np.abs(probs_from_logits(got.logits.cpu().numpy(), "mort")
+                          - probs_from_logits(ref.logits.cpu().numpy(), "mort")).max())
+        log(f"[text-cache] cached vs uncached forward, bert_ln={ln}: max|dprob|={dp:.3e} over 16 stays"
+            + (f" (tol {E2E_TOL})" if ln == "fp32" else " (the cache's fp32 LayerNorm against the model's bf16 one)"))
+        require(ln != "fp32" or dp <= E2E_TOL, "cached and uncached forwards disagree under the same LayerNorm")
+        del model
+    torch.cuda.empty_cache()
+
+    torch.manual_seed(SEED)
+    model = build_model(cfg, device="cuda", train=True)
+    state = create_train_state(cfg, model)
+    step = make_train_step(cfg, model)
+    gen = torch.Generator(device=dev).manual_seed(cfg.train.seed)
+    with_cache = attach_note_cache(cfg, model, cohort)
+    ms = {"uncached": timed_steps(step, state, batch_to(cohort, dev), gen, note_pack_bucket(cfg, cohort)),
+          "cached": timed_steps(step, state, batch_to(with_cache, dev), gen, 0)}
+    log(f"[text-cache] frozen step at batch 16 (3 warm-up, 5 timed): uncached {ms['uncached']:.2f} ms, "
+        f"cached {ms['cached']:.2f} ms")
+    del model, state
+    torch.cuda.empty_cache()
+
+    synth = checkpoint_variant(os.path.join(tmp, "cache_run", "final"), os.path.join(tmp, "cache_synth", "final"),
+                               "data", "synthetic", True, also=(("data", "synthetic_n", CLI_N),))
+    lines, launches = run_cli(["eval", "--ckpt", os.path.dirname(synth), "--drop-table", "--device", "cuda"])
+    rows = [line.split()[0] for line in lines if line.split()[:1] and line.split()[0] in
+            ("full", "dropL", "dropN", "dropI", "rand1")]
+    batches = -(-CLI_N // CLI_BATCH)
+    require(rows == ["full", "dropL", "dropN", "dropI", "rand1"] and launches == expected(capsule_routing=6 * batches),
+            f"cli eval with the cache: drop-table rows {rows}, launches {launches}")
+    out["cli_text_cache_eval"] = launches
+    shutil.rmtree(os.path.join(tmp, "cache_run"))
+    shutil.rmtree(os.path.join(tmp, "cache_synth"))
+    log(f"[text-cache] phase done in {time.perf_counter() - t0:.1f}s")
+    return out
+
+
+def _msgpack_head(n: int, small: int, fix: int, codes: tuple) -> bytes:
+    """A msgpack length header in its shortest form: `fix | n` below
+    `small`, else the 8- (where `codes` has one), 16- or 32-bit code."""
+    if n < small:
+        return bytes([fix | n])
+    for code, fmt, limit in zip(codes, (">B", ">H", ">I")[3 - len(codes):], (1 << 8, 1 << 16, 1 << 32)[3 - len(codes):]):
+        if n < limit:
+            return bytes([code]) + struct.pack(fmt, n)
+    raise ValueError(f"msgpack length {n} too large")
+
+
+def _msgpack(obj, write) -> None:
+    """obj as msgpack through `write`, as flax's msgpack_serialize writes
+    it (the msgpack package's shortest forms): maps with string keys, nil,
+    booleans, integers, floats, strings, bin, and tensors as ext 1 (a
+    msgpack array of shape, dtype name and C-order bytes; bfloat16 by
+    name)."""
+    if obj is None:
+        write(b"\xc0")
+    elif isinstance(obj, bool):
+        write(b"\xc3" if obj else b"\xc2")
+    elif isinstance(obj, int):
+        if -32 <= obj < 128:
+            write(struct.pack(">b" if obj < 0 else ">B", obj))
+        else:
+            for code, fmt in ((0xCC, ">B"), (0xCD, ">H"), (0xCE, ">I"), (0xCF, ">Q")) if obj > 0 else (
+                    (0xD0, ">b"), (0xD1, ">h"), (0xD2, ">i"), (0xD3, ">q")):
+                try:
+                    write(bytes([code]) + struct.pack(fmt, obj))
+                    break
+                except struct.error:
+                    continue
+    elif isinstance(obj, float):
+        write(b"\xcb" + struct.pack(">d", obj))
+    elif isinstance(obj, str):
+        data = obj.encode()
+        write(_msgpack_head(len(data), 32, 0xA0, (0xD9, 0xDA, 0xDB)) + data)
+    elif isinstance(obj, bytes):
+        write(_msgpack_head(len(obj), 0, 0, (0xC4, 0xC5, 0xC6)) + obj)
+    elif isinstance(obj, dict):
+        write(_msgpack_head(len(obj), 16, 0x80, (0xDE, 0xDF)))
+        for k in sorted(obj):  # flax rebuilds every dict through jax.tree_util: sorted keys
+            _msgpack(str(k), write)
+            _msgpack(obj[k], write)
+    elif isinstance(obj, (list, tuple)):
+        write(_msgpack_head(len(obj), 16, 0x90, (0xDC, 0xDD)))
+        for v in obj:
+            _msgpack(v, write)
+    elif isinstance(obj, torch.Tensor):
+        t = obj.detach().cpu().contiguous()
+        bf16 = t.dtype == torch.bfloat16
+        name = "bfloat16" if bf16 else t.numpy().dtype.name
+        parts = []
+        _msgpack([list(t.shape), name, (t.view(torch.int16) if bf16 else t).numpy().tobytes()], parts.append)
+        payload = b"".join(parts)
+        fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}.get(len(payload))
+        head = bytes([fixext]) if fixext else _msgpack_head(len(payload), 0, 0, (0xC7, 0xC8, 0xC9))
+        write(head + b"\x01" + payload)
+    else:
+        raise TypeError(f"no msgpack form for {type(obj)}")
+
+
+def flax_tree(model, sd: dict) -> tuple:
+    """A state_dict of `model` (or a subset of its parameters) as flax trees
+    (params, batch_stats): bridge.py's rules inverted by module type (Dense
+    weight [out, in] -> kernel [in, out], Conv OIHW -> HWIO, Embed weight ->
+    embedding, LayerNorm / BatchNorm / GroupNorm weight -> scale, BatchNorm
+    running statistics -> batch_stats mean / var); other leaves by name."""
+    from multimodalrouting_tpu_torch.models.cxr import BatchNorm, Conv, GroupNorm
+    from multimodalrouting_tpu_torch.models.layers import Dense, Embed
+    from multimodalrouting_tpu_torch.ops.layernorm import LayerNorm
+
+    modules = dict(model.named_modules())
+    params, stats = {}, {}
+    for key, value in sd.items():
+        mod_name, _, leaf = key.rpartition(".")
+        mod, tree = modules[mod_name], params
+        if leaf in ("running_mean", "running_var"):
+            tree, leaf = stats, leaf[len("running_"):]
+        elif leaf == "weight" and isinstance(mod, Dense):
+            leaf, value = "kernel", value.t()
+        elif leaf == "weight" and isinstance(mod, Conv):
+            leaf, value = "kernel", value.permute(2, 3, 1, 0)
+        elif leaf == "weight" and isinstance(mod, Embed):
+            leaf = "embedding"
+        elif leaf == "weight" and isinstance(mod, (LayerNorm, BatchNorm, GroupNorm)):
+            leaf = "scale"
+        for part in mod_name.split("."):
+            tree = tree.setdefault(part, {})
+        tree[leaf] = value
+    return params, stats
+
+
+def write_flax_checkpoint(ckpt_dir: str, name: str, state, cfg, meta: dict) -> str:
+    """`state` as the JAX package's save_checkpoint writes a train state,
+    ``<name>.msgpack`` + ``<name>.meta.json``: {step, params, batch_stats,
+    opt_state (optax's multi_transform state as a restored tree: tuples and
+    NamedTuples keyed by index and field, the Adam moments with empty dicts
+    at the masked frozen leaves), ema_params (every leaf: the trainable
+    ones' EMA, the frozen ones as they are)}. -> the msgpack's path."""
+    model = state.model
+    params, stats = flax_tree(model, model.state_dict())
+    ema, _ = flax_tree(model, {k: v for k, v in serving_state_dict(state).items() if "running_" not in k})
+    named = dict(model.named_parameters())
+
+    def moments(d):
+        tree, _ = flax_tree(model, {n: d.get(n, named[n]) for n in named})
+        frozen, _ = flax_tree(model, {n: named[n] for n in named if n not in d})
+
+        def mask(t, f):
+            return {k: (mask(v, f[k]) if isinstance(v, dict) else {}) if k in f else v for k, v in t.items()}
+        return mask(tree, frozen)
+
+    adam = {"count": torch.tensor(state.count, dtype=torch.int32), "mu": moments(state.mu), "nu": moments(state.nu)}
+    opt_state = {"inner_states": {"frozen": {"inner_state": {}},
+                                  "train": {"inner_state": {"0": {}, "1": adam, "2": {}, "3": {}}}}}
+    tree = {"step": torch.tensor(state.step, dtype=torch.int32), "params": params, "batch_stats": stats,
+            "opt_state": opt_state, "ema_params": ema}
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path = os.path.join(ckpt_dir, f"{name}.msgpack")
+    with open(path, "wb") as f:
+        _msgpack(tree, f.write)
+    with open(os.path.join(ckpt_dir, f"{name}.meta.json"), "w") as f:
+        json.dump({"config": to_dict(cfg), "step": state.step, **meta}, f)
+    return path
+
+
+def phase_jax_ckpt(dev, tmp: str) -> dict:
+    """A JAX-package checkpoint on the card with no JAX: the full-width
+    flagship's frozen-default train state (bf16 BERT body) after one step,
+    written in flax's msgpack layout (write_flax_checkpoint) and as a port
+    checkpoint of the same state. The reader's time and rate;
+    Predictor(dir, name=...) at 16 records (K1 = 12, K3 = 1) bit-identical to
+    the port checkpoint's; `cli eval --ckpt DIR --name NAME`; and one `cli
+    train --resume` step from each, which must continue the step counter and
+    give bit-identical train states. -> {path: launches}."""
+    import importlib.util
+
+    from multimodalrouting_tpu_torch.bridge import state_dict_from_jax
+    from multimodalrouting_tpu_torch.utils.flax_msgpack import read_msgpack
+
+    t0 = time.perf_counter()
+    found = {m: importlib.util.find_spec(m) is not None for m in ("jax", "flax", "msgpack", "ml_dtypes")}
+    log(f"[jax-ckpt] on this machine's import path (found by importlib, none imported): {found}")
+    cfg = flagship_cfg()
+    torch.manual_seed(SEED)
+    model = build_model(cfg, device="cuda", train=True)
+    seed_signal(model, "capsule")
+    state = create_train_state(cfg, model)
+    cohort = full_width_cohort(cfg, cfg.train.batch_size, SEED + 13)
+    gen = torch.Generator(device=dev).manual_seed(cfg.train.seed)
+    m = make_train_step(cfg, model)(state, batch_to(cohort, dev), gen, cfg.train.lr, cfg.train.lr,
+                                    note_pack=note_pack_bucket(cfg, cohort))
+    require(m.grad_finite and state.step == 1, "the step before the checkpoint failed")
+    port_root, jax_root = os.path.join(tmp, "port_ckpt"), os.path.join(tmp, "jax_ckpt")
+    meta = {"temperature": 1.25, "thresholds": [0.4]}
+    save_checkpoint(os.path.join(port_root, "last"), serving_state_dict(state), cfg, train_state=train_state_dict(state),
+                    **meta)
+    t1 = time.perf_counter()
+    path = write_flax_checkpoint(jax_root, "last", state, cfg, meta)
+    size = os.path.getsize(path)
+    log(f"[jax-ckpt] {path}: {size / 1e9:.3f} GB written in {time.perf_counter() - t1:.2f}s")
+    t1 = time.perf_counter()
+    tree = read_msgpack(path)
+    secs = time.perf_counter() - t1
+    log(f"[jax-ckpt] read_msgpack: {secs:.3f}s, {size / 1e9 / secs:.2f} GB/s")
+    bert = tree["params"]["encoders"]["bbert"]["bert"]["layer_0"]["intermediate"]["kernel"]
+    require(bert.dtype == torch.bfloat16, f"the frozen BERT body was written as {bert.dtype}")
+    back = state_dict_from_jax({"params": tree["params"], "batch_stats": tree["batch_stats"]}, model)
+    require(all(torch.equal(back[k], v.cpu()) for k, v in model.state_dict().items()),
+            "the flax tree does not map back onto the model's state_dict")
+    del tree, back, model, state
+    torch.cuda.empty_cache()
+
+    records = serving_records(cfg)
+    port = Predictor(os.path.join(port_root, "last"), device="cuda")
+    ref = port.predict(batch_from_records(cfg, records))
+    del port
+    torch.cuda.empty_cache()
+    jax_pred = Predictor(jax_root, name="last", device="cuda")
+    jax_pred.predict(batch_from_records(cfg, records[:2]))
+    torch.cuda.synchronize()
+    reset_counts()
+    got = jax_pred.predict(batch_from_records(cfg, records))
+    torch.cuda.synchronize()
+    out = {"serving_jax_ckpt": read_counts()}
+    require(out["serving_jax_ckpt"] == expected(packed_attention=cfg.encoder.bert_layers, capsule_routing=1),
+            f"JAX-checkpoint serving launches {out['serving_jax_ckpt']}")
+    same = all(np.array_equal(got[k], ref[k]) for k in ("probs", "alpha", "r_matrix"))
+    log(f"[jax-ckpt] Predictor(name='last') vs the port checkpoint, 16 records: bit-identical={same}, "
+        f"temperature={jax_pred.temperature}, launches {out['serving_jax_ckpt']}")
+    require(same, "the JAX checkpoint serves other probabilities than the port checkpoint of the same state")
+    del jax_pred
+    torch.cuda.empty_cache()
+
+    # the CLI reads synthetic-cohort configs: the same msgpack under a meta
+    # whose config is the synthetic cohort's
+    os.link(path, os.path.join(jax_root, "cli.msgpack"))
+    cli_cfg = apply_overrides(cfg, {"data.synthetic": True, "data.synthetic_n": CLI_N})
+    with open(os.path.join(jax_root, "cli.meta.json"), "w") as f:
+        json.dump({"config": to_dict(cli_cfg), "step": 1, **meta}, f)
+    lines, launches = run_cli(["eval", "--ckpt", jax_root, "--name", "cli", "--device", "cuda"])
+    metrics = json.loads("\n".join(lines[lines.index("{"): lines.index("}") + 1]))
+    require(np.isfinite(metrics["auroc"]) and metrics["temperature"] == 1.25, f"cli eval --name cli: {metrics}")
+    out["cli_jax_ckpt_eval"] = launches
+
+    yaml = os.path.join(ROOT, "configs", "trimodal_mort.yaml")
+    states = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # the two resumes must give the same bits
+    try:
+        for label, root in (("jax", jax_root), ("port", port_root)):
+            dst = os.path.join(tmp, f"resumed_{label}")
+            lines, _ = run_cli(["train", "--family", "capsule", "--task", "mort", "--routes", "10", "--config", yaml,
+                                "--resume", root, "--out", dst, "--epochs", "2", "--device", "cuda",
+                                *set_args(f"data.synthetic_n={CLI_BATCH}", f"train.batch_size={CLI_BATCH}",
+                                          "train.min_epochs=0", "train.ckpt_every=0")])
+            require(f"[resume] {root}/last at step 1" in lines, f"cli resume from the {label} checkpoint: no step 1")
+            states[label] = torch.load(os.path.join(dst, "final", "train_state.pt"), map_location="cpu",
+                                       weights_only=True)
+            require(states[label]["step"] == 2, f"resumed from {label}: step {states[label]['step']}, expected 2")
+            shutil.rmtree(dst)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    a, b = states["jax"], states["port"]
+    diff = [f"{part}.{k}" for part in ("model", "mu", "nu", "ema") for k in b[part]
+            if not torch.equal(a[part][k], b[part][k])]
+    log(f"[jax-ckpt] one resumed step from each: step {a['step']} / {b['step']}, "
+        f"{len(diff)} of {sum(len(b[p]) for p in ('model', 'mu', 'nu', 'ema'))} tensors differ")
+    require(not diff, f"the resumed updates differ: {diff[:4]}")
+    shutil.rmtree(jax_root)
+    shutil.rmtree(port_root)
+    log(f"[jax-ckpt] phase done in {time.perf_counter() - t0:.1f}s")
+    return out
+
+
 def ptxas_report() -> None:
     """Print each library's ptxas lines (the kernel each group of lines is
     for, its registers, spills and any warning) and fail if an instance of
@@ -1771,6 +2209,9 @@ def main() -> int:
         by_path.update(phase_pheno(dev, tmp))
         by_path.update(phase_families(dev, tmp))
         by_path["cli"] = phase_cli(dev, tmp)
+        by_path.update(phase_route_mult(dev, tmp))
+        by_path.update(phase_text_cache(dev, tmp))
+        by_path.update(phase_jax_ckpt(dev, tmp))
     for k in kernels:  # each kernel's own main path: the path this slice or an earlier one brought it up on
         k["launches"] = by_path[MAIN_PATH[k["name"]]][k["name"]]
         k["launches_by_path"] = {path: counts.get(k["name"], 0) for path, counts in by_path.items()}

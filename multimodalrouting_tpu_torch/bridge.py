@@ -19,58 +19,81 @@ in bf16 under bf16 compute, as the JAX train state holds it). When the JAX
 state carries ``ema_params``, those are the serving weights
 (``state_dict_from_jax``).
 
-``train_state_from_jax`` carries a whole JAX ``TrainState`` for resuming
-training: ``params`` into the model, ``batch_stats`` into its buffers,
-``ema_params`` into the EMA, ``route_loss_ema`` (the loss-based sMRO gate's)
-into the port's, and the Adam moments and count out of the optax state
-(found by their ``mu`` / ``nu`` / ``count`` fields, leaves frozen by the
-BERT rule or the curriculum stage masked out), all as numpy.
+``train_state_dict_from_jax`` carries a whole JAX ``TrainState`` into the
+port's on-disk train state, for resuming training (``train_state_from_jax``
+loads it into a model): ``params`` into the model, ``batch_stats`` into its
+buffers, ``ema_params`` into the EMA, ``route_loss_ema`` (the loss-based
+sMRO gate's) into the port's, and the Adam moments and count out of the
+optax state (found by their ``mu`` / ``nu`` / ``count`` fields, leaves
+frozen by the BERT rule or the curriculum stage masked out). The trees may
+be the JAX state in memory as numpy, or a checkpoint as
+``utils/flax_msgpack.py`` restores it (``ckpt.py``).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
+from typing import Any, Dict, Iterator, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 _STATS = {"mean": "running_mean", "var": "running_var"}
+_ADAM_FIELDS = ("mu", "nu", "count")
 
 
-def _leaves(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
+def _tensor(value) -> torch.Tensor:
+    """A leaf as a CPU tensor, sharing its memory where it can: a torch
+    tensor as it is, a numpy array (``bfloat16`` ones through their uint16
+    bits, as numpy has no bf16 of its own) or a scalar."""
+    if isinstance(value, torch.Tensor):
+        return value
+    a = np.asarray(value)
+    a = np.ascontiguousarray(a).reshape(a.shape)  # ascontiguousarray makes 0-d leaves 1-d
+    if not a.flags.writeable:
+        a = a.copy()
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def _leaves(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], torch.Tensor]]:
+    """(path, tensor) of every array leaf; leaves that are not arrays
+    (optax's masked frozen leaves: ``MaskedNode`` in memory, an empty dict in
+    a restored checkpoint) are skipped."""
     for k, v in tree.items():
         if isinstance(v, Mapping):
             yield from _leaves(v, prefix + (str(k),))
-        else:
-            yield prefix + (str(k),), np.asarray(v)
-
-
-def _array_leaves(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()):
-    for k, v in tree.items():
-        if isinstance(v, Mapping):
-            yield from _array_leaves(v, prefix + (str(k),))
         elif hasattr(v, "shape"):
-            yield prefix + (str(k),), np.asarray(v)
+            yield prefix + (str(k),), _tensor(v)
 
 
-def _param_key(path: Tuple[str, ...], value: np.ndarray, target: Mapping[str, torch.Tensor]):
+def _param_key(path: Tuple[str, ...], value, target: Mapping[str, torch.Tensor]):
+    value = _tensor(value)
     plain = ".".join(path)
     if plain in target:
         return plain, value
     module, leaf = path[:-1], path[-1]
     key = ".".join(module + ("weight",))
-    if leaf == "kernel" and value.ndim == 2:
-        return key, value.T
-    if leaf == "kernel" and value.ndim == 4:
-        return key, value.transpose(3, 2, 0, 1)
+    if leaf == "kernel" and value.dim() == 2:
+        return key, value.t()
+    if leaf == "kernel" and value.dim() == 4:
+        return key, value.permute(3, 2, 0, 1)
     if leaf in ("scale", "embedding"):
         return key, value
     raise KeyError(f"no state_dict key for JAX parameter {'/'.join(path)}")
 
 
-def state_dict_from_jax(variables: Mapping[str, Any], model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+Target = Union[torch.nn.Module, Mapping[str, torch.Tensor]]
+
+
+def _target(model: Target) -> Mapping[str, torch.Tensor]:
+    return model.state_dict() if isinstance(model, torch.nn.Module) else model
+
+
+def state_dict_from_jax(variables: Mapping[str, Any], model: Target) -> Dict[str, torch.Tensor]:
     """Map JAX variables {"params" (or "ema_params"), "batch_stats"} as numpy
-    trees onto `model`'s state_dict keys, shapes and dtypes."""
-    target = model.state_dict()
+    or torch trees onto `model`'s state_dict (or the state_dict given)
+    keys, shapes and dtypes, as CPU tensors."""
+    target = _target(model)
     params = variables.get("ema_params") or variables["params"]
     pairs = [_param_key(path, value, target) for path, value in _leaves(params)]
     for path, value in _leaves(variables.get("batch_stats") or {}):
@@ -83,8 +106,8 @@ def state_dict_from_jax(variables: Mapping[str, Any], model: torch.nn.Module) ->
             raise KeyError(f"two JAX leaves map to {key!r}")
         ref = target[key]
         if tuple(value.shape) != tuple(ref.shape):
-            raise ValueError(f"{key}: JAX shape {value.shape} vs port shape {tuple(ref.shape)}")
-        out[key] = torch.from_numpy(np.ascontiguousarray(value).reshape(value.shape)).to(ref.dtype)
+            raise ValueError(f"{key}: JAX shape {tuple(value.shape)} vs port shape {tuple(ref.shape)}")
+        out[key] = value.contiguous().to(ref.dtype)
     missing = sorted(set(target) - set(out))
     if missing:
         raise KeyError(f"model keys with no JAX leaf: {missing[:8]}{' ...' if len(missing) > 8 else ''}")
@@ -92,26 +115,24 @@ def state_dict_from_jax(variables: Mapping[str, Any], model: torch.nn.Module) ->
 
 
 def _converted(tree: Mapping[str, Any], target: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """A parameter tree (EMA or an Adam moment) by state_dict key, fp32 on
-    the target's device; leaves that are not arrays (optax's masked frozen
-    leaves) are skipped."""
-    out = {}
-    for path, value in _array_leaves(tree):
-        key, value = _param_key(path, value, target)
-        ref = target[key]
-        value = np.ascontiguousarray(value).reshape(value.shape)
-        out[key] = torch.from_numpy(value).to(device=ref.device, dtype=torch.float32)
-    return out
+    """A parameter tree (EMA or an Adam moment) by state_dict key, in its
+    own dtype (a train state's load casts); masked frozen leaves skipped."""
+    return dict(_param_key(path, value, target) for path, value in _leaves(tree))
 
 
-def _adam_state(opt_state) -> Optional[Any]:
-    """The optax ScaleByAdamState inside a (multi_transform, chain, masked)
-    state tree, or None."""
-    if hasattr(opt_state, "mu") and hasattr(opt_state, "nu") and hasattr(opt_state, "count"):
-        return opt_state
-    children = opt_state.values() if isinstance(opt_state, Mapping) else (
-        opt_state if isinstance(opt_state, (tuple, list)) else ()
-    )
+def _adam_state(opt_state) -> Optional[Tuple[Any, Any, Any]]:
+    """(mu, nu, count) of the optax ScaleByAdamState inside a
+    (multi_transform, chain, masked) state tree, or None. In memory the
+    state is a NamedTuple; in a restored checkpoint NamedTuples are dicts
+    keyed by field name and tuples dicts keyed "0", "1", ...."""
+    if isinstance(opt_state, Mapping):
+        if all(f in opt_state for f in _ADAM_FIELDS):
+            return tuple(opt_state[f] for f in _ADAM_FIELDS)
+        children = opt_state.values()
+    elif all(hasattr(opt_state, f) for f in _ADAM_FIELDS):
+        return tuple(getattr(opt_state, f) for f in _ADAM_FIELDS)
+    else:
+        children = opt_state if isinstance(opt_state, (tuple, list)) else ()
     for child in children:
         found = _adam_state(child)
         if found is not None:
@@ -119,32 +140,42 @@ def _adam_state(opt_state) -> Optional[Any]:
     return None
 
 
+def train_state_dict_from_jax(jax_state: Mapping[str, Any], model: Target) -> Dict[str, Any]:
+    """A JAX TrainState's fields as numpy or torch trees ({"params",
+    "batch_stats", "ema_params", "opt_state", "step", "route_loss_ema"}: in
+    memory, or as a checkpoint restores them) -> the port's on-disk train
+    state (``train/state.py:train_state_dict``'s form) over `model`'s
+    state_dict keys. A JAX state carries no loop schedule: a resume from it
+    starts the schedule afresh at its step, as the JAX loop does."""
+    target = _target(model)
+    adam = _adam_state(jax_state["opt_state"])
+    if adam is None:
+        raise KeyError("the JAX optimizer state holds no Adam moments (mu, nu, count)")
+    mu, nu, count = adam
+    ema, rle = jax_state.get("ema_params"), jax_state.get("route_loss_ema")
+    step = jax_state.get("step")
+    return {
+        "step": int(np.asarray(count if step is None else step)),
+        "count": int(np.asarray(count)),
+        "model": state_dict_from_jax({"params": jax_state["params"], "batch_stats": jax_state.get("batch_stats")},
+                                     target),
+        "mu": _converted(mu, target),
+        "nu": _converted(nu, target),
+        "ema": None if ema is None else _converted(ema, target),
+        "route_loss_ema": None if rle is None else _tensor(rle).float(),
+        "loop": {},
+    }
+
+
 def train_state_from_jax(cfg, model: torch.nn.Module, jax_state: Mapping[str, Any], stage: str = ""):
     """A port TrainState at curriculum `stage` from a JAX TrainState's fields
-    as numpy trees: {"params", "batch_stats", "ema_params", "opt_state",
-    "step", "route_loss_ema"}."""
-    from multimodalrouting_tpu_torch.train.state import create_train_state
+    (``train_state_dict_from_jax``), loaded into `model`."""
+    from multimodalrouting_tpu_torch.train.state import create_train_state, load_train_state_dict
 
-    model.load_state_dict(
-        state_dict_from_jax({"params": jax_state["params"], "batch_stats": jax_state.get("batch_stats")}, model)
-    )
-    rle = jax_state.get("route_loss_ema")
+    saved = train_state_dict_from_jax(jax_state, model)
+    rle = saved["route_loss_ema"]
     state = create_train_state(cfg, model, stage=stage, n_route_loss_ema=0 if rle is None else len(rle))
-    if rle is not None:
-        state.route_loss_ema.copy_(torch.from_numpy(np.array(rle, dtype=np.float32)))
-    target = dict(model.named_parameters())
-    adam = _adam_state(jax_state["opt_state"])
-    for name, tree in (("mu", adam.mu), ("nu", adam.nu)):
-        moments = _converted(tree, target)
-        if sorted(moments) != sorted(state.names):
-            raise KeyError(f"JAX Adam {name} covers {len(moments)} leaves, the port trains {len(state.names)}")
-        getattr(state, name).update(moments)
-    state.count = int(np.asarray(adam.count))
-    state.step = int(np.asarray(jax_state.get("step", state.count)))
-    if state.ema is not None and jax_state.get("ema_params") is not None:
-        ema = _converted(jax_state["ema_params"], target)
-        state.ema.update({n: ema[n] for n in state.names})
-    return state
+    return load_train_state_dict(state, saved)
 
 
 def load_jax_variables(model: torch.nn.Module, variables: Mapping[str, Any]) -> torch.nn.Module:

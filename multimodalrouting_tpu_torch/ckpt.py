@@ -16,10 +16,28 @@
 ``train/loop.py:train_model`` writes one such directory, train state
 included, per checkpoint name under its ``ckpt_dir`` (``best``, ``best_f1``,
 ``last``, ``final``); ``final`` carries the fitted temperature and
-thresholds, and ``serve.Predictor`` loads any of them. The JAX package's
-``<dir>/<name>.msgpack`` is the port's ``<dir>/<name>/``. A checkpoint
+thresholds, and ``serve.Predictor`` loads any of them. A checkpoint
 written before train states existed serves, but cannot resume or
 warm-start a run (``restore_train_state`` raises).
+
+The JAX package's checkpoints load too. ``resolve(dir, name)`` finds the
+format on disk, as the JAX ``restore_checkpoint`` does:
+
+- ``<dir>/<name>/`` is the port's directory;
+- ``<dir>/<name>.msgpack`` with ``<dir>/<name>.meta.json`` is the JAX
+  package's: its flax-msgpack train state is read by
+  ``utils/flax_msgpack.py`` (no JAX needed) and mapped by ``bridge.py``; the
+  config, step, temperature and thresholds come from the meta;
+- ``<dir>/<name>.orbax/`` raises ``NotImplementedError``: reading it needs
+  orbax, which imports JAX (ROADMAP.md §1 item 13);
+- anything else raises ``FileNotFoundError``.
+
+Every reader takes ``(dir, name)``, or, with no name, the path
+``<dir>/<name>`` itself. A JAX checkpoint serves its EMA weights where its
+state has them (the weights JAX's ``Predictor`` serves) and its route-loss
+EMA; it resumes with its step, count, moments, EMA and route-loss EMA, and,
+having no loop schedule, starts the schedule afresh at its step, as the JAX
+loop does on every resume.
 
 Given the model's own state_dict, ``load_weights`` converts the BERT layers
 between the layered (``layer_i.*``) and pipeline-parallel (``pp_layers.*``,
@@ -32,13 +50,15 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Any, Dict, Iterable, Optional, Sequence
+from typing import Any, Dict, Iterable, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
 from multimodalrouting_tpu_torch.configs import Config, from_dict, to_dict
+from multimodalrouting_tpu_torch.utils.flax_msgpack import read_msgpack
 
 TRAIN_STATE = "train_state.pt"
+PORT, JAX = "port", "jax"
 
 
 def save_checkpoint(
@@ -71,14 +91,43 @@ def save_checkpoint(
     return ckpt_dir
 
 
-def load_config(ckpt_dir: str) -> Config:
-    with open(os.path.join(ckpt_dir, "config.json")) as f:
-        return from_dict(json.load(f))
+def resolve(ckpt_dir: str, name: Optional[str] = None) -> Tuple[str, str]:
+    """(format, path) of checkpoint `name` in `ckpt_dir` (without a name,
+    `ckpt_dir` is the path ``<dir>/<name>``): (PORT, the directory) or
+    (JAX, the ``.msgpack`` file)."""
+    if name is None:
+        ckpt_dir, name = os.path.split(os.path.normpath(ckpt_dir))
+    base = os.path.join(ckpt_dir, name)
+    if os.path.isdir(base):
+        return PORT, base
+    if os.path.isfile(base + ".msgpack"):
+        if not os.path.isfile(base + ".meta.json"):
+            raise FileNotFoundError(f"{base}.msgpack has no {name}.meta.json beside it (the config is there)")
+        return JAX, base + ".msgpack"
+    if os.path.isdir(base + ".orbax"):
+        raise NotImplementedError(
+            f"{base}.orbax is an orbax checkpoint: reading it needs orbax, which imports JAX, "
+            "so the port cannot read it yet (ROADMAP.md §1 item 13); write msgpack "
+            "(train.ckpt_backend=msgpack) to carry a JAX run into the port"
+        )
+    raise FileNotFoundError(f"no checkpoint {name!r} (a port directory, .msgpack or .orbax) in {ckpt_dir}")
 
 
-def load_meta(ckpt_dir: str) -> Dict[str, Any]:
-    with open(os.path.join(ckpt_dir, "meta.json")) as f:
+def load_meta(ckpt_dir: str, name: Optional[str] = None) -> Dict[str, Any]:
+    """The checkpoint's meta: step, temperature, thresholds (and, in the
+    port's, the route-loss EMA; in the JAX package's, the config)."""
+    fmt, path = resolve(ckpt_dir, name)
+    meta = os.path.join(path, "meta.json") if fmt == PORT else path[: -len(".msgpack")] + ".meta.json"
+    with open(meta) as f:
         return json.load(f)
+
+
+def load_config(ckpt_dir: str, name: Optional[str] = None) -> Config:
+    fmt, path = resolve(ckpt_dir, name)
+    if fmt == JAX:
+        return from_dict(load_meta(ckpt_dir, name)["config"])
+    with open(os.path.join(path, "config.json")) as f:
+        return from_dict(json.load(f))
 
 
 _PP_KEY = "pp_layers.q_kernel"
@@ -102,31 +151,81 @@ def convert_bert_layout(weights: Dict[str, torch.Tensor], target_keys: Iterable[
     return weights
 
 
-def load_weights(ckpt_dir: str, device="cpu", like: Optional[Iterable[str]] = None) -> Dict[str, torch.Tensor]:
-    """The checkpoint's state_dict; with `like` (the model's state_dict or its
-    keys), in the model's BERT layout."""
-    weights = torch.load(os.path.join(ckpt_dir, "weights.pt"), map_location=device, weights_only=True)
-    return weights if like is None else convert_bert_layout(weights, like)
+def _has_pp(tree: Mapping[str, Any]) -> bool:
+    return any(k == "pp_layers" or (isinstance(v, Mapping) and _has_pp(v)) for k, v in tree.items())
 
 
-def restore_train_state(ckpt_dir: str, state, *, params_only: bool = False):
-    """Restore the train state in `ckpt_dir` into `state` (a fresh
-    ``TrainState`` of the run's model), with the JAX package's
-    ``restore_checkpoint`` semantics: a full restore takes step, count,
-    weights, moments and EMA; ``params_only`` the weights, buffers and EMA
-    (stage chaining). Tensors are cast to the state's dtypes, and the BERT
-    layout is converted where the checkpoint and the model disagree, which a
-    full restore refuses (Adam's moments are keyed by the layout)."""
+def _in_jax_layout(params: Mapping[str, Any], like: Mapping[str, torch.Tensor]) -> Mapping[str, torch.Tensor]:
+    """The model's state_dict `like` in the BERT layout the JAX `params`
+    tree holds (the keys, shapes and dtypes ``bridge.py`` maps onto)."""
+    from multimodalrouting_tpu_torch.parallel.pp import from_pp_layout, to_pp_layout
+
+    if _has_pp(params) == any(k.endswith(_PP_KEY) for k in like):
+        return like
+    out = dict(like)
+    for key in sorted(like):
+        if key.endswith(_LAYERED_KEY):
+            out = to_pp_layout(out, key[: -len(_LAYERED_KEY)])
+        elif key.endswith(_PP_KEY):
+            out = from_pp_layout(out, key[: -len(_PP_KEY)])
+    return out
+
+
+def load_serving(
+    ckpt_dir: str, name: Optional[str] = None, *, like: Optional[Iterable[str]] = None, device="cpu",
+) -> Tuple[Dict[str, torch.Tensor], Optional[List[float]]]:
+    """(the serving weights, the route-loss EMA or None). The weights are the
+    checkpoint's state_dict, in the BERT layout of `like` (the model's
+    state_dict or its keys) where given. A JAX checkpoint needs `like` (the
+    model's state_dict) and serves its EMA weights where its state has them."""
+    from multimodalrouting_tpu_torch.bridge import state_dict_from_jax
+
+    fmt, path = resolve(ckpt_dir, name)
+    if fmt == PORT:
+        weights = torch.load(os.path.join(path, "weights.pt"), map_location=device, weights_only=True)
+        rle = load_meta(path).get("route_loss_ema")
+    else:
+        if not isinstance(like, Mapping):
+            raise ValueError("a JAX checkpoint maps onto a model's parameters: pass like=model.state_dict()")
+        tree = read_msgpack(path)
+        weights = state_dict_from_jax(tree, _in_jax_layout(tree["params"], like))
+        weights = {k: v.to(device) for k, v in weights.items()}
+        rle = tree.get("route_loss_ema")
+        rle = None if rle is None else [float(v) for v in rle]
+    return (weights if like is None else convert_bert_layout(weights, like)), rle
+
+
+def load_weights(ckpt_dir: str, name: Optional[str] = None, device="cpu",
+                 like: Optional[Iterable[str]] = None) -> Dict[str, torch.Tensor]:
+    """The checkpoint's serving state_dict (``load_serving``)."""
+    return load_serving(ckpt_dir, name, like=like, device=device)[0]
+
+
+def restore_train_state(ckpt_dir: str, state, *, name: Optional[str] = None, params_only: bool = False):
+    """Restore the train state of checkpoint `name` in `ckpt_dir` (the port's
+    or the JAX package's) into `state` (a fresh ``TrainState`` of the run's
+    model), with the JAX package's ``restore_checkpoint`` semantics: a full
+    restore takes step, count, weights, moments and EMA; ``params_only`` the
+    weights, buffers and EMA (stage chaining). Tensors are cast to the
+    state's dtypes, and the BERT layout is converted where the checkpoint
+    and the model disagree, which a full restore refuses (Adam's moments are
+    keyed by the layout)."""
+    from multimodalrouting_tpu_torch.bridge import train_state_dict_from_jax
     from multimodalrouting_tpu_torch.train.state import load_train_state_dict
 
-    path = os.path.join(ckpt_dir, TRAIN_STATE)
-    if not os.path.exists(path):
-        raise FileNotFoundError(
-            f"{ckpt_dir} holds no {TRAIN_STATE}: it is a serving checkpoint (its weights.pt holds the EMA, "
-            "not the trained parameters and optimizer state), so no run can resume or warm-start from it"
-        )
-    saved = torch.load(path, map_location="cpu", weights_only=True)
+    fmt, path = resolve(ckpt_dir, name)
     target = state.model.state_dict()
+    if fmt == JAX:
+        tree = read_msgpack(path)
+        saved = train_state_dict_from_jax(tree, _in_jax_layout(tree["params"], target))
+    else:
+        ts = os.path.join(path, TRAIN_STATE)
+        if not os.path.exists(ts):
+            raise FileNotFoundError(
+                f"{path} holds no {TRAIN_STATE}: it is a serving checkpoint (its weights.pt holds the EMA, "
+                "not the trained parameters and optimizer state), so no run can resume or warm-start from it"
+            )
+        saved = torch.load(ts, map_location="cpu", weights_only=True)
     model_sd = convert_bert_layout(saved["model"], target)
     if set(model_sd) != set(saved["model"]) and not params_only:
         raise ValueError(

@@ -9,6 +9,8 @@
   python -m multimodalrouting_tpu_torch.cli train --family fame \\
       --stage uni|bi|tri [--init-from DIR]           # train_fame.py curriculum
   python -m multimodalrouting_tpu_torch.cli train --family late_fusion|trimf
+  python -m multimodalrouting_tpu_torch.cli train --task pheno --routes 10 \\
+      --config configs/pheno_atten_mult.yaml         # PhenoModel attention family
   python -m multimodalrouting_tpu_torch.cli train ... --resume runs/capsule --epochs 12
   python -m multimodalrouting_tpu_torch.cli eval --ckpt runs/capsule --drop-table [--family F]
   python -m multimodalrouting_tpu_torch.cli predict --ckpt runs/capsule --split test [--family F]
@@ -22,19 +24,21 @@ choices, plus ``--device {cuda,cpu}`` on ``train``, ``eval`` and ``predict``
 (default ``cuda``; the JAX package picks its device by ``JAX_PLATFORMS``).
 Without a card, ``--device cuda`` raises; nothing falls back to the CPU.
 
-Checkpoints: the JAX package writes ``<dir>/<name>.msgpack``; the port writes
-the directory ``<dir>/<name>/`` (``config.json``, ``meta.json``,
-``weights.pt``, ``train_state.pt``; ``ckpt.py``), so ``--ckpt DIR --name
-NAME`` reads ``DIR/NAME/``, ``--resume DIR`` reads ``DIR/last/`` and
-``--init-from DIR`` reads ``DIR/<--init-name>/``.
+Checkpoints: the port writes the directory ``<dir>/<name>/`` (``config.json``,
+``meta.json``, ``weights.pt``, ``train_state.pt``; ``ckpt.py``); the JAX
+package writes ``<dir>/<name>.msgpack`` with ``<dir>/<name>.meta.json``.
+``--ckpt DIR --name NAME``, ``--resume DIR`` (name ``last``) and
+``--init-from DIR --init-name NAME`` read either (``ckpt.resolve``), so a
+run trained with the JAX package serves, evaluates and resumes here; an
+orbax checkpoint (``<dir>/<name>.orbax/``) raises.
 
 What the port does not have yet raises ``NotImplementedError`` naming its
 ROADMAP.md item, and never runs another path in its place: the ``unimodal``,
-``etl`` and ``interpret`` subcommands, the capsule family's per-route MulT
-branch (``--routes 10`` with ``model.bi_fusion_mode=mult``), ``--artifact``
-/ ``--export-artifact``, a real cohort (``data.data_root`` with
-``data.synthetic=false``), the frozen-BERT text cache, device meshes and
-multi-host runs.
+``etl`` and ``interpret`` subcommands, ``--artifact`` /
+``--export-artifact``, a real cohort (``data.data_root`` with
+``data.synthetic=false``), device meshes and multi-host runs.
+``encoder.text_embedding_cache=true`` runs the frozen BERT body once per
+split (``train/text_cache.py``) in ``train`` and ``eval``.
 
 Config resolution is the JAX package's: defaults <- --config file <-
 MIMICIV_* env vars <- --set key=value overrides.
@@ -72,10 +76,6 @@ def _check_cfg(cfg, family: str) -> None:
     """Refuse the configurations the port does not run."""
     if not (cfg.data.synthetic or not cfg.data.data_root):
         raise _not_ported(f"the real-cohort loaders (data.data_root={cfg.data.data_root!r})", "10")
-    if family == "capsule" and cfg.model.routes == "10" and cfg.model.bi_fusion_mode == "mult":
-        raise _not_ported("model.bi_fusion_mode=mult (the per-route MulT family, models/route_mult.py)", "6")
-    if cfg.encoder.text_embedding_cache:
-        raise _not_ported("encoder.text_embedding_cache (the frozen-BERT text cache)", "3")
     if cfg.train.num_data_shards * cfg.train.num_model_shards > 1:
         raise _not_ported("a multi-device --mesh", "12")
 
@@ -157,10 +157,10 @@ def cmd_train(args) -> int:
         # chaining (weights and EMA, fresh optimizer)
         state = create_train_state(cfg, model, stage=stage, n_route_loss_ema=n_route_loss_ema_for(cfg, family))
         if args.resume:
-            state = restore_train_state(os.path.join(args.resume, "last"), state)
+            state = restore_train_state(args.resume, state, name="last")
             print(f"[resume] {args.resume}/last at step {state.step}")
         else:
-            state = restore_train_state(os.path.join(args.init_from, args.init_name), state, params_only=True)
+            state = restore_train_state(args.init_from, state, name=args.init_name, params_only=True)
 
     with trace_context(args.profile_dir, cuda=args.device == "cuda"):
         result = train_model(cfg, model, train_b, val_b, family=family, stage=stage, state=state,
@@ -196,9 +196,9 @@ def cmd_eval(args) -> int:
     from multimodalrouting_tpu_torch.train.loop import predict_probs
     from multimodalrouting_tpu_torch.train.state import create_train_state, n_route_loss_ema_for
     from multimodalrouting_tpu_torch.train.steps import loss_family, make_eval_step
+    from multimodalrouting_tpu_torch.train.text_cache import attach_note_cache
 
-    ckpt = os.path.join(args.ckpt, args.name)
-    cfg = load_config(ckpt)
+    cfg = load_config(args.ckpt, args.name)
     _check_cfg(cfg, args.family)
     _, _, test_b = _load_data(cfg, cfg.model.task)
     model = build_model(cfg, args.family, device=args.device)
@@ -206,14 +206,18 @@ def cmd_eval(args) -> int:
     # eval reads the weights, their EMA and the route-loss EMA, not the
     # optimizer: a checkpoint of any curriculum stage evaluates
     state = create_train_state(cfg, model, n_route_loss_ema=n_route_loss_ema_for(cfg, family))
-    state = restore_train_state(ckpt, state, params_only=True)
+    state = restore_train_state(args.ckpt, state, name=args.name, params_only=True)
+    if cfg.encoder.text_embedding_cache and not cfg.encoder.finetune_text:
+        # one BERT pass over the split: every batch after it, each drop-table
+        # condition too (they act on the has_* flags only), skips the body
+        test_b = attach_note_cache(cfg, model, test_b)
     eval_step = make_eval_step(cfg, model, family)
     bs = cfg.train.batch_size
     probs, alpha, r_matrix = predict_probs(eval_step, state, test_b, bs, cfg.model.task)
     y = np.asarray(test_b.y)[: len(probs)]
 
     # apply the validation-fitted temperature and thresholds saved with the checkpoint
-    meta = load_meta(ckpt)
+    meta = load_meta(args.ckpt, args.name)
     temperature = float(meta.get("temperature", 1.0) or 1.0)
     probs = calibrate_probs(probs, temperature)
     thresholds = meta.get("thresholds")
@@ -265,9 +269,8 @@ def cmd_predict(args) -> int:
         raise _not_ported("the serving artifact (--artifact / --export-artifact)", "11")
     if not args.ckpt:
         raise SystemExit("one of --ckpt or --artifact is required")
-    ckpt = os.path.join(args.ckpt, args.name)
-    _check_cfg(load_config(ckpt), args.family)
-    pred = Predictor(ckpt, args.family, batch_size=args.batch_size, device=args.device)
+    _check_cfg(load_config(args.ckpt, args.name), args.family)
+    pred = Predictor(args.ckpt, args.family, name=args.name, batch_size=args.batch_size, device=args.device)
 
     if args.port is not None:
         server = make_http_server(pred, port=args.port)

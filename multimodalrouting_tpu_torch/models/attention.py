@@ -95,7 +95,7 @@ def attention(
     kh: torch.Tensor,  # [N, Tk, D]
     vh: torch.Tensor,
     kv_mask: Optional[torch.Tensor],  # [N, Tk], 1 = keep
-    attn_bias: Optional[torch.Tensor],  # [Tq, Tk] additive
+    attn_bias: Optional[torch.Tensor],  # [Tq, Tk] or [N, Tq, Tk] additive
     num_heads: int,
     *,
     frozen_fast_path: bool,
@@ -124,7 +124,8 @@ def attention(
         return kernel(q4, k4, v4, kv_mask).to(dtype).reshape(n, tq, d)
     logits = torch.einsum("bqhd,bkhd->bhqk", q4, k4).float()
     if attn_bias is not None:
-        logits = logits + attn_bias.to(device=logits.device, dtype=torch.float32)[None, None]
+        bias = attn_bias.to(device=logits.device, dtype=torch.float32)
+        logits = logits + (bias[:, None] if bias.dim() == 3 else bias)
     if kv_mask is not None:
         keep = kv_mask.bool()[:, None, None, :]
         logits = torch.where(keep, logits, torch.full_like(logits, NEG_INF))

@@ -9,8 +9,8 @@ runs under ``torch.no_grad`` and every attention layer is eligible for the
 packed kernel K1. Fine-tuned (``finetune_text``), the body trains through
 K1 and its backward K2 where the shape allows, with ``encoder.dropout``
 after the embeddings, the attention and the FFN in training (a
-``generator`` passed). A ``chunk_embs`` input (precomputed per-chunk
-embeddings) skips the body.
+``generator`` passed). A ``chunk_embs`` input (per-chunk embeddings before
+the projection, precomputed by ``train/text_cache.py``) skips the body.
 
 Chunk packing (``note_pack`` > 0, the capacity the train loop computes,
 ``train/loop.py:note_pack_bucket``): BERT sees only the valid chunks,
@@ -158,15 +158,19 @@ class BioClinBERTEncoder(nn.Module):
             # valid chunks first (stable), then the capacity's padded slots
             pack_idx = torch.argsort(-chunk_mask.reshape(b * s), stable=True)[:note_pack]
             flat_ids, flat_attn = flat_ids[pack_idx], flat_attn[pack_idx]
-        with torch.set_grad_enabled(self.finetune_text and torch.is_grad_enabled()):
-            hidden = self.bert(flat_ids, flat_attn, generator)  # [B*S or note_pack, L, H]
-            if self.note_agg == "cls":
-                emb = hidden[:, 0]
-            elif self.note_agg == "max":
-                emb = masked_max(hidden, flat_attn)
-            else:
-                emb = masked_mean(hidden, flat_attn)
+        emb = self.chunk_embeddings(flat_ids, flat_attn, generator)
         return self._project_and_pool(emb, chunk_mask, b, s, pack_idx)
+
+    def chunk_embeddings(self, flat_ids: torch.Tensor, flat_attn: torch.Tensor, generator=None) -> torch.Tensor:
+        """The per-chunk BERT embedding before the projection, [N, hidden]
+        for chunks [N, L] (what ``train/text_cache.py`` caches)."""
+        with torch.set_grad_enabled(self.finetune_text and torch.is_grad_enabled()):
+            hidden = self.bert(flat_ids, flat_attn, generator)  # [N, L, H]
+            if self.note_agg == "cls":
+                return hidden[:, 0]
+            if self.note_agg == "max":
+                return masked_max(hidden, flat_attn)
+            return masked_mean(hidden, flat_attn)
 
     def _project_and_pool(self, emb, chunk_mask, b, s, pack_idx=None):
         if not self.finetune_text:

@@ -1,9 +1,11 @@
 """The model families: encoders -> routes -> routing -> heads (counterpart
 of multimodalrouting_tpu/models/full.py).
 
-- ``CapsuleRoutingModel``: the flagship, 10 MulT routes (``MULTRouter``) or
-  7 fused routes (``SevenRouteFusion``) -> projector -> priors ->
-  ``CapsuleHead`` (K3);
+- ``CapsuleRoutingModel``: the flagship, 10 MulT routes (``MULTRouter``),
+  10 per-route MulT stacks (``PerRouteMulTFusion``, ``model.bi_fusion_mode=
+  mult``: the PhenoModel attention family) or 7 fused routes
+  (``SevenRouteFusion``) -> projector -> priors -> ``CapsuleHead`` (K3 in
+  softmax_out mode; the sigmoid gate runs the plain program);
 - ``GatedConcatModel``: 7 routes -> per-route heads and gates (uniform,
   learned or loss_based) -> ``FinalConcatHead``; at the curriculum stages
   step1 / step2 the output is the stage's mean route logit;
@@ -34,6 +36,7 @@ from multimodalrouting_tpu_torch.models.clinbert import BioClinBERTEncoder
 from multimodalrouting_tpu_torch.models.cxr import ImageEncoder, normalize_pixels
 from multimodalrouting_tpu_torch.models.fusions import SevenRouteFusion
 from multimodalrouting_tpu_torch.models.mult import MULTRouter
+from multimodalrouting_tpu_torch.models.route_mult import PerRouteMulTFusion
 from multimodalrouting_tpu_torch.routes import ROUTES_7, get_routes, route_mask_from_presence
 from multimodalrouting_tpu_torch.routing.capsule_head import CapsuleHead, RoutePrimaryProjector, compose_priors
 from multimodalrouting_tpu_torch.routing.gates import (
@@ -139,23 +142,26 @@ def seven_route_fusion(cfg: Config, dtype) -> SevenRouteFusion:
 
 
 class CapsuleRoutingModel(nn.Module):
-    """Flagship: TriEncoder -> MULTRouter (10 routes) or SevenRouteFusion
-    (7 routes) -> projector -> priors -> CapsuleHead."""
+    """Flagship: TriEncoder -> MULTRouter (10 routes), PerRouteMulTFusion
+    (10 routes, bi_fusion_mode=mult) or SevenRouteFusion (7 routes) ->
+    projector -> priors -> CapsuleHead."""
 
     def __init__(self, cfg: Config):
         super().__init__()
         m = cfg.model
-        if m.routes == "10" and m.bi_fusion_mode == "mult":
-            raise NotImplementedError(
-                "the per-route MulT family (bi_fusion_mode=mult, models/route_mult.py) is not ported yet "
-                "(ROADMAP.md, modules still to port)"
-            )
         self.cfg = cfg
         dtype = compute_dtype(cfg)
         self.routes = get_routes(m.routes)
         self.encoders = TriEncoder(cfg, dtype)
         d_enc = cfg.encoder.d
-        if m.routes == "10":
+        self.per_route_mult = m.routes == "10" and m.bi_fusion_mode == "mult"
+        if self.per_route_mult:
+            self.route_mult = PerRouteMulTFusion(
+                d=m.d, n_heads=m.mult_heads, layers=m.cross_attn_layers, attn_mask=m.cross_attn_mask,
+                positions=m.mult_positions, dtype=dtype, attn_dropout=m.attn_dropout,
+                relu_dropout=m.relu_dropout, res_dropout=m.res_dropout, embed_dropout=m.embed_dropout,
+            )
+        elif m.routes == "10":
             self.mult = MULTRouter(
                 d_enc, d_enc, d_enc, d=m.d, num_heads=m.mult_heads, layers=m.mult_layers,
                 self_layers=m.mult_self_layers, attn_mask=m.attn_mask, pool=m.mult_pool,
@@ -198,7 +204,12 @@ class CapsuleRoutingModel(nn.Module):
         enc = self.encoders(batch, train, gen, note_pack)
         if route_mask is None:
             route_mask = route_mask_from_presence(batch.has_l, batch.has_n, batch.has_i, self.routes)
-        if m.routes == "10":
+        if self.per_route_mult:
+            route_embs = self.route_mult(
+                enc.l_seq, enc.l_mask, enc.l_pool, enc.n_seq, enc.n_mask, enc.n_pool,
+                enc.i_seq, enc.i_mask, enc.i_pool, generator=gen,
+            )
+        elif m.routes == "10":
             route_embs = self.mult(enc.l_seq, enc.n_seq, enc.i_seq, enc.l_mask, enc.n_mask, enc.i_mask, generator=gen)
         else:
             route_embs = self.fusion(enc.l_pool, enc.n_pool, enc.i_pool, gen)

@@ -5,7 +5,10 @@ The JAX package vmaps G parameter-independent MulT stacks into one program.
 Here the G streams are one module whose parameters carry the same leading
 [G] axis: projections are batched matmuls over the stream axis, and the
 attention core runs on the flattened [G*B] batch through the shared dispatch
-point. Per stream: inputs scaled by sqrt(d) plus sinusoidal positions,
+point. Per stream: inputs scaled by sqrt(d) plus sinusoidal positions
+(unless ``use_positional`` is off), an additive attention bias given by the
+caller (shared, or one per stream: JAX ``StackedCrossMulTBias``) in place
+of the causal mask,
 pre-LN layers whose query LayerNorm is reused on cross keys/values, rows
 under the query mask zeroed after every block, ReLU FFN of width 4d, final
 LayerNorm. In training (a ``generator`` passed) the MulT dropouts run at
@@ -48,9 +51,12 @@ class StackedMultiheadAttention(nn.Module):
             setattr(self, name, StackedDense(g, d, d, dtype))
 
     def forward(self, q, k, v, kv_mask=None, attn_bias=None, generator=None):
-        """q [G,B,Tq,d], k/v [G,B,Tk,d], kv_mask [G,B,Tk]."""
+        """q [G,B,Tq,d], k/v [G,B,Tk,d], kv_mask [G,B,Tk]; attn_bias
+        additive, [Tq,Tk] for every stream or [G,Tq,Tk] per stream."""
         g, b, tq, d = q.shape
         tk = k.shape[2]
+        if attn_bias is not None and attn_bias.dim() == 3:  # per stream -> per row of the [G*B] batch
+            attn_bias = attn_bias[:, None].expand(g, b, tq, tk).reshape(g * b, tq, tk)
         qh = self.q_proj(q) * (d // self.num_heads) ** -0.5
         out = attention(
             qh.reshape(g * b, tq, d),
@@ -74,7 +80,7 @@ class StackedMulTEncoderLayer(nn.Module):
         self.fc1 = StackedDense(g, d, 4 * d, dtype)
         self.fc2 = StackedDense(g, 4 * d, d, dtype)
 
-    def forward(self, x, x_k=None, x_v=None, q_mask=None, kv_mask=None, generator=None):
+    def forward(self, x, x_k=None, x_v=None, q_mask=None, kv_mask=None, generator=None, attn_bias=None):
         q_keep = None if q_mask is None else q_mask.to(x.dtype)[..., None]
         cross = x_k is not None
         key_mask = kv_mask if cross else q_mask
@@ -87,7 +93,12 @@ class StackedMulTEncoderLayer(nn.Module):
             k, v = self.ln0(x_k), self.ln0(x_v)  # the query block's LN, reused
         else:
             k = v = h
-        bias = future_mask(h.shape[-2], k.shape[-2]) if self.causal else None
+        # an explicit bias (route_mult.py's native-length causal offsets on
+        # a padded grid) overrides the shape-derived one
+        if attn_bias is not None:
+            bias = attn_bias
+        else:
+            bias = future_mask(h.shape[-2], k.shape[-2]) if self.causal else None
         h = self.attn(h, k, v, kv_mask=key_mask, attn_bias=bias, generator=generator)
         x = residual + dropout(h, self.res_dropout, generator)
         if q_keep is not None:
@@ -109,10 +120,11 @@ class StackedMulTEncoder(nn.Module):
 
     def __init__(self, g: int, d: int, num_heads: int, layers: int, causal: bool = False,
                  positions: str = "sinusoidal", dtype=torch.float32, attn_dropout: float = 0.0,
-                 relu_dropout: float = 0.0, res_dropout: float = 0.0, embed_dropout: float = 0.0):
+                 relu_dropout: float = 0.0, res_dropout: float = 0.0, embed_dropout: float = 0.0,
+                 use_positional: bool = True):
         super().__init__()
         self.d, self.layers, self.dtype, self.positions = d, layers, dtype, positions
-        self.embed_dropout = embed_dropout
+        self.embed_dropout, self.use_positional = embed_dropout, use_positional
         for i in range(layers):
             self.add_module(
                 f"layer_{i}",
@@ -122,10 +134,15 @@ class StackedMulTEncoder(nn.Module):
 
     def _embed(self, seq, generator):
         h = (math.sqrt(self.d) * seq.float()).to(self.dtype)
-        pos = sinusoidal_positions(seq.shape[-2], self.d, dtype=self.dtype, quantized=self.positions == "ref_quantized")
-        return dropout(h + pos.to(h.device), self.embed_dropout, generator)
+        if self.use_positional:
+            pos = sinusoidal_positions(seq.shape[-2], self.d, dtype=self.dtype,
+                                       quantized=self.positions == "ref_quantized")
+            h = h + pos.to(h.device)
+        return dropout(h, self.embed_dropout, generator)
 
-    def forward(self, x_in, x_in_k=None, x_in_v=None, q_mask=None, kv_mask=None, generator=None):
+    def forward(self, x_in, x_in_k=None, x_in_v=None, q_mask=None, kv_mask=None, generator=None, attn_bias=None):
+        """attn_bias: an additive [Tq,Tk] or per-stream [G,Tq,Tk] bias in
+        place of the causal mask (JAX StackedCrossMulTBias)."""
         x = self._embed(x_in, generator)
         if q_mask is not None:
             x = x * q_mask.to(x.dtype)[..., None]
@@ -134,7 +151,8 @@ class StackedMulTEncoder(nn.Module):
         x_v = self._embed(x_in_v, generator) if cross else None
         for i in range(self.layers):
             x = getattr(self, f"layer_{i}")(
-                x, x_k, x_v, q_mask=q_mask, kv_mask=kv_mask if cross else q_mask, generator=generator
+                x, x_k, x_v, q_mask=q_mask, kv_mask=kv_mask if cross else q_mask, generator=generator,
+                attn_bias=attn_bias,
             )
         x = self.final_ln(x)
         if q_mask is not None:

@@ -6,20 +6,22 @@ contract).
   ``batch_from_records`` pads or crops them to the checkpoint's static
   shapes and derives the ``has_*`` presence flags from what each record
   carries (missing modalities are zeroed and masked, never imputed).
-- ``Predictor`` loads a port checkpoint (``ckpt.py``) of any family onto
-  the card (or the CPU when asked) and applies the checkpoint's temperature
+- ``Predictor`` loads a checkpoint of any family, the port's or the JAX
+  package's (``ckpt.py``; JAX's ``name=``), onto the card (or the CPU when
+  asked) and applies the checkpoint's temperature
   and per-label thresholds to every prediction. Rows carry what the family
   exposes: the capsule family's route audit (alpha [R], R-matrix [R, K],
   top routes); the other families' rows carry probabilities and decisions
   only (their routes are the 7). Under the loss-based sMRO gate the forward
-  takes the route-loss EMA the checkpoint's meta carries (zeros where it
-  carries none). Requests are scored in slices of at most ``batch_size``
+  takes the route-loss EMA the checkpoint carries (zeros where it carries
+  none). Requests are scored in slices of at most ``batch_size``
   rows; eager PyTorch needs no padding to a static batch.
 - ``make_http_server``: POST /predict, GET /health.
 """
 from __future__ import annotations
 
 import json
+import os
 import threading
 from typing import Dict, List, Optional, Sequence
 
@@ -175,14 +177,21 @@ def rows_from_output(out: Dict[str, np.ndarray], n: int, routes: Sequence[str], 
 class Predictor:
     """Load a port checkpoint once; serve calibrated predictions + route audit."""
 
-    def __init__(self, ckpt_dir: str, family: str = "capsule", *, batch_size: Optional[int] = None, device="cuda"):
-        from multimodalrouting_tpu_torch.ckpt import load_config, load_meta, load_weights
+    def __init__(self, ckpt_dir: str, family: str = "capsule", *, name: Optional[str] = None,
+                 batch_size: Optional[int] = None, device="cuda"):
+        """Checkpoint `name` in `ckpt_dir`, in the port's format or the JAX
+        package's (``ckpt.resolve``). Without a name, `ckpt_dir` is the
+        checkpoint's own path (``<dir>/<name>``) where it is a port checkpoint
+        directory or no directory at all, else JAX's default name, ``final``."""
+        from multimodalrouting_tpu_torch.ckpt import load_config, load_meta, load_serving
         from multimodalrouting_tpu_torch.models.full import build_model
         from multimodalrouting_tpu_torch.routes import get_routes
         from multimodalrouting_tpu_torch.train.state import n_route_loss_ema_for
         from multimodalrouting_tpu_torch.train.steps import loss_family
 
-        cfg = load_config(ckpt_dir)
+        if name is None and os.path.isdir(ckpt_dir) and not os.path.isfile(os.path.join(ckpt_dir, "config.json")):
+            name = "final"
+        cfg = load_config(ckpt_dir, name)
         self.cfg = cfg
         self.family = family
         self.batch_size = int(batch_size or cfg.train.batch_size)
@@ -190,8 +199,9 @@ class Predictor:
         self.ckpt_dir = ckpt_dir
         self.model = build_model(cfg, family, device=device)
         self.device = next(self.model.parameters()).device
-        self.model.load_state_dict(load_weights(ckpt_dir, like=self.model.state_dict()))
-        meta = load_meta(ckpt_dir)
+        weights, rle = load_serving(ckpt_dir, name, like=self.model.state_dict())
+        self.model.load_state_dict(weights)
+        meta = load_meta(ckpt_dir, name)
         self.temperature = float(meta.get("temperature", 1.0) or 1.0)
         th = meta.get("thresholds")
         self.thresholds = np.asarray(th, np.float64) if th else None
@@ -199,7 +209,7 @@ class Predictor:
         n_ema = n_route_loss_ema_for(cfg, loss_family(family))
         self.route_loss_ema = None
         if n_ema:
-            self.route_loss_ema = torch.tensor(meta.get("route_loss_ema") or [0.0] * n_ema, device=self.device)
+            self.route_loss_ema = torch.tensor(rle or [0.0] * n_ema, device=self.device)
         self._lock = threading.Lock()  # one request at a time on the device
 
     def forward(self, batch: Batch):

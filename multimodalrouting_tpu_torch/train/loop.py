@@ -22,9 +22,13 @@ and the dropout generator's states, the LR scale, the plateau count and the
 best values), so that one epoch and a resume to two give the same state as
 two epochs without a break.
 
-Not ported: meshes, streaming splits and the frozen-BERT embedding cache
-(ROADMAP.md §1 items 12, 10 and 3); they raise, as do background
-checkpoint saves (``train.ckpt_backend=orbax_async``, item 13).
+With ``encoder.text_embedding_cache`` the frozen BERT body runs once over
+each split after the state exists (``train/text_cache.py``), and every
+step and evaluation starts from the cached chunk embeddings.
+
+Not ported: meshes and streaming splits (ROADMAP.md §1 items 12 and 10);
+they raise, as do background checkpoint saves
+(``train.ckpt_backend=orbax_async``, item 13).
 """
 from __future__ import annotations
 
@@ -53,6 +57,7 @@ from multimodalrouting_tpu_torch.train.state import (
     train_state_dict,
 )
 from multimodalrouting_tpu_torch.train.steps import make_eval_step, make_train_step
+from multimodalrouting_tpu_torch.train.text_cache import attach_note_cache
 
 
 def weighted_sample_order(y: np.ndarray, rng: np.random.Generator, mode: str = "sqrt") -> np.ndarray:
@@ -144,10 +149,14 @@ def train_model(
         if t.pipeline_parallel:  # the JAX package's checks and messages first
             validate_pp(cfg, t.num_model_shards)
         raise NotImplementedError("device meshes are not ported yet (ROADMAP.md §1 item 12)")
-    if hasattr(train_cohort, "epoch_iter"):
+    streaming = hasattr(train_cohort, "epoch_iter")
+    if cfg.encoder.text_embedding_cache and streaming:  # the JAX package's check and message first
+        raise ValueError(
+            "encoder.text_embedding_cache needs a dense split; "
+            "unset data.stream (streaming re-draws batches every epoch)"
+        )
+    if streaming:
         raise NotImplementedError("streaming splits are not ported yet (ROADMAP.md §1 item 10)")
-    if cfg.encoder.text_embedding_cache:
-        raise NotImplementedError("the frozen-BERT embedding cache is not ported yet (ROADMAP.md §1 item 3)")
     if ckpt_dir and t.ckpt_backend == "orbax_async":
         raise NotImplementedError("background checkpoint saves are not ported yet (ROADMAP.md §1 item 13)")
     rng = np.random.default_rng(t.seed)
@@ -155,6 +164,14 @@ def train_model(
     generator = torch.Generator(device=dev).manual_seed(t.seed)
     if state is None:
         state = create_train_state(cfg, model, stage=stage, n_route_loss_ema=n_route_loss_ema_for(cfg, family))
+    if cfg.encoder.text_embedding_cache:
+        # the frozen BERT body once over each split; every step and
+        # evaluation then starts from the cached chunk embeddings
+        t0 = time.perf_counter()
+        train_cohort = attach_note_cache(cfg, model, train_cohort)
+        val_cohort = attach_note_cache(cfg, model, val_cohort)
+        log_fn(f"[text-cache] frozen-BERT chunk embeddings precomputed for "
+               f"{train_cohort.batch_size}+{val_cohort.batch_size} stays in {time.perf_counter() - t0:.1f}s")
     staged = (family == "fame" and stage in ("uni", "bi", "tri")) or (
         family == "gated_concat" and stage in ("step1", "step2", "step3"))
     train_step = make_train_step(cfg, model, family, **({"stage": stage} if staged else {}))

@@ -10,6 +10,7 @@ import glob
 import io
 import json
 import os
+import shutil
 
 import jax
 import numpy as np
@@ -199,14 +200,15 @@ def test_resume_from_a_serving_checkpoint_raises(two_epochs, tmp_path):
             train(str(tmp_path / "out"), "--epochs", "1", flag, str(old))
 
 
+PHENO_ATTEN_MULT = os.path.join(os.path.dirname(__file__), "..", "configs", "pheno_atten_mult.yaml")
+
+
 @pytest.mark.parametrize("argv, item", [
-    (["train", "--set", "model.bi_fusion_mode=mult"], "item 6"),
-    (["train", "--config", os.path.join(os.path.dirname(__file__), "..", "configs", "pheno_atten_mult.yaml")],
-     "item 6"),
-    (["train", "--stage", "step1", "--set", "model.bi_fusion_mode=mult"], "item 6"),
     (["train", "--mesh", "data=2"], "item 12"),
-    (["train", "--set", "encoder.text_embedding_cache=true"], "item 3"),
     (["train", "--set", "data.synthetic=false", "--set", "data.data_root=/nonexistent"], "item 10"),
+    (["train", "--set", "train.ckpt_backend=orbax_async"], "item 13"),
+    (["eval", "--ckpt", "ORBAX"], "item 13"),
+    (["predict", "--ckpt", "ORBAX"], "item 13"),
     (["predict", "--artifact", "x", "--family", "trimf"], "item 11"),
     (["predict", "--artifact", "x"], "item 11"),
     (["predict", "--ckpt", "x", "--export-artifact", "y"], "item 11"),
@@ -217,8 +219,28 @@ def test_resume_from_a_serving_checkpoint_raises(two_epochs, tmp_path):
 def test_unported_options_raise_naming_their_roadmap_item(argv, item, tmp_path):
     if argv[0] == "train":
         argv = [*argv, "--device", "cpu", "--out", str(tmp_path), *_sets()]
+    if "ORBAX" in argv:  # a JAX orbax checkpoint: reading it needs orbax, which imports JAX
+        os.makedirs(tmp_path / "final.orbax")
+        argv = [str(tmp_path) if a == "ORBAX" else a for a in argv] + ["--device", "cpu"]
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md §1 {item}"):
         tcli.main(argv)
+
+
+@pytest.mark.parametrize("argv", [
+    ["--set", "model.bi_fusion_mode=mult"],
+    ["--config", PHENO_ATTEN_MULT],
+    ["--stage", "step1", "--set", "model.bi_fusion_mode=mult"],
+    ["--set", "encoder.text_embedding_cache=true"],
+])
+def test_formerly_unported_options_now_run(argv, tmp_path):
+    """The per-route MulT family (ROADMAP.md §1 item 6) and the frozen-BERT
+    text cache (item 3) train for an epoch."""
+    rc, text = run(tcli.main, ["train", *argv, "--epochs", "1", "--device", "cpu", "--out", str(tmp_path),
+                               *_sets(**{"train.ckpt_every": 0})])
+    summary = json.loads(text.strip().splitlines()[-1])
+    assert rc == 0 and summary["epochs_ran"] == 1 and np.isfinite(summary["best_val_auroc"])
+    assert ("[text-cache]" in text) == ("encoder.text_embedding_cache=true" in argv)
+    shutil.rmtree(tmp_path / "final")  # ~0.2 GB of train state: keep the suite's disk small
 
 
 def test_a_multi_host_environment_raises(monkeypatch, tmp_path):

@@ -6,6 +6,7 @@ non-capsule family; LateFusion and TriMF; the 7-route capsule head; and the
 options that still raise."""
 import json
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -166,8 +167,24 @@ def test_seven_route_capsule_train_and_eval(tmp_path):
     assert "LNI" in json.dumps(audit) and "NL" not in json.dumps(audit)
 
 
+def test_per_route_mult_train_eval_predict(tmp_path):
+    """configs/pheno_atten_mult.yaml (the per-route MulT family, 25
+    phenotypes, the sigmoid gate): train, eval with the drop table, predict
+    with the 10-route audit."""
+    out = str(tmp_path / "atten")
+    yaml = os.path.join(os.path.dirname(__file__), "..", "configs", "pheno_atten_mult.yaml")
+    summary = train("capsule", out, "--task", "pheno", "--routes", "10", "--config", yaml)
+    assert summary["epochs_ran"] == 1 and load_config(os.path.join(out, "final")).model.bi_fusion_mode == "mult"
+    rc, text = run(tcli.main, ["eval", "--ckpt", out, "--drop-table", "--device", "cpu"])
+    assert rc == 0 and "dropN" in text
+    rc, _ = run(tcli.main, ["predict", "--ckpt", out, "--device", "cpu"])
+    with open(os.path.join(out, "predictions_test.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    assert rc == 0 and len(rows[0]["probs"]) == 25 and len(rows[0]["top_routes"]) == 3
+    shutil.rmtree(out)  # ~0.2 GB of train state: keep the suite's disk small
+
+
 @pytest.mark.parametrize("argv, item", [
-    (["train", "--routes", "10", "--set", "model.bi_fusion_mode=mult"], "item 6"),
     (["unimodal"], "item 8"),
     (["predict", "--artifact", "x", "--family", "fame"], "item 11"),
 ])

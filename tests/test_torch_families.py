@@ -35,12 +35,9 @@ from multimodalrouting_tpu.models.baselines import build_baseline as jbuild_base
 from multimodalrouting_tpu.models.full import build_model as jbuild_model
 from multimodalrouting_tpu.routes import get_routes as jget_routes
 from multimodalrouting_tpu.routes import route_mask_from_presence as jroute_mask
-from multimodalrouting_tpu.train.state import create_train_state as jcreate_train_state
-from multimodalrouting_tpu.train.state import n_route_loss_ema_for as jn_route_loss_ema_for
 from multimodalrouting_tpu.train.state import trainable_mask_for_stage
-from multimodalrouting_tpu.train.steps import make_train_step as jmake_train_step
 from multimodalrouting_tpu_torch import configs as tc
-from multimodalrouting_tpu_torch.bridge import _param_key, load_jax_variables, train_state_from_jax
+from multimodalrouting_tpu_torch.bridge import _param_key, load_jax_variables
 from multimodalrouting_tpu_torch.ckpt import restore_train_state, save_checkpoint
 from multimodalrouting_tpu_torch.models.full import build_model
 from multimodalrouting_tpu_torch.routing.smro import loss_based_route_weights
@@ -53,13 +50,11 @@ from multimodalrouting_tpu_torch.train.state import (
 from multimodalrouting_tpu_torch.train.steps import make_eval_step, make_train_step
 from tests.helpers import TINY, tiny_batch
 from tests.torch_parity import (  # noqa: F401 (one_torch_thread: a fixture)
-    O0,
-    RTOL_STEPS,
     assert_close,
-    assert_same_weights,
-    compiled,
+    assert_step,
+    jax_forwards,
     one_torch_thread,
-    seeded_like,
+    seeded_variables,
     to_numpy,
     torch_batch,
 )
@@ -68,7 +63,6 @@ pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 FAMILY = {**TINY, "model.fusion_dropout": 0.0, "model.smro_dropout": 0.0, "encoder.text_max_len": 16,
           "encoder.image_size": 32}
-LR = 2e-3
 
 
 def cfgs(**extra):
@@ -78,11 +72,6 @@ def cfgs(**extra):
 
 def jax_model(cfg, family):
     return jbuild_baseline(cfg, family) if family in ("late_fusion", "trimf") else jbuild_model(cfg, family)
-
-
-def seeded_variables(model, batch, seed: int):
-    """The model's variables at init's shapes (``seeded_like``)."""
-    return seeded_like(jax.eval_shape(lambda b: model.init(jax.random.PRNGKey(0), b, train=False), batch), seed)
 
 
 @functools.lru_cache(maxsize=None)
@@ -102,18 +91,6 @@ def case(family: str, **extra):
     model_extra = {k: v for k, v in sorted(extra.items()) if not k.startswith("train.")}
     model, variables, batch = _model_case(family, **model_extra)
     return (*cfgs(**extra), model, variables, batch)
-
-
-def jax_forwards(model, variables, batch, calls):
-    """The JAX model's eval outputs under each kwargs dict of `calls`, as
-    one program compiled without LLVM's expensive passes (eager JAX compiles
-    every op's shape on first use: several times slower here)."""
-    jb = jax.tree_util.tree_map(jnp.asarray, batch)
-
-    def run(v, b):
-        return [model.apply(v, b, train=False, **kw) for kw in calls]
-
-    return compiled(run, variables, jb)
 
 
 def port_model(tcfg, family, variables, train=False):
@@ -229,45 +206,6 @@ def test_trainable_set_matches_jax(family, stage, finetune):
 
 
 # --- train steps ------------------------------------------------------------------
-
-def jax_step(jcfg, model, variables, family, batch, stage="", **step_kw):
-    """One JAX train step from `variables` -> (initial state as numpy,
-    metrics, state after)."""
-    # a fresh state (the step donates it; `variables` is shared), made by one
-    # compiled program: eagerly, optax's init compiles op by op
-    state = compiled(lambda v: jcreate_train_state(jcfg, model, v, stage=stage,
-                                                   n_route_loss_ema=jn_route_loss_ema_for(jcfg, family)), variables)
-    if state.route_loss_ema is not None:
-        state = state.replace(route_loss_ema=jnp.asarray(step_kw.pop("ema")))
-    init = to_numpy({"params": state.params, "batch_stats": state.batch_stats, "ema_params": state.ema_params,
-                     "opt_state": state.opt_state, "step": state.step, "route_loss_ema": state.route_loss_ema})
-    step = jmake_train_step(jcfg, model, family, **({"stage": stage} if stage else {}))
-    args = (state, jax.tree_util.tree_map(jnp.asarray, batch), jax.random.PRNGKey(0), jnp.asarray(LR),
-            jnp.asarray(LR / 2))
-    new_state, metrics = step.lower(*args).compile(compiler_options=O0)(*args)
-    return init, metrics, new_state
-
-
-def port_step(tcfg, family, model_family, init, batch, stage=""):
-    model = build_model(tcfg, model_family, device="cpu", train=True)
-    state = train_state_from_jax(tcfg, model, init, stage=stage)
-    step = make_train_step(tcfg, model, family, **({"stage": stage} if stage else {}))
-    metrics = step(state, torch_batch(batch), None, LR, LR / 2)
-    assert metrics.grad_finite
-    return model, state, metrics
-
-
-def assert_step(tcfg, family, model_family, jcfg_model_vars, batch, stage="", **step_kw):
-    jcfg, model, variables = jcfg_model_vars
-    init, jmetrics, jstate = jax_step(jcfg, model, variables, family, batch, stage=stage, **step_kw)
-    tmodel, state, metrics = port_step(tcfg, family, model_family, init, batch, stage=stage)
-    np.testing.assert_allclose(float(metrics.loss), float(jmetrics.loss), rtol=RTOL_STEPS)
-    np.testing.assert_allclose(float(metrics.reg_loss), float(jmetrics.reg_loss), rtol=RTOL_STEPS, atol=1e-7)
-    assert_same_weights(tmodel, state, jstate)
-    if jmetrics.gates_mean is not None:
-        assert_close(metrics.gates_mean, jmetrics.gates_mean)
-    return init, tmodel, state, jstate
-
 
 def test_gated_step2_matches_jax():
     jcfg, tcfg, model, variables, batch = case("gated_concat")

@@ -67,9 +67,18 @@ def test_train_model_two_epochs_writes_servable_checkpoints(tmp_path, monkeypatc
     assert len(rows) == 2 and all(0.0 <= row["probs"] <= 1.0 and len(row["top_routes"]) == 3 for row in rows)
 
 
-@pytest.mark.parametrize(
-    "over", [{"train.num_data_shards": 2}, {"encoder.text_embedding_cache": True}],
-)
+def test_train_model_runs_the_text_cache():
+    """encoder.text_embedding_cache: the BERT body runs once per split, the
+    steps from the cache (tests/test_torch_text_cache.py holds it against
+    the JAX package)."""
+    cfg = tc.apply_overrides(tc.Config(), {**LOOP, "encoder.text_embedding_cache": True, "train.epochs": 1})
+    logs = []
+    result = tloop.train_model(cfg, build_model(cfg, device="cpu", train=True), tiny_batch(8), tiny_batch(4),
+                               log_fn=logs.append)
+    assert any(line.startswith("[text-cache]") for line in logs) and np.isfinite(result.history[0]["train_loss"])
+
+
+@pytest.mark.parametrize("over", [{"train.num_data_shards": 2}])
 def test_train_model_refuses_what_is_not_ported(over):
     cfg = tc.apply_overrides(tc.Config(), {**LOOP, **over})
     with pytest.raises(NotImplementedError, match="ROADMAP"):

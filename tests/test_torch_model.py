@@ -275,9 +275,20 @@ def test_entry_points_default_to_cuda():
 @pytest.mark.parametrize(
     "over",
     [{"model.routes": "10", "model.bi_fusion_mode": "mult", "model.task": "pheno", "model.num_classes": 25},
-     {"model.bi_fusion_mode": "mult"}, {"encoder.vision_backbone": "densenet121"},
-     {"encoder.int8_text": True}],
+     {"model.bi_fusion_mode": "mult"}],
 )
+def test_per_route_mult_branch_builds(over):
+    """The 10-route per-route MulT branch (models/route_mult.py) builds and
+    serves every route."""
+    _, tcfg = _cfgs(**over)
+    model = build_model(tcfg, device="cpu")
+    with torch.no_grad():
+        out = model(torch_batch(tiny_batch(n=3, seed=1, task=tcfg.model.task)))
+    assert sorted(out.route_embs) == sorted(troutes.get_routes("10")) and tuple(out.alpha.shape) == (3, 10)
+    assert tuple(out.logits.shape) == (3, tcfg.model.num_classes)
+
+
+@pytest.mark.parametrize("over", [{"encoder.vision_backbone": "densenet121"}, {"encoder.int8_text": True}])
 def test_unported_branches_raise(over):
     _, tcfg = _cfgs(**over)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -294,7 +305,8 @@ def test_bridge_checks_coverage(served):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    banned = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|multimodalrouting_tpu)(\.|\s|$)", re.M)
+    banned = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|orbax|msgpack|ml_dtypes|multimodalrouting_tpu)(\.|\s|$)",
+                        re.M)
     sources = glob.glob(os.path.join(PKG, "**", "*.py"), recursive=True) + [os.path.join(ROOT, "chip_smoke.py")]
     for path in sources:
         with open(path) as f:
@@ -307,5 +319,6 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     code = "import json, sys\n" + "".join(f"import {m}\n" for m in modules) + "print(json.dumps(sorted(sys.modules)))"
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, check=True)
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
-    bad = [m for m in loaded if m.split(".")[0] in ("jax", "flax", "optax", "multimodalrouting_tpu")]
+    bad = [m for m in loaded if m.split(".")[0] in ("jax", "flax", "optax", "orbax", "msgpack", "ml_dtypes",
+                                                     "multimodalrouting_tpu")]
     assert not bad, bad

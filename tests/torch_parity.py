@@ -13,6 +13,7 @@ from multimodalrouting_tpu.data.synthetic import make_synthetic_cohort
 from multimodalrouting_tpu.models.full import build_model as jbuild_model
 from multimodalrouting_tpu.train.loop import note_pack_bucket as jnote_pack_bucket
 from multimodalrouting_tpu.train.state import create_train_state as jcreate_train_state
+from multimodalrouting_tpu.train.state import n_route_loss_ema_for as jn_route_loss_ema_for
 from multimodalrouting_tpu.train.steps import make_train_step as jmake_train_step
 from multimodalrouting_tpu_torch import configs as tc
 from multimodalrouting_tpu_torch.bridge import state_dict_from_jax, train_state_from_jax
@@ -187,3 +188,65 @@ def assert_same_weights(model, state, jstate):
         errors = relative_errors(got, want)
         worst = max(errors, key=errors.get)
         assert errors[worst] <= RTOL_STEPS, f"{name}: {worst} off by {errors[worst]:.3e} in relative norm"
+
+
+# --- one family step or forward from eval_shape weights (tests/test_torch_families.py,
+# tests/test_torch_route_mult.py) ---------------------------------------------
+
+STEP_LR = 2e-3
+
+
+def seeded_variables(model, batch, seed: int):
+    """The model's variables at init's shapes (``seeded_like``)."""
+    return seeded_like(jax.eval_shape(lambda b: model.init(jax.random.PRNGKey(0), b, train=False), batch), seed)
+
+
+def jax_forwards(model, variables, batch, calls):
+    """The JAX model's eval outputs under each kwargs dict of `calls`, as
+    one program compiled without LLVM's expensive passes (eager JAX compiles
+    every op's shape on first use: several times slower here)."""
+    jb = jax.tree_util.tree_map(jnp.asarray, batch)
+
+    def run(v, b):
+        return [model.apply(v, b, train=False, **kw) for kw in calls]
+
+    return compiled(run, variables, jb)
+
+
+def jax_step(jcfg, model, variables, family, batch, stage="", **step_kw):
+    """One JAX train step from `variables` -> (initial state as numpy,
+    metrics, state after)."""
+    # a fresh state (the step donates it; `variables` is shared), made by one
+    # compiled program: eagerly, optax's init compiles op by op
+    state = compiled(lambda v: jcreate_train_state(jcfg, model, v, stage=stage,
+                                                   n_route_loss_ema=jn_route_loss_ema_for(jcfg, family)), variables)
+    if state.route_loss_ema is not None:
+        state = state.replace(route_loss_ema=jnp.asarray(step_kw.pop("ema")))
+    init = to_numpy({"params": state.params, "batch_stats": state.batch_stats, "ema_params": state.ema_params,
+                     "opt_state": state.opt_state, "step": state.step, "route_loss_ema": state.route_loss_ema})
+    step = jmake_train_step(jcfg, model, family, **({"stage": stage} if stage else {}))
+    args = (state, jax.tree_util.tree_map(jnp.asarray, batch), jax.random.PRNGKey(0), jnp.asarray(STEP_LR),
+            jnp.asarray(STEP_LR / 2))
+    new_state, metrics = step.lower(*args).compile(compiler_options=O0)(*args)
+    return init, metrics, new_state
+
+
+def port_step(tcfg, family, model_family, init, batch, stage=""):
+    model = build_model(tcfg, model_family, device="cpu", train=True)
+    state = train_state_from_jax(tcfg, model, init, stage=stage)
+    step = make_train_step(tcfg, model, family, **({"stage": stage} if stage else {}))
+    metrics = step(state, torch_batch(batch), None, STEP_LR, STEP_LR / 2)
+    assert metrics.grad_finite
+    return model, state, metrics
+
+
+def assert_step(tcfg, family, model_family, jcfg_model_vars, batch, stage="", **step_kw):
+    jcfg, model, variables = jcfg_model_vars
+    init, jmetrics, jstate = jax_step(jcfg, model, variables, family, batch, stage=stage, **step_kw)
+    tmodel, state, metrics = port_step(tcfg, family, model_family, init, batch, stage=stage)
+    np.testing.assert_allclose(float(metrics.loss), float(jmetrics.loss), rtol=RTOL_STEPS)
+    np.testing.assert_allclose(float(metrics.reg_loss), float(jmetrics.reg_loss), rtol=RTOL_STEPS, atol=1e-7)
+    assert_same_weights(tmodel, state, jstate)
+    if jmetrics.gates_mean is not None:
+        assert_close(metrics.gates_mean, jmetrics.gates_mean)
+    return init, tmodel, state, jstate
