@@ -103,7 +103,23 @@ toolkit. It
    to the port checkpoint (K1 = 12, K3 = 1), `cli eval --ckpt DIR --name`,
    and one `cli train --resume` step from each, bit-identical and continuing
    the step counter;
-17. prints a {"kernels": [...]} line (each kernel with its launches on its
+17. the flagship on DenseNet-121 (encoder.vision_backbone=densenet121) at
+   full width: a checkpoint served at 1 and 16 records against fp32 on the
+   CPU (K1 = 12, K3 = 1 per forward) with its batch-16 profile and peak
+   memory, one frozen and one fine-tuned step (K2 = 12), each committing new
+   running statistics in all 121 BatchNorms and timed, and a batch-16
+   forward under vision_norm=group;
+18. pretrained encoder weights: a seeded BERT-base HF state_dict and a
+   torchvision densenet121 one, torch.save()d, spliced by train_model into
+   the DenseNet flagship on a fresh init (the weights, BatchNorm statistics
+   and EMA equal to the files after the cast, bit for bit; both
+   [pretrained] lines), and not again by `cli train --init-from`;
+19. the unimodal trainers: the wide BEHRT on the stratified multitask split
+   and on readmission (focal loss), the note trainer at full width (K1 = 12
+   per embedding minibatch, none in the fit; the embedding pass timed), the
+   OMOP and CT trainers, and `cli unimodal` for all four modalities, each
+   writing finite metrics and fairness reports;
+20. prints a {"kernels": [...]} line (each kernel with its launches on its
    own path and on every path), the card's name and power limit, and the
    {"ok": true, "device": ...} line last.
 
@@ -135,6 +151,7 @@ from multimodalrouting_tpu_torch.ckpt import load_config, load_meta, save_checkp
 from multimodalrouting_tpu_torch.configs import apply_overrides, load_cfg, to_dict
 from multimodalrouting_tpu_torch.data.batches import batch_to
 from multimodalrouting_tpu_torch.data.synthetic import make_synthetic_cohort
+from multimodalrouting_tpu_torch.models.cxr import BatchNorm
 from multimodalrouting_tpu_torch.models.full import build_model
 from multimodalrouting_tpu_torch.ops import hopper
 from multimodalrouting_tpu_torch.ops import flash
@@ -2155,6 +2172,364 @@ def phase_jax_ckpt(dev, tmp: str) -> dict:
     return out
 
 
+# --- DenseNet-121, pretrained encoder weights (F3), the unimodal trainers -----
+
+DENSENET = {"encoder.vision_backbone": "densenet121"}
+
+
+def densenet_step(cfg, dev, label: str, steps: int = 3) -> dict:
+    """One training step of the DenseNet flagship at batch 16 with the launch
+    counters read around it (K1 = 12, K3 = 1, and K2 = 12 with fine-tuned
+    notes), every one of the 121 BatchNorms committing new running
+    statistics; then `steps` timed steps, the peak memory and one step's
+    profile. -> launches."""
+    torch.manual_seed(SEED)
+    model = build_model(cfg, device="cuda", train=True)
+    state = create_train_state(cfg, model)
+    cohort = full_width_cohort(cfg, cfg.train.batch_size, SEED + 11)
+    cap = note_pack_bucket(cfg, cohort)
+    batch = batch_to(cohort, dev)
+    step = make_train_step(cfg, model)
+    gen = torch.Generator(device=dev).manual_seed(cfg.train.seed)
+    bns = {name: mod for name, mod in model.named_modules() if isinstance(mod, BatchNorm)}
+    before = {n: (m.running_mean.clone(), m.running_var.clone()) for n, m in bns.items()}
+    torch.cuda.synchronize()
+    reset_counts()
+    m = step(state, batch, gen, cfg.train.lr, cfg.train.lr, note_pack=cap)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    log(f"[densenet] {label} step: loss={float(m.loss):.5f} launches {launches}")
+    require(np.isfinite(float(m.loss)) and m.grad_finite, f"densenet {label} step: non-finite loss or gradient")
+    finetune = cfg.encoder.finetune_text
+    expect = expected(packed_attention=12, packed_attention_bwd=12 if finetune else 0, capsule_routing=1)
+    require(launches == expect, f"densenet {label} step launches {launches}, expected {expect}")
+    stale = [n for n, mod in bns.items()
+             if torch.equal(mod.running_mean, before[n][0]) or torch.equal(mod.running_var, before[n][1])]
+    require(len(bns) == 121 and not stale, f"densenet {label}: {len(bns)} BatchNorms, stale statistics in {stale[:4]}")
+    torch.cuda.reset_peak_memory_stats()
+    ms = timed_steps(step, state, batch, gen, cap, warmup=1, steps=steps)
+    log(f"[densenet] {label} step at batch 16 (1 warm-up, {steps} timed): step_ms={ms:.1f} "
+        f"stays_per_s={cfg.train.batch_size * 1e3 / ms:.2f} "
+        f"peak_memory_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}; "
+        f"all {len(bns)} BatchNorms committed new running statistics")
+    profile_step(lambda: step(state, batch, gen, cfg.train.lr, cfg.train.lr, note_pack=cap),
+                 f"one densenet {label} training step", top=10)
+    del model, state, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_densenet(dev, tmp: str) -> dict:
+    """The flagship on DenseNet-121 (encoder.vision_backbone=densenet121,
+    MedFuse's default CXR backbone) at full width: a seeded checkpoint
+    served at 1 and 16 records against fp32 on the CPU with its batch-16
+    profile and peak memory (serve_family: K1 = 12, K3 = 1 per forward), one
+    frozen and one fine-tuned step (densenet_step: K2 = 12 on the second;
+    every BatchNorm commits new statistics; step times), and one batch-16
+    forward under encoder.vision_norm=group. -> {path: launches}."""
+    t0 = time.perf_counter()
+    cfg = flagship_cfg(**DENSENET)
+    out = {"serving_densenet": serve_family("densenet", "capsule", cfg, tmp),
+           "train_densenet_frozen": densenet_step(cfg, dev, "frozen"),
+           "train_densenet_finetune": densenet_step(flagship_cfg(**DENSENET, **{"encoder.finetune_text": True}),
+                                                    dev, "fine-tuned")}
+    group = flagship_cfg(**DENSENET, **{"encoder.vision_norm": "group"})
+    ckpt = os.path.join(tmp, "densenet_group")
+    family_checkpoint(ckpt, group, "capsule")
+    predictor = Predictor(ckpt, device="cuda")
+    records = serving_records(group)
+    predictor.predict_records(records[:2])
+    torch.cuda.synchronize()
+    reset_counts()
+    rows = predictor.predict_records(records)
+    torch.cuda.synchronize()
+    out["serving_densenet_group"] = read_counts()
+    check_rows("densenet group batch16", rows, 16)
+    require(out["serving_densenet_group"] == expected(packed_attention=12, capsule_routing=1),
+            f"densenet group serving launches {out['serving_densenet_group']}")
+    log(f"[densenet] vision_norm=group: batch-16 forward served, launches {out['serving_densenet_group']}")
+    del predictor
+    torch.cuda.empty_cache()
+    shutil.rmtree(ckpt)
+    log(f"[densenet] phase done in {time.perf_counter() - t0:.1f}s")
+    return out
+
+
+def hf_bert_state_dict(e, seed: int) -> dict:
+    """A seeded state_dict in HF BertModel's layout at the encoder's dims,
+    the pooler included (nothing is downloaded)."""
+    g = torch.Generator().manual_seed(seed)
+    h, i = e.bert_hidden, e.bert_intermediate
+
+    def rnd(*shape, scale: float = 0.02):
+        return torch.randn(shape, generator=g) * scale
+
+    sd = {"embeddings.word_embeddings.weight": rnd(e.bert_vocab_size, h),
+          "embeddings.position_embeddings.weight": rnd(e.bert_max_position, h),
+          "embeddings.token_type_embeddings.weight": rnd(e.bert_type_vocab, h),
+          "embeddings.LayerNorm.weight": 1 + rnd(h, scale=0.1), "embeddings.LayerNorm.bias": rnd(h)}
+    for layer in range(e.bert_layers):
+        p = f"encoder.layer.{layer}"
+        for name, (d_out, d_in) in {"attention.self.query": (h, h), "attention.self.key": (h, h),
+                                    "attention.self.value": (h, h), "attention.output.dense": (h, h),
+                                    "intermediate.dense": (i, h), "output.dense": (h, i)}.items():
+            sd[f"{p}.{name}.weight"], sd[f"{p}.{name}.bias"] = rnd(d_out, d_in), rnd(d_out)
+        for name in ("attention.output.LayerNorm", "output.LayerNorm"):
+            sd[f"{p}.{name}.weight"], sd[f"{p}.{name}.bias"] = 1 + rnd(h, scale=0.1), rnd(h)
+    sd["pooler.dense.weight"], sd["pooler.dense.bias"] = rnd(h, h), rnd(h)
+    return sd
+
+
+def torchvision_densenet121_state_dict(seed: int) -> dict:
+    """A seeded state_dict in torchvision's densenet121 layout (its key names
+    and shapes, the classifier and num_batches_tracked included)."""
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+
+    def conv(name, c_out, c_in, k):
+        sd[f"{name}.weight"] = torch.randn(c_out, c_in, k, k, generator=g) * (2.0 / (c_in * k * k)) ** 0.5
+
+    def bn(name, c):
+        sd[f"{name}.weight"] = 1 + 0.1 * torch.randn(c, generator=g)
+        sd[f"{name}.bias"] = 0.1 * torch.randn(c, generator=g)
+        sd[f"{name}.running_mean"] = 0.1 * torch.randn(c, generator=g)
+        sd[f"{name}.running_var"] = 0.5 + torch.rand(c, generator=g)
+        sd[f"{name}.num_batches_tracked"] = torch.tensor(0)
+
+    conv("features.conv0", 64, 3, 7)
+    bn("features.norm0", 64)
+    c = 64
+    for i, n_layers in enumerate((6, 12, 24, 16), start=1):
+        for j in range(1, n_layers + 1):
+            base = f"features.denseblock{i}.denselayer{j}"
+            bn(f"{base}.norm1", c)
+            conv(f"{base}.conv1", 128, c, 1)
+            bn(f"{base}.norm2", 128)
+            conv(f"{base}.conv2", 32, 128, 3)
+            c += 32
+        if i < 4:
+            bn(f"features.transition{i}.norm", c)
+            conv(f"features.transition{i}.conv", c // 2, c, 1)
+            c //= 2
+    bn("features.norm5", c)
+    sd["classifier.weight"], sd["classifier.bias"] = 0.01 * torch.randn(1000, c, generator=g), torch.zeros(1000)
+    return sd
+
+
+def phase_pretrained(dev, tmp: str) -> dict:
+    """encoder.bert_weights / encoder.vision_weights on the card (fault F3):
+    a seeded BERT-base HF BertModel state_dict and a torchvision densenet121
+    one, torch.save()d; train_model over 32 + 16 stays of the DenseNet
+    flagship with both keys set, the model and EMA captured as the train
+    state is created: the BERT weights (held in bf16 under the frozen-text
+    default), the DenseNet weights and BatchNorm statistics must equal the
+    files after the cast bit for bit, and the EMA too; both [pretrained] log
+    lines. Then `cli train --init-from` that run's checkpoint with both keys
+    still set must not apply them again. -> {path: launches}."""
+    import multimodalrouting_tpu_torch.train.loop as loop_mod
+    from multimodalrouting_tpu_torch.models.clinbert import import_hf_bert_params
+    from multimodalrouting_tpu_torch.models.cxr import import_torchvision_backbone_params
+
+    t0 = time.perf_counter()
+    e = flagship_cfg(**DENSENET).encoder
+    bert_sd, tv_sd = hf_bert_state_dict(e, SEED), torchvision_densenet121_state_dict(SEED + 1)
+    bert_path, vision_path = os.path.join(tmp, "bio_clinicalbert.pt"), os.path.join(tmp, "densenet121.pt")
+    torch.save(bert_sd, bert_path)
+    torch.save(tv_sd, vision_path)
+    log(f"[pretrained] wrote {bert_path} ({os.path.getsize(bert_path)} bytes) and {vision_path} "
+        f"({os.path.getsize(vision_path)} bytes) in {time.perf_counter() - t0:.1f}s")
+    keys = (f"encoder.bert_weights={bert_path}", f"encoder.vision_weights={vision_path}")
+    cfg = flagship_cfg(**DENSENET, **{"encoder.bert_weights": bert_path, "encoder.vision_weights": vision_path,
+                                      "train.epochs": 1, "train.min_epochs": 0, "train.ckpt_every": 0})
+    snap, lines = {}, []
+    create = loop_mod.create_train_state
+
+    def capture(cfg_, model_, **kw):
+        state = create(cfg_, model_, **kw)
+        snap["model"] = {k: v.detach().clone() for k, v in model_.state_dict().items()}
+        snap["ema"] = {k: v.clone() for k, v in state.ema.items()}
+        return state
+
+    def log_line(line: str) -> None:
+        lines.append(line)
+        log(line)
+
+    run_dir = os.path.join(tmp, "pretrained_run")
+    loop_mod.create_train_state = capture
+    try:
+        torch.manual_seed(SEED)
+        model = build_model(cfg, device="cuda", train=True)
+        torch.cuda.synchronize()
+        reset_counts()
+        t1 = time.perf_counter()
+        result = train_model(cfg, model, full_width_cohort(cfg, 32, SEED + 12), full_width_cohort(cfg, 16, SEED + 13),
+                             log_fn=log_line, ckpt_dir=run_dir)
+        torch.cuda.synchronize()
+    finally:
+        loop_mod.create_train_state = create
+    out = {"train_pretrained": read_counts()}
+    log(f"[pretrained] train_model: {len(result.history)} epoch in {time.perf_counter() - t1:.1f}s, "
+        f"launches {out['train_pretrained']}")
+    require(f"[pretrained] note encoder <- {bert_path}" in lines
+            and f"[pretrained] vision backbone <- {vision_path}" in lines, "train_model logged no [pretrained] lines")
+    # 2 frozen steps, the epoch's validation forward and the calibration forward
+    require(out["train_pretrained"] == expected(packed_attention=4 * e.bert_layers, capsule_routing=4),
+            f"train_model launches {out['train_pretrained']}")
+    want = {f"encoders.bbert.bert.{k}": v for k, v in import_hf_bert_params(bert_sd, e.bert_layers).items()}
+    want.update({f"encoders.imgenc.backbone.{k}": v
+                 for k, v in import_torchvision_backbone_params(tv_sd, "densenet121").items()})
+    got = snap["model"]
+    differ = [k for k, v in want.items() if not torch.equal(got[k].cpu(), v.to(got[k].dtype))]
+    in_ema = [k for k in want if k in snap["ema"]]
+    ema_differ = [k for k in in_ema if not torch.equal(snap["ema"][k].cpu(), want[k].to(snap["ema"][k].dtype))]
+    backbone_params = [k for k in want if k.startswith("encoders.imgenc.") and not k.endswith(("running_mean",
+                                                                                                "running_var"))]
+    dtypes = sorted({str(got[k].dtype) for k in want if k.startswith("encoders.bbert.")})
+    log(f"[pretrained] at init: {len(want)} tensors compared bit for bit ({len(want) - len(backbone_params)} BERT "
+        f"in {dtypes} and BatchNorm statistics, {len(backbone_params)} DenseNet parameters), {len(differ)} differ; "
+        f"EMA: {len(in_ema)} tensors, {len(ema_differ)} differ")
+    require(not differ, f"weights at init differ from the files: {differ[:4]}")
+    require(sorted(in_ema) == sorted(backbone_params) and not ema_differ, f"the EMA at init differs: {ema_differ[:4]}")
+    del model, result, snap
+    torch.cuda.empty_cache()
+
+    dst = os.path.join(tmp, "cli_pretrained")
+    yaml = os.path.join(ROOT, "configs", "trimodal_mort.yaml")
+    cli_lines, launches = run_cli(["train", "--family", "capsule", "--task", "mort", "--routes", "10", "--config", yaml,
+                                   "--out", dst, "--epochs", "1", "--device", "cuda", "--init-from", run_dir,
+                                   *set_args(*CLI_ONCE, "encoder.vision_backbone=densenet121", *keys)])
+    require(not any("[pretrained]" in line for line in cli_lines), "cli train --init-from applied the files again")
+    require(launches["capsule_routing"] > 0 and launches["packed_attention"] == 0, f"cli launches {launches}")
+    out["cli_init_from_pretrained"] = launches
+    shutil.rmtree(run_dir)
+    shutil.rmtree(dst)
+    log(f"[pretrained] phase done in {time.perf_counter() - t0:.1f}s")
+    return out
+
+
+def unimodal_reports(label: str, out_dir: str, tasks) -> None:
+    """unimodal_metrics.json and fairness.json: every task, finite losses,
+    AUROCs and EDDIs."""
+    with open(os.path.join(out_dir, "unimodal_metrics.json")) as f:
+        metrics = json.load(f)
+    with open(os.path.join(out_dir, "fairness.json")) as f:
+        fair = json.load(f)
+    numbers = [h[k] for h in metrics["history"] for k in ("train_loss", "val_loss")]
+    numbers += [metrics["metrics"][t]["auroc"] for t in tasks]
+    numbers += [fair[t]["combined_eddi"] for t in tasks]
+    numbers += [fair[t]["attributes"]["sens"]["eddi_overall"] for t in tasks]
+    require(metrics["tasks"] == list(tasks) and sorted(fair) == sorted(tasks) and bool(np.isfinite(numbers).all()),
+            f"{label}: bad reports {metrics['tasks']}, {sorted(fair)}, {numbers}")
+    log(f"[unimodal] {label}: " + ", ".join(f"{t} AUROC {metrics['metrics'][t]['auroc']:.4f}" for t in tasks)
+        + f"; {len(metrics['history'])} epochs, last val loss {metrics['history'][-1]['val_loss']:.4f}")
+
+
+def phase_unimodal(dev, tmp: str) -> dict:
+    """The unimodal trainers on the card, each writing its reports:
+    train_unimodal on behrt / multitask (the stratified re-split) and behrt /
+    readmit (the focal loss), two epochs each; the note trainer at full width
+    (BERT-base over 8 x 512 chunks, 64 + 32 + 32 stays, batch 16), then its
+    encoder's build and its embedding pass, each timed alone: K1 = 12 per
+    minibatch, 96 in all, in the trainer and in the pass (the fit launches
+    none); train_omop and train_ct on the CLI's synthetic cohorts; then `cli unimodal` in-process
+    for all four modalities at the CLI's shapes (notes clipped to 128
+    tokens), no kernel launched. -> {path: launches}."""
+    from multimodalrouting_tpu_torch.data.batches import concat_batches, take_batch
+    from multimodalrouting_tpu_torch.data.stratified import stratified_three_way
+    from multimodalrouting_tpu_torch.train import unimodal as uni
+
+    t0 = time.perf_counter()
+    cfg = flagship_cfg(**{"train.epochs": 2, "train.batch_size": 16})
+    e, t = cfg.encoder, cfg.train
+    out = {}
+    for label, task in (("behrt_multitask", "multitask"), ("behrt_readmit", "readmit")):
+        splits = [make_synthetic_cohort(n, t=e.structured_seq_len, f=e.structured_n_feats, s=2, l=16, image_size=32,
+                                        vocab_size=e.bert_vocab_size, seed=SEED + 20 + i, task=task)
+                  for i, n in enumerate((64, 32, 32))]
+        if task == "multitask":
+            pooled = concat_batches(splits)
+            splits = [take_batch(pooled, idx) for idx in stratified_three_way(np.asarray(pooled.y), seed=t.seed)]
+        dst = os.path.join(tmp, f"uni_{label}")
+        torch.cuda.synchronize()
+        reset_counts()
+        res = uni.train_unimodal(cfg, *splits, modality="behrt", task=task, out_dir=dst, log_fn=log, device="cuda")
+        torch.cuda.synchronize()
+        out[f"unimodal_{label}"] = read_counts()
+        require(len(res.history) == 2 and out[f"unimodal_{label}"] == expected(),
+                f"{label}: {len(res.history)} epochs, launches {out[f'unimodal_{label}']}")
+        unimodal_reports(label, dst, list(res.metrics))
+
+    notes = [full_width_cohort(cfg, n, SEED + 30 + i) for i, n in enumerate((64, 32, 32))]
+    minibatches = sum(-(-b.batch_size // t.batch_size) for b in notes)
+    stays = sum(b.batch_size for b in notes)
+    dst = os.path.join(tmp, "uni_note")
+    torch.cuda.synchronize()
+    reset_counts()
+    res = uni.train_unimodal(cfg, *notes, modality="note", out_dir=dst, log_fn=log, device="cuda")
+    torch.cuda.synchronize()
+    out["unimodal_note"] = read_counts()
+    unimodal_reports("note", dst, list(res.metrics))
+    # the embedding pass alone: all of the trainer's K1 launches, so the fit made none.
+    # The encoder's build (a CPU init under the seed, then the copy to the card)
+    # is timed apart from the pass.
+    t1 = time.perf_counter()
+    enc = uni._note_encoder(cfg, t.seed, "cuda")
+    torch.cuda.synchronize()
+    build_secs = time.perf_counter() - t1
+    reset_counts()
+    t1 = time.perf_counter()
+    embs = uni._embed_notes(enc, notes, t.batch_size)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t1
+    out["unimodal_note_embeddings"] = read_counts()
+    del enc
+    log(f"[unimodal] full-width note embeddings: {stays} stays in {minibatches} minibatches of {t.batch_size} x "
+        f"{e.notes_max_chunks} x {e.text_max_len} tokens in {secs:.3f}s, {stays / secs:.1f} stays/s, launches "
+        f"{out['unimodal_note_embeddings']}; the encoder's build apart {build_secs:.3f}s; "
+        f"the whole trainer {out['unimodal_note']}")
+    k1 = expected(packed_attention=e.bert_layers * minibatches)
+    require(out["unimodal_note_embeddings"] == k1 and out["unimodal_note"] == k1,
+            f"note trainer launches {out['unimodal_note']}, its embedding pass {out['unimodal_note_embeddings']}: "
+            f"expected K1 = {e.bert_layers * minibatches} in the pass and none in the fit")
+    require([x.shape for x in embs] == [(b.batch_size, e.d) for b in notes]
+            and all(np.isfinite(x).all() for x in embs), "bad note embeddings")
+    del notes, embs
+
+    for label, split, train in (("omop", port_cli.synthetic_omop_split, uni.train_omop),
+                                ("ct", port_cli.synthetic_ct_split, uni.train_ct)):
+        dst = os.path.join(tmp, f"uni_{label}")
+        kw = {"vocab_sizes": (64, 48, 56)} if label == "omop" else {"backbone": e.vision_backbone}
+        torch.cuda.synchronize()
+        reset_counts()
+        t1 = time.perf_counter()
+        res = train(port_cli.synthetic_splits(cfg, split), hidden=cfg.model.d, lr=t.lr,
+                    weight_decay=t.weight_decay, batch_size=t.batch_size, epochs=t.epochs,
+                    patience=t.early_stop_patience, seed=t.seed, out_dir=dst, log_fn=log, device="cuda", **kw)
+        torch.cuda.synchronize()
+        out[f"unimodal_{label}"] = read_counts()
+        log(f"[unimodal] {label}: {len(res.history)} epochs in {time.perf_counter() - t1:.1f}s")
+        require(out[f"unimodal_{label}"] == expected(), f"{label} launches {out[f'unimodal_{label}']}")
+        unimodal_reports(label, dst, list(res.metrics))
+
+    yaml = os.path.join(ROOT, "configs", "trimodal_mort.yaml")
+    for modality, extra in (("behrt", ["--task", "multitask"]), ("behrt", ["--task", "readmit"]), ("note", []),
+                            ("omop", []), ("ct", [])):
+        dst = os.path.join(tmp, f"cli_uni_{modality}{''.join(extra[1:])}")
+        lines, launches = run_cli(["unimodal", "--modality", modality, *extra, "--config", yaml, "--out", dst,
+                                   "--epochs", "2", "--device", "cuda",
+                                   *set_args(f"data.synthetic_n={CLI_N}", f"train.batch_size={CLI_BATCH}")])
+        summary = json.loads(lines[-1])
+        require(sorted(summary) == ["auroc", "modality", "out_dir", "tasks"] and summary["modality"] == modality
+                and all(np.isfinite(summary["auroc"][k]) for k in summary["tasks"]) and launches == expected(),
+                f"cli unimodal {modality} {extra}: {summary}, launches {launches}")
+        require(("[stratify] multilabel-stratified split" in " ".join(lines)) == ("multitask" in extra),
+                f"cli unimodal {modality} {extra}: stratification")
+        unimodal_reports(f"cli {modality} {' '.join(extra)}".strip(), dst, summary["tasks"])
+        out[f"cli_unimodal_{modality}{''.join(extra[1:])}"] = launches
+    log(f"[unimodal] phase done in {time.perf_counter() - t0:.1f}s")
+    return out
+
+
 def ptxas_report() -> None:
     """Print each library's ptxas lines (the kernel each group of lines is
     for, its registers, spills and any warning) and fail if an instance of
@@ -2212,6 +2587,9 @@ def main() -> int:
         by_path.update(phase_route_mult(dev, tmp))
         by_path.update(phase_text_cache(dev, tmp))
         by_path.update(phase_jax_ckpt(dev, tmp))
+        by_path.update(phase_densenet(dev, tmp))
+        by_path.update(phase_pretrained(dev, tmp))
+        by_path.update(phase_unimodal(dev, tmp))
     for k in kernels:  # each kernel's own main path: the path this slice or an earlier one brought it up on
         k["launches"] = by_path[MAIN_PATH[k["name"]]][k["name"]]
         k["launches_by_path"] = {path: counts.get(k["name"], 0) for path, counts in by_path.items()}

@@ -13,6 +13,12 @@ flax leaf path maps onto a state_dict key mechanically:
 - BatchNorm ``batch_stats`` ``mean`` / ``var`` become ``running_mean`` /
   ``running_var``.
 
+The same holds for DenseNet-121 (``backbone.block1_layer0.bn1``,
+``backbone.transition1_conv``, ``backbone.bn_final``) and the unimodal
+trainers' models (``behrt``, ``head_{task}``, ``ln`` / ``fc1`` / ``fc2``; the
+OMOP and CT wrappers' ``omop.proc_emb`` and ``ct.backbone``, as the JAX
+trainers' adapters name them).
+
 Every key of the target state_dict must be filled exactly once, with its
 shape; values are cast to the target's dtype (the frozen BERT body is held
 in bf16 under bf16 compute, as the JAX train state holds it). When the JAX

@@ -14,14 +14,18 @@
   python -m multimodalrouting_tpu_torch.cli train ... --resume runs/capsule --epochs 12
   python -m multimodalrouting_tpu_torch.cli eval --ckpt runs/capsule --drop-table [--family F]
   python -m multimodalrouting_tpu_torch.cli predict --ckpt runs/capsule --split test [--family F]
+  python -m multimodalrouting_tpu_torch.cli unimodal --modality behrt|note|omop|ct \\
+      [--task multitask|readmit] [--stratify auto|on|off]   # 01_BEHRT.py, 02_BEHRT.py,
+                                     # 01_BioClinicalBert.py, INSPECT's OMOP and CT trainers
 
 The baselines (late_fusion, trimf) train under the fame loss family, and
 ``eval`` writes the route heatmap tables only for a family with alpha and an
 R-matrix (the capsule family), as the JAX CLI does.
 
 The parser is the JAX package's: the same subcommands, flags, defaults and
-choices, plus ``--device {cuda,cpu}`` on ``train``, ``eval`` and ``predict``
-(default ``cuda``; the JAX package picks its device by ``JAX_PLATFORMS``).
+choices, plus ``--device {cuda,cpu}`` on ``train``, ``unimodal``, ``eval`` and
+``predict`` (default ``cuda``; the JAX package picks its device by
+``JAX_PLATFORMS``).
 Without a card, ``--device cuda`` raises; nothing falls back to the CPU.
 
 Checkpoints: the port writes the directory ``<dir>/<name>/`` (``config.json``,
@@ -33,8 +37,9 @@ run trained with the JAX package serves, evaluates and resumes here; an
 orbax checkpoint (``<dir>/<name>.orbax/``) raises.
 
 What the port does not have yet raises ``NotImplementedError`` naming its
-ROADMAP.md item, and never runs another path in its place: the ``unimodal``,
-``etl`` and ``interpret`` subcommands, ``--artifact`` /
+ROADMAP.md item, and never runs another path in its place: the ``etl`` and
+``interpret`` subcommands, ``unimodal``'s ``--impressions-csv`` and
+``--inspect-csv`` (the INSPECT loaders), ``--artifact`` /
 ``--export-artifact``, a real cohort (``data.data_root`` with
 ``data.synthetic=false``), device meshes and multi-host runs.
 ``encoder.text_embedding_cache=true`` runs the frozen BERT body once per
@@ -186,7 +191,7 @@ def cmd_eval(args) -> int:
     from multimodalrouting_tpu_torch.audit.droptable import drop_table_eval, format_drop_table
     from multimodalrouting_tpu_torch.audit.exports import routing_heatmap_tables, save_reliability_diagram
     from multimodalrouting_tpu_torch.ckpt import load_config, load_meta, restore_train_state
-    from multimodalrouting_tpu_torch.data.batches import Batch
+    from multimodalrouting_tpu_torch.data.batches import Batch, slice_batch
     from multimodalrouting_tpu_torch.metrics.calibration import expected_calibration_error
     from multimodalrouting_tpu_torch.metrics.classification import epoch_metrics
     from multimodalrouting_tpu_torch.metrics.fairness import eddi, equalized_odds_gap, predictive_parity_gap
@@ -251,8 +256,7 @@ def cmd_eval(args) -> int:
         # whole batches only, as the JAX CLI trims; a split smaller than one
         # batch is kept whole
         n_full = (test_b.batch_size // bs) * bs or test_b.batch_size
-        trimmed = Batch(*(None if v is None else v[:n_full] for v in test_b))
-        print(format_drop_table(drop_table_eval(predict, trimmed, thresholds=th_arr)))
+        print(format_drop_table(drop_table_eval(predict, slice_batch(test_b, 0, n_full), thresholds=th_arr)))
     return 0
 
 
@@ -294,8 +298,122 @@ def cmd_predict(args) -> int:
     return 0
 
 
+def _print_unimodal(modality: str, res, out_dir: str) -> None:
+    print(json.dumps({
+        "modality": modality,
+        "tasks": list(res.metrics),
+        "auroc": {k: float(v.get("auroc", float("nan"))) for k, v in res.metrics.items()},
+        "out_dir": out_dir,
+    }))
+
+
+def _unimodal_cfg(args):
+    from multimodalrouting_tpu_torch.configs import load_cfg
+
+    overrides = _parse_sets(args.set or [])
+    if args.epochs is not None:
+        overrides["train.epochs"] = str(args.epochs)
+    if args.task and args.modality in ("behrt", "note"):
+        overrides["model.task"] = {"readmit": "mort"}.get(args.task, args.task)
+    return load_cfg(args.config, overrides)
+
+
 def cmd_unimodal(args) -> int:
-    raise _not_ported("the unimodal trainers (cli unimodal)", "8")
+    """The unimodal trainers and their fairness report (01_BEHRT.py,
+    02_BEHRT.py, 01_BioClinicalBert.py, INSPECT/BEHRT.py, INSPECT's CT
+    branch) on the synthetic cohorts."""
+    from multimodalrouting_tpu_torch.train.unimodal import train_unimodal
+
+    if args.modality in ("omop", "ct"):
+        return _cmd_unimodal_inspect(args)
+    cfg = _unimodal_cfg(args)
+    if cfg.data.stream:
+        raise SystemExit("unimodal trainers need dense splits; unset data.stream")
+    if args.impressions_csv:
+        if args.modality != "note":
+            raise SystemExit("--impressions-csv requires --modality note")
+        raise _not_ported("the INSPECT impressions loader (--impressions-csv)", "10")
+    _check_cfg(cfg, "")
+    # multitask labels (mortality / pe / ph) ride the synthetic "multitask" y
+    data_task = args.task or cfg.model.task
+    train_b, val_b, test_b = _load_data(cfg, data_task)
+    # the wide-BEHRT multitask trainer's split protocol: multilabel-stratified
+    # 20% test, then 5/80 of the rest as val, over the pooled splits
+    # (Unimodal/MIMIC/BEHRT.py:228-232); on by default for behrt + multitask
+    stratify = (args.modality == "behrt" and data_task == "multitask" if args.stratify == "auto"
+                else args.stratify == "on")
+    if stratify:
+        from multimodalrouting_tpu_torch.data.batches import concat_batches, take_batch
+        from multimodalrouting_tpu_torch.data.stratified import stratified_three_way
+
+        pooled = concat_batches([train_b, val_b, test_b])
+        tr_idx, va_idx, te_idx = stratified_three_way(np.asarray(pooled.y), seed=cfg.train.seed)
+        train_b, val_b, test_b = (take_batch(pooled, tr_idx), take_batch(pooled, va_idx),
+                                  take_batch(pooled, te_idx))
+        print(f"[stratify] multilabel-stratified split -> train {len(tr_idx)} "
+              f"| val {len(va_idx)} | test {len(te_idx)}")
+    out_dir = args.out or os.path.join(cfg.out_dir, f"unimodal_{args.modality}")
+    os.makedirs(out_dir, exist_ok=True)
+    res = train_unimodal(cfg, train_b, val_b, test_b, modality=args.modality, task=data_task, out_dir=out_dir,
+                         device=args.device)
+    _print_unimodal(args.modality, res, out_dir)
+    return 0
+
+
+def synthetic_ct_split(n: int, seed: int) -> dict:
+    """A seeded synthetic CT cohort [n, 6, 32, 32, 1] whose pe label is the
+    sign of a fixed slab's mean intensity (the other three labels noise)."""
+    r = np.random.default_rng(seed)
+    x = r.normal(0.0, 1.0, size=(n, 6, 32, 32, 1)).astype(np.float32)
+    slab = x[:, 2:4, 8:24, 8:24, 0].mean(axis=(1, 2, 3))
+    y = np.stack([(slab > 0).astype(np.float32)] + [r.integers(0, 2, n).astype(np.float32) for _ in range(3)],
+                 axis=1)
+    # the signal made visible above the noise floor at small n
+    x[:, 2:4, 8:24, 8:24, 0] += np.where(slab > 0, 1.5, -1.5)[:, None, None, None]
+    return {"x": x, "y": y, "sens": r.integers(0, 2, n)}
+
+
+def synthetic_omop_split(n: int, seed: int) -> dict:
+    """A seeded synthetic OMOP cohort: concept ids from vocabularies 64 / 48 /
+    56, the pe label the procedure id's parity (the other three noise)."""
+    r = np.random.default_rng(seed)
+    proc = r.integers(0, 64, n)
+    y = np.stack([(proc % 2 == 0).astype(np.float32)] + [r.integers(0, 2, n).astype(np.float32)
+                                                          for _ in range(3)], axis=1)
+    return {"proc": proc, "meas": r.integers(0, 48, n), "drug": r.integers(0, 56, n), "y": y,
+            "sens": r.integers(0, 2, n)}
+
+
+def synthetic_splits(cfg, split) -> dict:
+    """train / val / test of max(n, 64) / max(n // 4, 32) / max(n // 4, 32)
+    records from `split(n, seed)` (n = data.synthetic_n), seeds train.seed
+    + 0 / 1 / 2."""
+    n, seed = cfg.data.synthetic_n, cfg.train.seed
+    return {"train": split(max(n, 64), seed), "val": split(max(n // 4, 32), seed + 1),
+            "test": split(max(n // 4, 32), seed + 2)}
+
+
+def _cmd_unimodal_inspect(args) -> int:
+    """INSPECT's OMOP concept multitask trainer (INSPECT/BEHRT.py) or its
+    CT-volume one on the synthetic cohort (``synthetic_omop_split`` /
+    ``synthetic_ct_split``); ``--inspect-csv`` needs the INSPECT loader."""
+    from multimodalrouting_tpu_torch.train.unimodal import train_ct, train_omop
+
+    cfg = _unimodal_cfg(args)
+    if args.modality == "omop" and args.inspect_csv:
+        raise _not_ported("the INSPECT structured loader (--inspect-csv)", "10")
+    out_dir = args.out or os.path.join(cfg.out_dir, f"unimodal_{args.modality}")
+    os.makedirs(out_dir, exist_ok=True)
+    t = cfg.train
+    common = dict(hidden=cfg.model.d, lr=t.lr, weight_decay=t.weight_decay,
+                  batch_size=t.batch_size, epochs=t.epochs, patience=t.early_stop_patience, seed=t.seed,
+                  out_dir=out_dir, device=args.device)
+    if args.modality == "omop":
+        res = train_omop(synthetic_splits(cfg, synthetic_omop_split), vocab_sizes=(64, 48, 56), **common)
+    else:
+        res = train_ct(synthetic_splits(cfg, synthetic_ct_split), backbone=cfg.encoder.vision_backbone, **common)
+    _print_unimodal(args.modality, res, out_dir)
+    return 0
 
 
 def cmd_etl(args) -> int:
@@ -350,6 +468,7 @@ def build_parser() -> argparse.ArgumentParser:
     un.add_argument("--set", action="append", metavar="KEY=VALUE")
     un.add_argument("--epochs", type=int, default=None)
     un.add_argument("--out", default=None)
+    device(un)
     un.set_defaults(fn=cmd_unimodal)
 
     ev = sub.add_parser("eval", help="evaluate a checkpoint + audit exports")

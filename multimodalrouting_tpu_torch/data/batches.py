@@ -45,3 +45,27 @@ def batch_to(batch: Batch, device) -> Batch:
         return t.to(device)
 
     return Batch(*(put(v) for v in batch))
+
+
+def take_batch(batch: Batch, idx) -> Batch:
+    """Row-gather every present field."""
+    return Batch(*(None if v is None else v[idx] for v in batch))
+
+
+def slice_batch(batch: Batch, start: int, size: int) -> Batch:
+    return take_batch(batch, slice(start, start + size))
+
+
+def concat_batches(batches) -> Batch:
+    """Concatenate host batches along the batch axis, as numpy; optional
+    fields must be present in every input or in none."""
+    fields = []
+    for vals in zip(*batches):
+        present = [v is not None for v in vals]
+        if not any(present):
+            fields.append(None)
+        elif all(present):
+            fields.append(np.concatenate([np.asarray(v) for v in vals], axis=0))
+        else:
+            raise ValueError("cannot concat batches with mixed None/array fields")
+    return Batch(*fields)

@@ -15,7 +15,7 @@ from typing import Optional
 
 import numpy as np
 
-from multimodalrouting_tpu_torch.data.batches import Batch
+from multimodalrouting_tpu_torch.data.batches import Batch, take_batch
 
 
 def make_synthetic_cohort(
@@ -132,4 +132,4 @@ def iter_minibatches(batch: Batch, batch_size: int, *, seed: Optional[int] = Non
         sel = idx[start : start + batch_size]
         if drop_last and len(sel) < batch_size:
             break
-        yield Batch(*(None if v is None else v[sel] for v in batch))
+        yield take_batch(batch, sel)

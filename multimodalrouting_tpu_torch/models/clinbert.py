@@ -183,3 +183,39 @@ class BioClinBERTEncoder(nn.Module):
         h = h * chunk_mask[..., None].to(h.dtype)
         pooled = masked_max(h, chunk_mask) if self.chunk_agg == "max" else masked_mean(h, chunk_mask)
         return h, chunk_mask, pooled
+
+
+# a BertLayer's modules -> HF BertLayer's
+_HF_LAYER = {
+    "attention.attn.q_proj": "attention.self.query",
+    "attention.attn.k_proj": "attention.self.key",
+    "attention.attn.v_proj": "attention.self.value",
+    "attention.attn.out_proj": "attention.output.dense",
+    "attention.ln": "attention.output.LayerNorm",
+    "intermediate": "intermediate.dense",
+    "output": "output.dense",
+    "ln": "output.LayerNorm",
+}
+
+
+def import_hf_bert_params(state_dict, layers: int) -> Dict[str, torch.Tensor]:
+    """A HuggingFace BertModel state_dict (e.g. emilyalsentzer/Bio_ClinicalBERT)
+    -> the layered ``BertEncoder`` state_dict keys, as CPU tensors. HF Linear
+    weights are [out, in], as ``Dense`` holds them, so nothing is
+    transposed; the pooler and any layer past `layers` are ignored."""
+
+    def t(name: str) -> torch.Tensor:
+        return torch.as_tensor(state_dict[name]).detach().cpu()
+
+    out = {
+        "word_embeddings.weight": t("embeddings.word_embeddings.weight"),
+        "position_embeddings.weight": t("embeddings.position_embeddings.weight"),
+        "token_type_embeddings.weight": t("embeddings.token_type_embeddings.weight"),
+        "embed_ln.weight": t("embeddings.LayerNorm.weight"),
+        "embed_ln.bias": t("embeddings.LayerNorm.bias"),
+    }
+    for i in range(layers):
+        for mine, theirs in _HF_LAYER.items():
+            for leaf in ("weight", "bias"):
+                out[f"layer_{i}.{mine}.{leaf}"] = t(f"encoder.layer.{i}.{theirs}.{leaf}")
+    return out

@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from multimodalrouting_tpu_torch.configs import Config
-from multimodalrouting_tpu_torch.data.batches import Batch, batch_to
+from multimodalrouting_tpu_torch.data.batches import Batch, batch_to, slice_batch
 
 
 def _serving_shapes(cfg: Config) -> Dict[str, int]:
@@ -229,7 +229,7 @@ class Predictor:
         parts = []
         with self._lock:
             for start in range(0, n, self.batch_size):
-                sub = Batch(*(None if v is None else v[start : start + self.batch_size] for v in batch))
+                sub = slice_batch(batch, start, self.batch_size)
                 parts.append(self._forward(sub))
         logits, alpha, r_matrix = (None if xs[0] is None else np.concatenate(xs, 0) for xs in zip(*parts))
         probs = calibrate_probs(probs_from_logits(logits, self.task), self.temperature)

@@ -15,12 +15,15 @@ stopping, EMA evaluation, best / best_f1 / last / final checkpoints
 post-training temperature and threshold calibration and the validation
 reliability diagram.
 
-A run given a restored state starts at epoch ``state.step //
-steps_per_epoch``, as the JAX loop does. Unlike the JAX loop, it also
-continues the schedule the checkpoint carries (``state.loop``: the sampler's
-and the dropout generator's states, the LR scale, the plateau count and the
-best values), so that one epoch and a resume to two give the same state as
-two epochs without a break.
+A run given no state starts from a fresh train state, after copying the
+pretrained encoder weights the config names (``encoder.bert_weights`` /
+``encoder.vision_weights``, ``pretrained.py``) into the model, so that the
+EMA starts from them, as the JAX loop does. A run given a restored state
+starts at epoch ``state.step // steps_per_epoch``, as the JAX loop does.
+Unlike the JAX loop, it also continues the schedule the checkpoint carries
+(``state.loop``: the sampler's and the dropout generator's states, the LR
+scale, the plateau count and the best values), so that one epoch and a
+resume to two give the same state as two epochs without a break.
 
 With ``encoder.text_embedding_cache`` the frozen BERT body runs once over
 each split after the state exists (``train/text_cache.py``), and every
@@ -44,10 +47,11 @@ import torch
 from multimodalrouting_tpu_torch.audit.exports import save_reliability_diagram
 from multimodalrouting_tpu_torch.ckpt import TRAIN_STATE, save_checkpoint
 from multimodalrouting_tpu_torch.configs import Config, to_dict
-from multimodalrouting_tpu_torch.data.batches import Batch, batch_to
+from multimodalrouting_tpu_torch.data.batches import Batch, batch_to, slice_batch, take_batch
 from multimodalrouting_tpu_torch.metrics.calibration import find_best_thresholds, fit_temperature
 from multimodalrouting_tpu_torch.metrics.classification import epoch_metrics
 from multimodalrouting_tpu_torch.parallel.pp import validate_pp
+from multimodalrouting_tpu_torch.pretrained import apply_pretrained
 from multimodalrouting_tpu_torch.serve import probs_from_logits
 from multimodalrouting_tpu_torch.train.state import (
     TrainState,
@@ -107,10 +111,6 @@ class TrainResult:
     temperature: float
 
 
-def _take(cohort: Batch, idx) -> Batch:
-    return Batch(*(None if v is None else v[idx] for v in cohort))
-
-
 def predict_probs(eval_step, state: TrainState, cohort: Batch, batch_size: int, task: str):
     """Full-split inference in slices of `batch_size` -> (probs, alpha
     [N, R], r_matrix [N, R, K]) on the host; the route audit is None where
@@ -118,7 +118,7 @@ def predict_probs(eval_step, state: TrainState, cohort: Batch, batch_size: int, 
     dev = next(state.model.parameters()).device
     probs, alphas, rms = [], [], []
     for start in range(0, cohort.batch_size, batch_size):
-        out = eval_step(state, batch_to(_take(cohort, slice(start, start + batch_size)), dev))
+        out = eval_step(state, batch_to(slice_batch(cohort, start, batch_size), dev))
         probs.append(probs_from_logits(out.logits.cpu().numpy(), task))
         if out.alpha is not None:
             alphas.append(out.alpha.cpu().numpy())
@@ -163,6 +163,9 @@ def train_model(
     dev = next(model.parameters()).device
     generator = torch.Generator(device=dev).manual_seed(t.seed)
     if state is None:
+        if cfg.encoder.bert_weights or cfg.encoder.vision_weights:
+            # a fresh init only, and before the state: its EMA starts from them
+            apply_pretrained(cfg, model, log_fn=log_fn)
         state = create_train_state(cfg, model, stage=stage, n_route_loss_ema=n_route_loss_ema_for(cfg, family))
     if cfg.encoder.text_embedding_cache:
         # the frozen BERT body once over each split; every step and
@@ -221,7 +224,7 @@ def train_model(
         t0 = time.perf_counter()
         losses, skipped, alpha_mean = [], 0, None
         for s in range(steps_per_epoch):
-            sub = _take(train_cohort, order[s * t.batch_size : (s + 1) * t.batch_size])
+            sub = take_batch(train_cohort, order[s * t.batch_size : (s + 1) * t.batch_size])
             metrics = train_step(
                 state, batch_to(sub, dev), generator, t.lr * lr_scale, lr_enc,
                 detach_priors=detach, act_temperature=act_temp, note_pack=note_pack_bucket(cfg, sub),

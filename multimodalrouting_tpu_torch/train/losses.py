@@ -1,5 +1,6 @@
 """Loss terms (counterpart of multimodalrouting_tpu/train/losses.py): BCE
-over logits with pos_weight, label smoothing and sample weights, focal BCE,
+over logits with pos_weight, label smoothing and sample weights, focal BCE (with alpha, and the
+unimodal trainers' pos_weight-ed one without),
 the death-logit contrast, the clamped pos_weight, the routing regularizers,
 the differentiable fairness penalties (EDDI, soft equalized odds) and the
 2-class cross-entropy. All in fp32.
@@ -45,6 +46,24 @@ def focal_bce_with_logits(
     p_t = p * targets + (1 - p) * (1 - targets)
     alpha_t = alpha * targets + (1 - alpha) * (1 - targets)
     loss = alpha_t * (1 - p_t) ** gamma * ce
+    return loss.mean() if reduce else loss
+
+
+def focal_pos_weight_bce(
+    logits: torch.Tensor,
+    targets: torch.Tensor,
+    *,
+    gamma: float = 2.0,
+    pos_weight: Optional[torch.Tensor] = None,
+    reduce: bool = True,
+) -> torch.Tensor:
+    """The unimodal trainers' focal loss: pos_weight-ed BCE x (1 - p_t)^gamma,
+    with no alpha term."""
+    logits, targets = logits.float(), targets.float()
+    bce = bce_with_logits(logits, targets, pos_weight=pos_weight, reduce=False)
+    p = torch.sigmoid(logits)
+    p_t = p * targets + (1 - p) * (1 - targets)
+    loss = (1 - p_t) ** gamma * bce
     return loss.mean() if reduce else loss
 
 

@@ -32,7 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from multimodalrouting_tpu_torch.configs import Config
-from multimodalrouting_tpu_torch.data.batches import Batch
+from multimodalrouting_tpu_torch.data.batches import Batch, slice_batch
 from multimodalrouting_tpu_torch.routes import ROUTE_REQUIRES, get_blocks, get_routes, route_mask_from_presence
 from multimodalrouting_tpu_torch.train.losses import (
     bce_with_logits,
@@ -204,7 +204,7 @@ def make_train_step(cfg: Config, model, family: str = "capsule", **apply_kwargs)
             loss = task = reg = 0.0
             per_route = None
             for i in range(n_micro):
-                sub = Batch(*(None if v is None else v[i * mb : (i + 1) * mb] for v in batch))
+                sub = slice_batch(batch, i * mb, mb)
                 li, ti, ri, out, pi = forward_loss(state, sub, generator, detach_priors, act_temperature, 0)
                 li.backward()
                 loss, task, reg = loss + li.detach(), task + ti.detach(), reg + ri.detach()

@@ -127,7 +127,7 @@ def test_parser_matches_the_jax_cli(cmd, monkeypatch):
     got = {k: v for k, v in _describe(tcli.build_parser()).items() if k[0] == cmd}
     device = got.pop((cmd, ("--device",)), None)
     assert got == ref
-    if cmd in ("train", "eval", "predict"):
+    if cmd in ("train", "unimodal", "eval", "predict"):
         assert device == ("device", "cuda", ["cuda", "cpu"], False, None, None, None, "_StoreAction", None)
     else:
         assert device is None
@@ -212,7 +212,7 @@ PHENO_ATTEN_MULT = os.path.join(os.path.dirname(__file__), "..", "configs", "phe
     (["predict", "--artifact", "x", "--family", "trimf"], "item 11"),
     (["predict", "--artifact", "x"], "item 11"),
     (["predict", "--ckpt", "x", "--export-artifact", "y"], "item 11"),
-    (["unimodal"], "item 8"),
+    (["unimodal", "--modality", "note", "--impressions-csv", "x"], "item 10"),
     (["etl", "varmap", "--data-dir", "x", "--out", "y"], "item 10"),
     (["interpret", "--ckpt", "x"], "item 9"),
 ])

@@ -185,7 +185,7 @@ def test_per_route_mult_train_eval_predict(tmp_path):
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["unimodal"], "item 8"),
+    (["unimodal", "--modality", "omop", "--inspect-csv", "x"], "item 10"),
     (["predict", "--artifact", "x", "--family", "fame"], "item 11"),
 ])
 def test_what_is_not_ported_still_raises(argv, item, tmp_path):

@@ -290,7 +290,15 @@ def test_per_route_mult_branch_builds(over):
 
 @pytest.mark.parametrize("over", [{"encoder.vision_backbone": "densenet121"}, {"encoder.int8_text": True}])
 def test_unported_branches_raise(over):
+    """The int8 BERT body raises naming ROADMAP.md. DenseNet-121 was on this
+    list until it was ported: it now builds and serves."""
     _, tcfg = _cfgs(**over)
+    if over.get("encoder.vision_backbone") == "densenet121":
+        model = build_model(tcfg, device="cpu")
+        with torch.no_grad():
+            out = model(torch_batch(tiny_batch(n=2, seed=1)))
+        assert model.encoders.imgenc.backbone.out_channels == 1024 and tuple(out.logits.shape) == (2, 2)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(tcfg, device="cpu")
 
