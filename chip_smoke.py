@@ -106,9 +106,10 @@ toolkit. It
 17. the flagship on DenseNet-121 (encoder.vision_backbone=densenet121) at
    full width: a checkpoint served at 1 and 16 records against fp32 on the
    CPU (K1 = 12, K3 = 1 per forward) with its batch-16 profile and peak
-   memory, one frozen and one fine-tuned step (K2 = 12), each committing new
-   running statistics in all 121 BatchNorms and timed, and a batch-16
-   forward under vision_norm=group;
+   memory, one frozen and one fine-tuned step (K2 = 12) on the flagship
+   training phase's cohort and note pack, each committing new running
+   statistics in all 121 BatchNorms and timed, and a batch-16 forward under
+   vision_norm=group;
 18. pretrained encoder weights: a seeded BERT-base HF state_dict and a
    torchvision densenet121 one, torch.save()d, spliced by train_model into
    the DenseNet flagship on a fresh init (the weights, BatchNorm statistics
@@ -119,7 +120,24 @@ toolkit. It
    per embedding minibatch, none in the fit; the embedding pass timed), the
    OMOP and CT trainers, and `cli unimodal` for all four modalities, each
    writing finite metrics and fairness reports;
-20. prints a {"kernels": [...]} line (each kernel with its launches on its
+20. serving artifacts (artifact.py: a torch.export program with the kernels
+   as custom ops) of the full-width flagship at batch 16: exported on the
+   card (time, bytes) and served by ExportedPredictor at 1 and 16 records,
+   equal to the live Predictor's forward of the same batch (K1 = 12, K3 = 1
+   per call; p50 / p95 beside the live Predictor's; one HTTP request), the
+   same weights exported on the CPU and served on the card through the
+   kernels, an export under MMR_ATTN=splash (K4b = 12 per call), and `cli
+   predict --export-artifact` then `--artifact` at the CLI's shapes;
+21. the flagship with the int8 BERT body (encoder.int8_text=true): served at
+   1 and 16 records (K1 = 12, K3 = 1 per forward) against fp32 on the CPU,
+   the CLS cosine of 16 chunks against the bf16 body, and the batch-16
+   forward's profile beside the bf16 body's with the int8 GEMMs by name;
+22. the interpretability sweep (audit/sweep.py) over a full-width
+   gated-concat forward's pooled outputs (K1 = 12, none in the sweep): its
+   logits equal to the model's, f(obs) = G + UC + BI + TI to fp32 rounding,
+   against the fp32 sweep on the CPU with the same permutations, then `cli
+   interpret --out-csv` with the JAX package's columns;
+23. prints a {"kernels": [...]} line (each kernel with its launches on its
    own path and on every path), the card's name and power limit, and the
    {"ok": true, "device": ...} line last.
 
@@ -992,9 +1010,10 @@ def http_roundtrip(predictor, records) -> dict:
         th.join(timeout=30)
 
 
-def profile_forward(predictor, batch, top: int = 15) -> None:
+def profile_forward(predictor, batch, top: int = 15) -> dict:
     """Where one serving forward's device time goes: kernel time by name from
-    a torch.profiler trace, the device's busy share of the wall time."""
+    a torch.profiler trace, the device's busy share of the wall time.
+    -> {kernel name: (calls, ms)}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1016,6 +1035,7 @@ def profile_forward(predictor, batch, top: int = 15) -> None:
     for rank, (name, (n, total)) in enumerate(sorted(by_name.items(), key=lambda kv: -kv[1][1])):
         if rank < top or "attn::" in name:  # the top rows and every attention kernel
             log(f"[profile] {total:9.3f} ms {100 * total / busy_ms:5.1f}% x{n:<5d} {name[:110]}")
+    return by_name
 
 
 def phase_serving(dev, tmp: str) -> dict:
@@ -1914,9 +1934,11 @@ def phase_text_cache(dev, tmp: str) -> dict:
     step = make_train_step(cfg, model)
     gen = torch.Generator(device=dev).manual_seed(cfg.train.seed)
     with_cache = attach_note_cache(cfg, model, cohort)
-    ms = {"uncached": timed_steps(step, state, batch_to(cohort, dev), gen, note_pack_bucket(cfg, cohort)),
+    cap = note_pack_bucket(cfg, cohort)
+    ms = {"uncached": timed_steps(step, state, batch_to(cohort, dev), gen, cap),
           "cached": timed_steps(step, state, batch_to(with_cache, dev), gen, 0)}
-    log(f"[text-cache] frozen step at batch 16 (3 warm-up, 5 timed): uncached {ms['uncached']:.2f} ms, "
+    log(f"[text-cache] frozen step at batch 16 (3 warm-up, 5 timed): uncached {ms['uncached']:.2f} ms "
+        f"(note_pack={cap} of {cohort.chunk_mask.size} chunks, {int(cohort.chunk_mask.sum())} valid), "
         f"cached {ms['cached']:.2f} ms")
     del model, state
     torch.cuda.empty_cache()
@@ -2182,12 +2204,15 @@ def densenet_step(cfg, dev, label: str, steps: int = 3) -> dict:
     counters read around it (K1 = 12, K3 = 1, and K2 = 12 with fine-tuned
     notes), every one of the 121 BatchNorms committing new running
     statistics; then `steps` timed steps, the peak memory and one step's
-    profile. -> launches."""
+    profile, on the flagship training phase's cohort (seed SEED, so the
+    note pack and the BERT work are the same as there). -> launches."""
     torch.manual_seed(SEED)
     model = build_model(cfg, device="cuda", train=True)
     state = create_train_state(cfg, model)
-    cohort = full_width_cohort(cfg, cfg.train.batch_size, SEED + 11)
+    cohort = full_width_cohort(cfg, cfg.train.batch_size, SEED)
     cap = note_pack_bucket(cfg, cohort)
+    log(f"[densenet] {label}: note_pack={cap} of {cohort.chunk_mask.size} chunks "
+        f"({int(cohort.chunk_mask.sum())} valid)")
     batch = batch_to(cohort, dev)
     step = make_train_step(cfg, model)
     gen = torch.Generator(device=dev).manual_seed(cfg.train.seed)
@@ -2530,6 +2555,354 @@ def phase_unimodal(dev, tmp: str) -> dict:
     return out
 
 
+# --- serving artifacts, the int8 BERT body, the interpretability sweep -------
+
+# the JAX package's interpret CSV columns (audit/sweep.py:sweep_to_rows)
+SWEEP_COLUMNS = ["logit", "uc", "bi", "ti", "block_uni", "block_bi", "block_tri"] + [
+    f"{key}__{route}" for route in ("L", "N", "I", "LN", "LI", "NI", "LNI")
+    for key in ("gate", "route_contrib", "route_emb_norm")]
+
+
+def flagship_records(cfg, n: int = 16) -> list:
+    """`n` records of the flagship training phase's cohort (seed SEED)."""
+    return records_from_cohort(full_width_cohort(cfg, n, SEED), n)
+
+
+def counted_call(fn):
+    """fn() with the launch counters read around exactly it -> (result, counts)."""
+    torch.cuda.synchronize()
+    reset_counts()
+    result = fn()
+    torch.cuda.synchronize()
+    return result, read_counts()
+
+
+def output_diff(got: dict, ref: dict) -> dict:
+    """max |got - ref| of each served array both carry."""
+    return {k: float(np.abs(np.asarray(got[k], np.float64) - np.asarray(ref[k], np.float64)).max())
+            for k in ("probs", "alpha", "r_matrix") if k in ref}
+
+
+def timed_requests(label: str, predict_records, records) -> None:
+    """Host-clock latency of 20 single-record requests and 5 of 16 records."""
+    single, batch = [], []
+    for i in range(20):
+        t = time.perf_counter()
+        predict_records(records[i % 16 : i % 16 + 1])
+        single.append((time.perf_counter() - t) * 1e3)
+    for _ in range(5):
+        t = time.perf_counter()
+        predict_records(records)
+        batch.append((time.perf_counter() - t) * 1e3)
+    pct = lambda xs, q: float(np.percentile(xs, q))  # noqa: E731
+    log(f"[artifact] {label}: single-record p50_ms={pct(single, 50):.2f} p95_ms={pct(single, 95):.2f}; "
+        f"batch-16 p50_ms={pct(batch, 50):.2f} p95_ms={pct(batch, 95):.2f} "
+        f"stays_per_s={16e3 * len(batch) / sum(batch):.2f}")
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(root, f)) for root, _, files in os.walk(path) for f in files)
+
+
+def cli_checkpoint(family: str, tmp: str, name: str) -> str:
+    """A seeded `family` checkpoint at the CLI's synthetic shapes (notes of 128
+    tokens, images of 96^2, CLI_N stays a split) under DIR/final -> DIR."""
+    cfg = load_cfg(os.path.join(ROOT, "configs", "trimodal_mort.yaml"),
+                   overrides={"data.synthetic_n": CLI_N, "train.batch_size": CLI_BATCH}, environ={})
+    out = os.path.join(tmp, name)
+    family_checkpoint(os.path.join(out, "final"), cfg, family)
+    return out
+
+
+def phase_artifact(dev, tmp: str) -> dict:
+    """Serving artifacts (artifact.py) of the full-width flagship, batch 16:
+    exported on the card (time, bytes) and served by ExportedPredictor at 1
+    and 16 records against the live Predictor on the same forward (<= 1e-6,
+    bit-identity logged), K1 = 12 and K3 = 1 per call (a single record pads
+    to one call of the static batch); p50 / p95 of both; one HTTP request;
+    the same weights exported on the CPU (platforms cpu,cuda) and served on
+    the card through the kernels (K1 = 12, K3 = 1, within E2E_TOL); an
+    export under MMR_ATTN=splash (K4b = 12 per call); `cli predict
+    --export-artifact` then `--artifact` at the CLI's shapes (K3 only).
+    -> {path: launches}."""
+    from multimodalrouting_tpu_torch.artifact import ExportedPredictor, export_serving_artifact
+
+    t0 = time.perf_counter()
+    ckpt = os.path.join(tmp, "artifact_flagship")  # phase_int8 reads it too, then deletes it
+    cfg = flagship_checkpoint(ckpt)
+    layers = cfg.encoder.bert_layers
+    one_call = expected(packed_attention=layers, capsule_routing=1)
+    live = Predictor(ckpt, device="cuda")
+    records = flagship_records(cfg)
+    batch16, batch1 = batch_from_records(cfg, records), batch_from_records(cfg, records[:1])
+    out = {}
+
+    def export(predictor, name: str, platforms=None):
+        dst = os.path.join(tmp, name)
+        t = time.perf_counter()
+        _, launches = counted_call(lambda: export_serving_artifact(predictor, dst, platforms=platforms))
+        secs = time.perf_counter() - t
+        require(launches == expected(), f"export launched {launches}: tracing must run no kernel")
+        t = time.perf_counter()
+        ex = ExportedPredictor(dst, device="cuda")
+        ex.predict_records(records[:2])  # warm-up
+        torch.cuda.synchronize()
+        log(f"[artifact] {name}: exported on {predictor.device.type} in {secs:.1f}s, {dir_bytes(dst)} bytes, "
+            f"platforms {ex.platforms}, attention={ex.attention}; loaded and warmed on the card in "
+            f"{time.perf_counter() - t:.1f}s")
+        return ex, dst
+
+    live.predict_records(records[:2])
+    ex, dst = export(live, "artifact_card")
+    require(ex.attention == "packed", f"the card export traced attention={ex.attention}")
+    got16, out["artifact_card"] = counted_call(lambda: ex.predict(batch16))
+    got1, out["artifact_card_single"] = counted_call(lambda: ex.predict(batch1))
+    log(f"[artifact] launches: 16 records {out['artifact_card']}, 1 record {out['artifact_card_single']}")
+    require(out["artifact_card"] == one_call and out["artifact_card_single"] == one_call,
+            f"artifact launches {out['artifact_card']}, {out['artifact_card_single']}: expected {one_call} a call")
+    ref16 = live.predict(batch16)
+    rerun = output_diff(live.predict(batch16), ref16)
+    # the live forward of the single record's padded batch (its row repeated), as the artifact pads it
+    ref1 = {k: v[:1] for k, v in live.predict(batch_from_records(cfg, records[:1] * live.batch_size)).items()}
+    log(f"[artifact] live Predictor run to run at 16 records: max|d| {rerun}")
+    for label, got, ref in (("16 records", got16, ref16), ("1 record", got1, ref1)):
+        d = output_diff(got, ref)
+        same = all(v == 0.0 for v in d.values())
+        log(f"[artifact] {label}: ExportedPredictor vs the live Predictor's forward of the same batch: max|d| {d} "
+            f"({'bit-identical' if same else 'not bit-identical'}; tol 1e-6)")
+        require(max(d.values()) <= 1e-6, f"{label}: the artifact disagrees with the live Predictor")
+    d = output_diff(got1, live.predict(batch1))
+    log(f"[artifact] 1 record, artifact (padded to batch 16) vs the live batch-1 forward: max|d| {d} (tol {E2E_TOL})")
+    require(max(d.values()) <= E2E_TOL, "the padded single record disagrees with the batch-1 forward")
+    timed_requests("live Predictor", live.predict_records, records)
+    timed_requests("ExportedPredictor", ex.predict_records, records)
+    check_rows("artifact http", http_roundtrip(ex, records[:2])["predictions"], 2)
+    del ex
+    shutil.rmtree(dst)
+
+    cpu_live = Predictor(ckpt, device="cpu")
+    ex, dst = export(cpu_live, "artifact_cpu", platforms=("cpu", "cuda"))
+    del cpu_live
+    require(ex.platforms == ["cpu", "cuda"], f"meta.json platforms {ex.platforms}")
+    got, out["artifact_cpu_export"] = counted_call(lambda: ex.predict(batch16))
+    d = output_diff(got, ref16)
+    log(f"[artifact] exported on the CPU, served on the card: launches {out['artifact_cpu_export']}, "
+        f"max|d| against the live card Predictor {d} (tol {E2E_TOL})")
+    require(out["artifact_cpu_export"] == one_call, f"CPU-exported artifact launches {out['artifact_cpu_export']}")
+    require(max(d.values()) <= E2E_TOL, "the CPU-exported artifact disagrees on the card")
+    del ex
+    shutil.rmtree(dst)
+
+    before = os.environ.get("MMR_ATTN")
+    os.environ["MMR_ATTN"] = "splash"
+    try:
+        ex, dst = export(live, "artifact_splash")
+    finally:
+        if before is None:
+            os.environ.pop("MMR_ATTN")
+        else:
+            os.environ["MMR_ATTN"] = before
+    require(ex.attention == "splash", f"the splash export traced attention={ex.attention}")
+    got, out["artifact_splash"] = counted_call(lambda: ex.predict(batch16))
+    d = output_diff(got, ref16)
+    log(f"[artifact] exported under MMR_ATTN=splash (BERT depth {layers}): launches {out['artifact_splash']}, "
+        f"max|d| against the default live Predictor {d} (tol {E2E_TOL})")
+    require(out["artifact_splash"] == expected(splash_attention=layers, capsule_routing=1),
+            f"splash artifact launches {out['artifact_splash']}")
+    require(max(d.values()) <= E2E_TOL, "the splash artifact disagrees with the default forward")
+    del ex, live
+    shutil.rmtree(dst)
+    torch.cuda.empty_cache()
+
+    cli_ckpt = cli_checkpoint("capsule", tmp, "artifact_cli")
+    art = os.path.join(tmp, "artifact_cli_art")
+    _, launches = run_cli(["predict", "--ckpt", cli_ckpt, "--export-artifact", art, "--device", "cuda"])
+    require(launches == expected() and os.path.exists(os.path.join(art, "program.pt2")), "cli export")
+    served = {}
+    for flag, src in (("--artifact", art), ("--ckpt", cli_ckpt)):
+        path = os.path.join(tmp, f"predictions{flag}.jsonl")
+        _, launches = run_cli(["predict", flag, src, "--out", path, "--device", "cuda"])
+        with open(path) as f:
+            served[flag] = [json.loads(line)["probs"] for line in f]
+        out[f"cli_predict{flag.replace('--', '_')}"] = launches
+        require(launches == expected(capsule_routing=-(-CLI_N // CLI_BATCH)), f"cli predict {flag} launches {launches}")
+    d = float(np.abs(np.asarray(served["--artifact"]) - np.asarray(served["--ckpt"])).max())
+    log(f"[artifact] cli predict --artifact vs --ckpt over {len(served['--ckpt'])} stays: max|dprob|={d:.3e}")
+    require(len(served["--artifact"]) == CLI_N and np.allclose(served["--artifact"], served["--ckpt"], rtol=1e-5,
+                                                                 atol=1e-6), "cli predict --artifact disagrees")
+    shutil.rmtree(cli_ckpt)
+    shutil.rmtree(art)
+    log(f"[artifact] phase done in {time.perf_counter() - t0:.1f}s")
+    return out
+
+
+INT8_GEMM = re.compile(r"gemm_s8|s8s8|igemm|imma|int8", re.IGNORECASE)
+
+
+def phase_int8(dev, tmp: str) -> dict:
+    """The flagship with encoder.int8_text=true (the frozen BERT body's six
+    matmuls a layer as int8 products, ops/quant.py) on phase_artifact's
+    checkpoint: served at 1 and 16 records (K1 = 12, K3 = 1 per forward),
+    |dprob| against the same weights in fp32 on the CPU without int8, the
+    CLS cosine of 16 chunks against the bf16 body (> 0.995, the JAX
+    package's bound), and the batch-16 forward's profile beside the bf16
+    body's, the int8 GEMMs by name. -> {path: launches}."""
+    t0 = time.perf_counter()
+    base = os.path.join(tmp, "artifact_flagship")
+    ckpt = checkpoint_variant(base, os.path.join(tmp, "int8"), "encoder", "int8_text", True)
+    cfg = load_config(ckpt)
+    layers = cfg.encoder.bert_layers
+    p8 = Predictor(ckpt, device="cuda")
+    bert8 = p8.model.encoders.bbert.bert
+    require(type(bert8.layer_0.intermediate).__name__ == "QuantDense"
+            and bert8.layer_0.intermediate.weight.dtype == torch.float32, "the int8 body is not built")
+    records = flagship_records(cfg)
+    p8.predict_records(records[:2])
+    rows1, c1 = counted_call(lambda: p8.predict_records(records[:1]))
+    rows16, c16 = counted_call(lambda: p8.predict_records(records))
+    out = {"int8_serving": c16, "int8_serving_single": c1}
+    log(f"[int8] launches: 1 record {c1}, 16 records {c16}")
+    require(c1 == c16 == expected(packed_attention=layers, capsule_routing=1), "int8 forward launches")
+    check_rows("int8 single", rows1, 1)
+    check_rows("int8 batch16", rows16, 16)
+
+    ref_dir = checkpoint_variant(base, os.path.join(tmp, "int8_ref_fp32"), "model", "dtype", "float32")
+    t1 = time.perf_counter()
+    ref = Predictor(ref_dir, device="cpu").predict_records(records[:2])
+    bf16 = Predictor(base, device="cuda")
+    for label, rows in (("int8", rows16[:2]), ("bf16", bf16.predict_records(records[:2]))):
+        dp = max(abs(float(np.asarray(g["probs"]).reshape(-1)[0]) - float(np.asarray(r["probs"]).reshape(-1)[0]))
+                 for g, r in zip(rows, ref))
+        da = max(abs(g["alpha"][k] - r["alpha"][k]) for g, r in zip(rows, ref) for k in r["alpha"])
+        log(f"[int8] card {label} body vs CPU fp32 without int8 over 2 records: max|dprob|={dp:.3e} "
+            f"max|dalpha|={da:.3e} (tol {E2E_TOL})")
+        require(dp <= E2E_TOL and da <= E2E_TOL, f"the {label} forward disagrees with fp32 on the CPU")
+    log(f"[int8] CPU fp32 reference in {time.perf_counter() - t1:.1f}s")
+
+    cohort = full_width_cohort(cfg, 16, SEED)
+    valid = np.flatnonzero(cohort.chunk_mask.reshape(-1) > 0)[:16]
+    ids = torch.from_numpy(cohort.note_ids.reshape(-1, cohort.note_ids.shape[-1])[valid]).to(dev)
+    attn = torch.from_numpy(cohort.note_attn.reshape(-1, cohort.note_attn.shape[-1])[valid]).to(dev)
+    with torch.inference_mode():
+        h8 = bert8(ids, attn)[:, 0].float()
+        hb = bf16.model.encoders.bbert.bert(ids, attn)[:, 0].float()
+    cos = ((h8 * hb).sum(-1) / (h8.norm(dim=-1) * hb.norm(dim=-1) + 1e-9)).cpu().numpy()
+    log(f"[int8] CLS cosine against the bf16 body over {len(valid)} chunks: min {cos.min():.6f} mean {cos.mean():.6f}")
+    require(float(cos.min()) > 0.995, "int8 CLS states drift from the bf16 body")
+
+    batch16 = batch_from_records(cfg, records)
+    times = {}
+    for label, pred in (("int8", p8), ("bf16", bf16)):
+        log(f"[int8] batch-16 forward of the {label} body:")
+        by_name = profile_forward(pred, batch16, top=8)
+        times[label] = sum(ms for _, ms in by_name.values())
+        if label == "int8":
+            gemms = {name: v for name, v in by_name.items() if INT8_GEMM.search(name)}
+            for name, (n, ms) in sorted(gemms.items(), key=lambda kv: -kv[1][1]):
+                log(f"[int8] int8 GEMM kernel {ms:9.3f} ms x{n:<4d} {name[:110]}")
+            require(gemms, "no int8 GEMM kernel in the int8 forward's profile")
+    log(f"[int8] batch-16 forward device busy: int8 {times['int8']:.2f} ms, bf16 {times['bf16']:.2f} ms")
+    del p8, bf16, bert8
+    torch.cuda.empty_cache()
+    for d in (ckpt, ref_dir, base):
+        shutil.rmtree(d)
+    log(f"[int8] phase done in {time.perf_counter() - t0:.1f}s")
+    return out
+
+
+def phase_interpret(dev, tmp: str) -> dict:
+    """The interpretability sweep (audit/sweep.py) on a seeded full-width
+    gated-concat checkpoint (learned gate): a 16-record forward (K1 = 12, K3
+    = 0), then gated_model_sweep over its pooled outputs with 20 fixed
+    permutations (no kernel): its logits equal to the model's, f(obs) = G +
+    UC + BI + TI to fp32 rounding, and logits, gates, route contributions
+    and UC/BI/TI against the fp32 sweep of the same weights on the CPU over
+    the same pooled outputs and permutations (gates within E2E_TOL, the
+    logit-valued arrays within E2E_TOL of the logits' scale); then `cli interpret
+    --out-csv` at the CLI's shapes (no kernel) with the JAX package's
+    columns. -> {path: launches}."""
+    import csv
+
+    from multimodalrouting_tpu_torch.audit.attribution import compute_uc_bi_ti, draw_permutations
+    from multimodalrouting_tpu_torch.audit.sweep import gated_model_sweep, head_forward_from_pooled
+    from multimodalrouting_tpu_torch.routes import ROUTES_7, route_mask_from_presence
+
+    t0 = time.perf_counter()
+    cfg = flagship_cfg(**{"model.gate_mode": "learned"})
+    ckpt = os.path.join(tmp, "interpret_gated")
+    family_checkpoint(ckpt, cfg, "gated_concat")
+    pred = Predictor(ckpt, "gated_concat", device="cuda")
+    cohort = full_width_cohort(cfg, 16, SEED)
+    pred.forward(cohort)
+    fwd, launches = counted_call(lambda: pred.forward(cohort))
+    out = {"interpret_forward": launches}
+    require(launches == expected(packed_attention=cfg.encoder.bert_layers), f"gated forward launches {launches}")
+    has = [torch.from_numpy(getattr(cohort, f)).to(dev) for f in ("has_l", "has_n", "has_i")]
+    avail = route_mask_from_presence(*has, ROUTES_7)
+    perms = draw_permutations(16, 20, torch.Generator().manual_seed(SEED))
+    t1 = time.perf_counter()
+    sweep, out["interpret_sweep"] = counted_call(
+        lambda: gated_model_sweep(cfg, pred.model, fwd.pooled, avail=avail, permutations=perms))
+    log(f"[interpret] sweep of 16 stays, 20 draws in {time.perf_counter() - t1:.2f}s, launches {out['interpret_sweep']}")
+    require(out["interpret_sweep"] == expected(), "the sweep launched a kernel")
+    d = float(np.abs(sweep["logits"] - fwd.logits.float().cpu().numpy()).max())
+    log(f"[interpret] sweep logits vs the model's: max|d|={d:.3e}")
+    require(d <= 1e-6, "the sweep's logits differ from the model's")
+
+    calls = []  # each call's first-label logits, as the sweep's f returns them
+
+    def f(l, n, i):
+        calls.append(head_forward_from_pooled(cfg, pred.model, l, n, i, avail)[0][:, 0].float())
+        return calls[-1]
+
+    with torch.inference_mode():
+        zl, zn, zi = (fwd.pooled[k] for k in ("L", "N", "I"))
+        uc, bi, ti = compute_uc_bi_ti(f, zl, zn, zi, permutations=perms)
+        full, draws = calls[0], calls[1:]
+        g = full * 0.0
+        for vals in draws:
+            g = g + vals[:16]  # E_all: the first of each draw's seven
+        g = g / len(draws)
+        resid = float((full - (g + uc + bi + ti)).abs().max())
+    same = all(np.array_equal(sweep[k], x.cpu().numpy()) for k, x in (("uc", uc), ("bi", bi), ("ti", ti)))
+    scale = float(full.abs().max())
+    log(f"[interpret] f(obs) - (G + UC + BI + TI): max|.|={resid:.3e} (|f| up to {scale:.3f}; tol 1e-5 x max(1, |f|)); "
+        f"UC/BI/TI recomputed {'bit-identical' if same else 'NOT bit-identical'} to the sweep's")
+    require(resid <= 1e-5 * max(1.0, scale) and same, "the UC/BI/TI identity does not hold on the card")
+
+    ref_dir = checkpoint_variant(ckpt, os.path.join(tmp, "interpret_gated_fp32"), "model", "dtype", "float32")
+    t1 = time.perf_counter()
+    ref_pred = Predictor(ref_dir, "gated_concat", device="cpu")
+    pooled = {k: v.float().cpu() for k, v in fwd.pooled.items()}
+    ref = gated_model_sweep(ref_pred.cfg, ref_pred.model, pooled, avail=avail.cpu(), permutations=perms)
+    # gates are shares (E2E_TOL as served probabilities); the logit-valued
+    # arrays carry bf16's ~3 significant digits of the logits' own scale
+    scale = max(1.0, float(np.abs(ref["logits"]).max()))
+    diffs = {k: float(np.abs(sweep[k] - ref[k]).max()) for k in ("logits", "gates", "route_contrib", "uc", "bi", "ti")}
+    limits = {k: E2E_TOL * (1.0 if k == "gates" else scale) for k in diffs}
+    log(f"[interpret] card bf16 sweep vs the CPU fp32 sweep of the same weights, pooled outputs and permutations "
+        f"({time.perf_counter() - t1:.1f}s): max|d| {diffs}; limits: gates {E2E_TOL}, the logit-valued arrays "
+        f"{E2E_TOL} x max(1, max|logit|) = {limits['logits']:.4f}")
+    require(all(diffs[k] <= limits[k] for k in diffs), "the card sweep disagrees with the CPU fp32 sweep")
+    del pred, ref_pred, fwd
+    torch.cuda.empty_cache()
+    shutil.rmtree(ckpt)
+    shutil.rmtree(ref_dir)
+
+    cli_ckpt = cli_checkpoint("gated_concat", tmp, "interpret_cli")
+    path = os.path.join(tmp, "interpret.csv")
+    lines, launches = run_cli(["interpret", "--ckpt", cli_ckpt, "--out-csv", path, "--device", "cuda"])
+    with open(path) as fh:
+        table = list(csv.reader(fh))
+    require(table[0] == SWEEP_COLUMNS and len(table) == 1 + CLI_N and launches == expected()
+            and any(line.startswith("block means:") for line in lines),
+            f"cli interpret: header {table[0][:4]}..., {len(table) - 1} rows, launches {launches}")
+    out["cli_interpret"] = launches
+    shutil.rmtree(cli_ckpt)
+    log(f"[interpret] phase done in {time.perf_counter() - t0:.1f}s")
+    return out
+
+
 def ptxas_report() -> None:
     """Print each library's ptxas lines (the kernel each group of lines is
     for, its registers, spills and any warning) and fail if an instance of
@@ -2590,6 +2963,9 @@ def main() -> int:
         by_path.update(phase_densenet(dev, tmp))
         by_path.update(phase_pretrained(dev, tmp))
         by_path.update(phase_unimodal(dev, tmp))
+        by_path.update(phase_artifact(dev, tmp))
+        by_path.update(phase_int8(dev, tmp))
+        by_path.update(phase_interpret(dev, tmp))
     for k in kernels:  # each kernel's own main path: the path this slice or an earlier one brought it up on
         k["launches"] = by_path[MAIN_PATH[k["name"]]][k["name"]]
         k["launches_by_path"] = {path: counts.get(k["name"], 0) for path, counts in by_path.items()}

@@ -14,6 +14,9 @@
   python -m multimodalrouting_tpu_torch.cli train ... --resume runs/capsule --epochs 12
   python -m multimodalrouting_tpu_torch.cli eval --ckpt runs/capsule --drop-table [--family F]
   python -m multimodalrouting_tpu_torch.cli predict --ckpt runs/capsule --split test [--family F]
+  python -m multimodalrouting_tpu_torch.cli predict --ckpt runs/capsule --export-artifact art [--platforms cpu,cuda]
+  python -m multimodalrouting_tpu_torch.cli predict --artifact art --split test
+  python -m multimodalrouting_tpu_torch.cli interpret --ckpt runs/gated --out-csv sweep.csv
   python -m multimodalrouting_tpu_torch.cli unimodal --modality behrt|note|omop|ct \\
       [--task multitask|readmit] [--stratify auto|on|off]   # 01_BEHRT.py, 02_BEHRT.py,
                                      # 01_BioClinicalBert.py, INSPECT's OMOP and CT trainers
@@ -23,9 +26,9 @@ The baselines (late_fusion, trimf) train under the fame loss family, and
 R-matrix (the capsule family), as the JAX CLI does.
 
 The parser is the JAX package's: the same subcommands, flags, defaults and
-choices, plus ``--device {cuda,cpu}`` on ``train``, ``unimodal``, ``eval`` and
-``predict`` (default ``cuda``; the JAX package picks its device by
-``JAX_PLATFORMS``).
+choices, plus ``--device {cuda,cpu}`` on ``train``, ``unimodal``, ``eval``,
+``predict`` and ``interpret`` (default ``cuda``; the JAX package picks its
+device by ``JAX_PLATFORMS``).
 Without a card, ``--device cuda`` raises; nothing falls back to the CPU.
 
 Checkpoints: the port writes the directory ``<dir>/<name>/`` (``config.json``,
@@ -36,11 +39,15 @@ package writes ``<dir>/<name>.msgpack`` with ``<dir>/<name>.meta.json``.
 run trained with the JAX package serves, evaluates and resumes here; an
 orbax checkpoint (``<dir>/<name>.orbax/``) raises.
 
+``predict --export-artifact DIR`` writes a checkpoint's serving artifact (a
+``torch.export`` program with the kernels as custom ops, ``artifact.py``)
+and ``predict --artifact DIR`` serves one; ``interpret`` runs the gated
+family's occlusion and UC/BI/TI sweep (``audit/sweep.py``).
+
 What the port does not have yet raises ``NotImplementedError`` naming its
-ROADMAP.md item, and never runs another path in its place: the ``etl`` and
-``interpret`` subcommands, ``unimodal``'s ``--impressions-csv`` and
-``--inspect-csv`` (the INSPECT loaders), ``--artifact`` /
-``--export-artifact``, a real cohort (``data.data_root`` with
+ROADMAP.md item, and never runs another path in its place: the ``etl``
+subcommand, ``unimodal``'s ``--impressions-csv`` and ``--inspect-csv`` (the
+INSPECT loaders), a real cohort (``data.data_root`` with
 ``data.synthetic=false``), device meshes and multi-host runs.
 ``encoder.text_embedding_cache=true`` runs the frozen BERT body once per
 split (``train/text_cache.py``) in ``train`` and ``eval``.
@@ -261,20 +268,35 @@ def cmd_eval(args) -> int:
 
 
 def cmd_predict(args) -> int:
-    """Serving path: checkpoint -> calibrated predictions (JSONL or HTTP),
-    with the validation-fitted temperature and thresholds and the route
-    audit per prediction (``serve.py``)."""
+    """Serving path: checkpoint or serving artifact -> calibrated predictions
+    (JSONL or HTTP), with the validation-fitted temperature and thresholds
+    and the route audit per prediction (``serve.py``); ``--export-artifact``
+    writes a checkpoint's serving artifact (``artifact.py``) and exits."""
     from multimodalrouting_tpu_torch.ckpt import load_config
     from multimodalrouting_tpu_torch.serve import Predictor, make_http_server, write_predictions_jsonl
 
     if args.artifact and args.ckpt:
         raise SystemExit("pass either --ckpt or --artifact, not both")
-    if args.artifact or args.export_artifact:
-        raise _not_ported("the serving artifact (--artifact / --export-artifact)", "11")
-    if not args.ckpt:
-        raise SystemExit("one of --ckpt or --artifact is required")
-    _check_cfg(load_config(args.ckpt, args.name), args.family)
-    pred = Predictor(args.ckpt, args.family, name=args.name, batch_size=args.batch_size, device=args.device)
+    if args.artifact:
+        from multimodalrouting_tpu_torch.artifact import ExportedPredictor
+
+        if args.export_artifact:
+            raise SystemExit("--export-artifact needs --ckpt (a live Predictor)")
+        pred = ExportedPredictor(args.artifact, device=args.device)
+        _check_cfg(pred.cfg, pred.family)
+    else:
+        if not args.ckpt:
+            raise SystemExit("one of --ckpt or --artifact is required")
+        _check_cfg(load_config(args.ckpt, args.name), args.family)
+        pred = Predictor(args.ckpt, args.family, name=args.name, batch_size=args.batch_size, device=args.device)
+
+    if args.export_artifact:
+        from multimodalrouting_tpu_torch.artifact import export_serving_artifact
+
+        platforms = args.platforms.split(",") if args.platforms else None
+        out = export_serving_artifact(pred, args.export_artifact, platforms=platforms)
+        print(json.dumps({"artifact": out, "platforms": platforms or [pred.device.type]}))
+        return 0
 
     if args.port is not None:
         server = make_http_server(pred, port=args.port)
@@ -292,7 +314,7 @@ def cmd_predict(args) -> int:
     if args.split not in split_ix:
         raise SystemExit(f"--split must be train|val|test, got {args.split!r}")
     cohort = _load_data(pred.cfg, pred.cfg.model.task)[split_ix[args.split]]
-    out_path = args.out or os.path.join(args.ckpt, f"predictions_{args.split}.jsonl")
+    out_path = args.out or os.path.join(args.ckpt or args.artifact, f"predictions_{args.split}.jsonl")
     n = write_predictions_jsonl(pred, cohort, out_path)
     print(json.dumps({"rows": n, "out": out_path, "temperature": pred.temperature}))
     return 0
@@ -421,7 +443,39 @@ def cmd_etl(args) -> int:
 
 
 def cmd_interpret(args) -> int:
-    raise _not_ported("the interpretability sweep (cli interpret)", "9")
+    """Interpretability sweep and inference demo on a gated-concat
+    checkpoint (its EMA weights) over the first ``--max-samples`` stays of
+    the test split, route availability from modality presence."""
+    import csv
+
+    import torch
+
+    from multimodalrouting_tpu_torch.audit.sweep import gated_model_sweep, print_inference_demo, sweep_to_rows
+    from multimodalrouting_tpu_torch.ckpt import load_config, load_serving
+    from multimodalrouting_tpu_torch.data.batches import batch_to, slice_batch
+    from multimodalrouting_tpu_torch.models.full import build_model
+    from multimodalrouting_tpu_torch.routes import ROUTES_7, route_mask_from_presence
+
+    cfg = load_config(args.ckpt, args.name)
+    _check_cfg(cfg, "gated_concat")
+    model = build_model(cfg, "gated_concat", device=args.device)
+    weights, _ = load_serving(args.ckpt, args.name, like=model.state_dict())
+    model.load_state_dict(weights)
+    _, _, test_b = _load_data(cfg, cfg.model.task)
+    batch = batch_to(slice_batch(test_b, 0, min(test_b.batch_size, args.max_samples)), args.device)
+    with torch.inference_mode():
+        out = model(batch)
+    avail = route_mask_from_presence(batch.has_l, batch.has_n, batch.has_i, ROUTES_7)
+    sweep = gated_model_sweep(cfg, model, out.pooled, avail=avail, n_mc=args.n_mc)
+    print_inference_demo(sweep, k=args.demo_samples)
+    if args.out_csv:
+        rows = sweep_to_rows(sweep)
+        with open(args.out_csv, "w", newline="") as f:
+            w = csv.DictWriter(f, fieldnames=list(rows[0]))
+            w.writeheader()
+            w.writerows(rows)
+        print(f"[interpret] wrote {len(rows)} rows -> {args.out_csv}")
+    return 0
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -560,6 +614,7 @@ def build_parser() -> argparse.ArgumentParser:
     it.add_argument("--max-samples", type=int, default=256)
     it.add_argument("--demo-samples", type=int, default=5)
     it.add_argument("--out-csv", default=None)
+    device(it)
     it.set_defaults(fn=cmd_interpret)
     return ap
 

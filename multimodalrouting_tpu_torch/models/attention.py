@@ -36,6 +36,7 @@ from torch import nn
 from multimodalrouting_tpu_torch.models.layers import Dense, dropout
 from multimodalrouting_tpu_torch.ops import flash, flash_packed
 from multimodalrouting_tpu_torch.ops.masked import NEG_INF
+from multimodalrouting_tpu_torch.ops.quant import QuantDense
 
 
 def sinusoidal_positions(
@@ -135,17 +136,21 @@ def attention(
 
 class MultiheadAttention(nn.Module):
     """Batch-first MHA: q [B,Tq,D], k/v [B,Tk,D], kv_mask [B,Tk] (1 = keep),
-    optional additive attn_bias [Tq,Tk]. q is scaled by head_dim**-0.5."""
+    optional additive attn_bias [Tq,Tk]. q is scaled by head_dim**-0.5.
+    `int8` runs the four projections as int8 products (``ops/quant.py``;
+    frozen, inference-only paths), each its own product as in the JAX
+    package, which fuses no QKV under int8."""
 
     def __init__(self, d: int, num_heads: int, frozen_fast_path: bool = False, dropout: float = 0.0,
-                 dtype=torch.float32):
+                 dtype=torch.float32, int8: bool = False):
         super().__init__()
         if d % num_heads:
             raise ValueError(f"d={d} not divisible by heads={num_heads}")
         self.d, self.num_heads, self.dtype = d, num_heads, dtype
         self.frozen_fast_path, self.dropout = frozen_fast_path, dropout
+        dense = QuantDense if int8 else Dense
         for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
-            setattr(self, name, Dense(d, d, dtype=dtype))
+            setattr(self, name, dense(d, d, dtype=dtype))
 
     def forward(self, q, k, v, kv_mask=None, attn_bias=None, generator=None) -> torch.Tensor:
         scaling = (self.d // self.num_heads) ** -0.5

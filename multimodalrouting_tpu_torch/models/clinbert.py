@@ -23,6 +23,11 @@ global context manager; here it is an argument.
 pipeline-parallel layout of ``parallel/pp.py`` (``bert.pp_layers``), run as a
 sequential loop on one card, with that layout's own attention dispatch (no
 packed branch: K4a where the segment-attention gate holds) and LayerNorm.
+
+``int8`` (``encoder.int8_text``) runs the six big matmuls of every layer as
+int8 products (``ops/quant.QuantDense``, the same parameters as ``Dense``);
+it is inference-only, so it refuses fine-tuned notes and the pipeline
+layout with the JAX package's messages.
 """
 from __future__ import annotations
 
@@ -36,14 +41,17 @@ from multimodalrouting_tpu_torch.models.layers import Dense, Embed, dropout
 from multimodalrouting_tpu_torch.ops.gelu import apply_gelu
 from multimodalrouting_tpu_torch.ops.layernorm import LayerNorm, bert_layer_norm
 from multimodalrouting_tpu_torch.ops.masked import masked_max, masked_mean
+from multimodalrouting_tpu_torch.ops.quant import QuantDense
 from multimodalrouting_tpu_torch.parallel.pp import PipelinedBertLayers
 
 
 class BertSelfAttentionBlock(nn.Module):
-    def __init__(self, hidden: int, heads: int, frozen_fast_path: bool, ln: str, dtype, dropout: float = 0.0):
+    def __init__(self, hidden: int, heads: int, frozen_fast_path: bool, ln: str, dtype, dropout: float = 0.0,
+                 int8: bool = False):
         super().__init__()
         self.dropout = dropout
-        self.attn = MultiheadAttention(hidden, heads, frozen_fast_path=frozen_fast_path, dropout=dropout, dtype=dtype)
+        self.attn = MultiheadAttention(hidden, heads, frozen_fast_path=frozen_fast_path, dropout=dropout, dtype=dtype,
+                                       int8=int8)
         self.ln = bert_layer_norm(ln, hidden, 1e-12, dtype)
 
     def forward(self, x, attn_mask, generator=None):
@@ -54,13 +62,14 @@ class BertSelfAttentionBlock(nn.Module):
 class BertLayer(nn.Module):
     def __init__(
         self, hidden: int, heads: int, intermediate: int, frozen_fast_path: bool = False,
-        gelu: str = "erf", ln: str = "fp32", dtype=torch.float32, dropout: float = 0.0,
+        gelu: str = "erf", ln: str = "fp32", dtype=torch.float32, dropout: float = 0.0, int8: bool = False,
     ):
         super().__init__()
         self.gelu, self.dropout = gelu, dropout
-        self.attention = BertSelfAttentionBlock(hidden, heads, frozen_fast_path, ln, dtype, dropout)
-        self.intermediate = Dense(hidden, intermediate, dtype=dtype)
-        self.output = Dense(intermediate, hidden, dtype=dtype)
+        self.attention = BertSelfAttentionBlock(hidden, heads, frozen_fast_path, ln, dtype, dropout, int8)
+        dense = QuantDense if int8 else Dense
+        self.intermediate = dense(hidden, intermediate, dtype=dtype)
+        self.output = dense(intermediate, hidden, dtype=dtype)
         self.ln = bert_layer_norm(ln, hidden, 1e-12, dtype)
 
     def forward(self, x, attn_mask, generator=None):
@@ -76,7 +85,7 @@ class BertEncoder(nn.Module):
         self, vocab_size: int = 28996, hidden: int = 768, layers: int = 12, heads: int = 12,
         intermediate: int = 3072, max_position: int = 512, type_vocab: int = 2,
         frozen_fast_path: bool = False, gelu: str = "erf", ln: str = "fp32", dtype=torch.float32,
-        dropout: float = 0.0, pipeline: bool = False,
+        dropout: float = 0.0, pipeline: bool = False, int8: bool = False,
     ):
         super().__init__()
         self.layers, self.dropout, self.pipeline = layers, dropout, pipeline
@@ -85,12 +94,14 @@ class BertEncoder(nn.Module):
         self.token_type_embeddings = Embed(type_vocab, hidden, dtype)
         self.embed_ln = bert_layer_norm(ln, hidden, 1e-12, dtype)
         if pipeline:  # the stacked pipeline-parallel layout (parallel/pp.py)
+            if int8:
+                raise ValueError("pipeline BERT does not compose with int8")
             self.pp_layers = PipelinedBertLayers(layers, hidden, heads, intermediate, gelu, dtype)
             return
         for i in range(layers):
             self.add_module(
                 f"layer_{i}",
-                BertLayer(hidden, heads, intermediate, frozen_fast_path, gelu, ln, dtype, dropout),
+                BertLayer(hidden, heads, intermediate, frozen_fast_path, gelu, ln, dtype, dropout, int8),
             )
 
     def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor, generator=None) -> torch.Tensor:
@@ -118,15 +129,17 @@ class BioClinBERTEncoder(nn.Module):
         finetune_text: bool = False, gelu: str = "erf", ln: str = "fp32",
         vocab_size: int = 28996, hidden: int = 768, layers: int = 12, heads: int = 12,
         intermediate: int = 3072, max_position: int = 512, type_vocab: int = 2,
-        dtype=torch.float32, dropout: float = 0.0, pipeline: bool = False,
+        dtype=torch.float32, dropout: float = 0.0, pipeline: bool = False, int8: bool = False,
     ):
         super().__init__()
+        if int8 and finetune_text:
+            raise ValueError("int8 frozen-BERT path requires finetune_text=False (quantized matmuls are inference-only)")
         self.d, self.hidden, self.dtype = d, hidden, dtype
         self.note_agg, self.chunk_agg, self.finetune_text = note_agg, chunk_agg, finetune_text
         self.bert = BertEncoder(
             vocab_size, hidden, layers, heads, intermediate, max_position, type_vocab,
             frozen_fast_path=not finetune_text, gelu=gelu, ln=ln, dtype=dtype, dropout=dropout,
-            pipeline=pipeline,
+            pipeline=pipeline, int8=int8,
         )
         if d != hidden:
             self.proj_ln = LayerNorm(hidden, 1e-5, dtype)

@@ -107,7 +107,7 @@ class TriEncoder(nn.Module):
             gelu=e.bert_gelu, ln=e.bert_ln, vocab_size=e.bert_vocab_size, hidden=e.bert_hidden,
             layers=e.bert_layers, heads=e.bert_heads, intermediate=e.bert_intermediate,
             max_position=e.bert_max_position, type_vocab=e.bert_type_vocab, dtype=dtype,
-            dropout=e.dropout, pipeline=cfg.train.pipeline_parallel,
+            dropout=e.dropout, pipeline=cfg.train.pipeline_parallel, int8=e.int8_text,
         )
         self.imgenc = ImageEncoder(
             d=e.d, vision_backbone=e.vision_backbone, vision_num_classes=e.vision_num_classes,
@@ -380,21 +380,20 @@ def build_model(cfg: Config, family: str = "capsule", *, device="cuda", train: b
     """The `family`'s model (capsule, gated_concat, fame, or the baselines
     late_fusion and trimf) on `device`, in eval mode, or in train mode with
     `train`. Parameters are fp32 masters; only under the frozen-text default with bf16
-    compute is the BERT body held in bf16 (output-identical: the compute casts
-    it to bf16 at every use anyway), layered or in the pipeline layout, and
-    it then takes no gradient (JAX state.py:151-168)."""
+    compute and no int8 body is the BERT body held in bf16 (output-identical: the compute casts
+    it to bf16 at every use anyway), layered or in the pipeline layout. A
+    frozen body takes no gradient (JAX state.py:151-168); the int8 body
+    quantizes its fp32 masters at every use."""
     from multimodalrouting_tpu_torch.models.baselines import BASELINES
 
     families = {**FAMILIES, **BASELINES}
     if family not in families:
         raise ValueError(f"Unknown model family {family!r}")
     e = cfg.encoder
-    if e.int8_text:
-        raise NotImplementedError("the int8 BERT body is not ported yet (ROADMAP.md)")
     dev = resolve_device(device)
     model = families[family](cfg)
     if not e.finetune_text:
         model.encoders.bbert.bert.requires_grad_(False)
-        if e.frozen_text_bf16 and compute_dtype(cfg) == torch.bfloat16:
+        if e.frozen_text_bf16 and not e.int8_text and compute_dtype(cfg) == torch.bfloat16:
             model.encoders.bbert.bert.to(torch.bfloat16)
     return model.to(dev).train(train)

@@ -3,9 +3,10 @@
 Counterpart of multimodalrouting_tpu/ops/capsule.py. All routing math runs
 in float32 whatever the compute dtype, and the outputs are cast back to the
 pose dtype. The canonical mode (softmax_out, ONES acts, not uniform, no
-dropout) on CUDA tensors goes to the fused Hopper kernel K3
-(``ops/fused_capsule.py``); every other mode, and every CPU call, runs the
-plain program below.
+dropout) goes to K3's wrapper (``ops/fused_capsule.py``): the fused Hopper
+kernel on CUDA tensors, this plain program on CPU tensors, decided inside
+the wrapper so that a program traced on the CPU keeps the kernel's op;
+every other mode runs the plain program below.
 
 Shapes:
     pose  [B, N, A]    primary capsule poses (N = #routes, A = pc_dim)
@@ -134,13 +135,9 @@ def capsule_routing(
     if act.dim() != 2:
         raise ValueError(f"act must be [B,N] or [B,N,1], got {tuple(act.shape)}")
     dropout = dropout_rate > 0.0 and generator is not None
-    if (
-        pose.is_cuda
-        and mode == "softmax_out"
-        and act_type == "ONES"
-        and not uniform_routing
-        and not dropout
-    ):
+    if mode == "softmax_out" and act_type == "ONES" and not uniform_routing and not dropout:
+        # K3's wrapper on any device (the plain program on a CPU tensor), so
+        # that a program exported on the CPU reaches the kernel on the card
         from multimodalrouting_tpu_torch.ops.fused_capsule import capsule_routing_fused
 
         p, a, c = capsule_routing_fused(pose, act, w, num_iters)

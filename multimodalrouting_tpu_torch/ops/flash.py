@@ -20,11 +20,14 @@ forward and ``csrc/flash_attention_bwd.cu`` backward, each wrapper under its
 own launch counters (``.launches`` forward, ``.bwd_launches`` backward). On
 a CPU tensor they run the plain versions ``segment_attention_reference``
 and ``segment_attention_bwd_reference``; on a CUDA tensor they launch the
-kernel or raise. Under a gradient they go through ``SegmentAttention``, an
-autograd Function whose forward also keeps each row's log-sum-exp and whose
-backward takes di = rowsum(o * do) from the saved output with the di kernel
-that K2 launches too (``csrc/attention_bwd.cuh``), ahead of its two product
-kernels, as the upstream backward takes it from XLA before its kernels.
+kernel or raise. Without a gradient the forward goes through the custom op
+``mmr::segment_attention`` (the mode, flash or splash, an argument), so that
+``torch.export`` keeps the kernel in a serving program. Under a gradient
+they go through ``SegmentAttention``, an autograd Function whose forward
+also keeps each row's log-sum-exp and whose backward takes di = rowsum(o *
+do) from the saved output with the di kernel that K2 launches too
+(``csrc/attention_bwd.cuh``), ahead of its two product kernels, as the
+upstream backward takes it from XLA before its kernels.
 
 ``attention_fwd_tiled_reference`` is the plain version of the bf16 forward
 kernel (K1's and K4's) in its own order, key tile by key tile; only the
@@ -265,17 +268,17 @@ class SegmentAttention(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
-def _segment_attention(q, k, v, kv_mask, counter) -> torch.Tensor:
+def _segment_attention(q, k, v, kv_mask, mode: str) -> torch.Tensor:
+    """The wrappers' body; `mode` (flash | splash) names the wrapper whose
+    counts the launches add to."""
     n, t, h, dh = q.shape
     if not supports(t, k.shape[1], dh):
         raise ValueError(f"segment attention unsupported for T={t}, head_dim={dh}")
     if kv_mask is None:
         kv_mask = torch.ones((n, t), dtype=torch.float32, device=q.device)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        return SegmentAttention.apply(q, k, v, kv_mask.float(), counter)
-    if q.device.type == "cpu":
-        return segment_attention_reference(q, k, v, kv_mask)
-    return segment_attention_fwd(q, k, v, kv_mask, False, counter)[0]
+        return SegmentAttention.apply(q, k, v, kv_mask.float(), _COUNTERS[mode])
+    return torch.ops.mmr.segment_attention(q, k, v, kv_mask, mode)
 
 
 def flash_self_attention(
@@ -285,7 +288,7 @@ def flash_self_attention(
     kv_mask: Optional[torch.Tensor],  # [N, T], 1 = valid
 ) -> torch.Tensor:
     """K4a: segment attention -> [N, T, H, dh] in q's dtype."""
-    return _segment_attention(q, k, v, kv_mask, flash_self_attention)
+    return _segment_attention(q, k, v, kv_mask, "flash")
 
 
 def splash_self_attention(
@@ -295,9 +298,32 @@ def splash_self_attention(
     kv_mask: Optional[torch.Tensor],  # [N, T], 1 = valid
 ) -> torch.Tensor:
     """K4b: the same function through the same kernels, counted apart."""
-    return _segment_attention(q, k, v, kv_mask, splash_self_attention)
+    return _segment_attention(q, k, v, kv_mask, "splash")
 
 
 for _wrapper in (flash_self_attention, splash_self_attention):
     _wrapper.launches = 0
     _wrapper.bwd_launches = 0
+_COUNTERS = {"flash": flash_self_attention, "splash": splash_self_attention}
+
+
+@torch.library.custom_op("mmr::segment_attention", mutates_args=(), device_types="cuda")
+def _segment_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_mask: torch.Tensor,
+                          mode: str) -> torch.Tensor:
+    """K4's forward without a gradient as the custom op
+    ``mmr::segment_attention`` (what a ``torch.export`` program calls), `mode`
+    "flash" (K4a) or "splash" (K4b) naming the wrapper whose count the launch
+    adds to."""
+    return segment_attention_fwd(q, k, v, kv_mask, False, _COUNTERS[mode])[0]
+
+
+@_segment_attention_op.register_kernel("cpu")
+def _segment_attention_cpu(q, k, v, kv_mask, mode):
+    if mode not in _COUNTERS:
+        raise ValueError(f"mode is flash or splash, got {mode!r}")
+    return segment_attention_reference(q, k, v, kv_mask).contiguous()
+
+
+@_segment_attention_op.register_fake
+def _segment_attention_fake(q, k, v, kv_mask, mode):
+    return q.new_empty(q.shape)

@@ -8,10 +8,12 @@ made on either side. On the chunk-BERT grid (128 chunks x 512 tokens, 12
 heads of 64) K1 runs once per BERT layer, and K2 once per fine-tuned layer
 in the backward.
 
-``packed_attention`` is the entry point. Without a gradient it runs K1
+``packed_attention`` is the entry point. Without a gradient it calls the
+custom op ``mmr::packed_attention``, which runs K1
 (``csrc/packed_attention.cu``) on a CUDA tensor, or raises, and
 ``packed_attention_reference``, the plain version with the TPU kernel's
-arithmetic order, on a CPU tensor. Under a gradient it goes through
+arithmetic order, on a CPU tensor; as an op, the kernel is a node that
+``torch.export`` keeps in a serving program (``artifact.py``). Under a gradient it goes through
 ``PackedAttention``, an autograd Function whose forward is the same and also
 keeps K1's per-row log-sum-exp and its output, and whose backward is
 ``packed_attention_bwd``: K2 (``csrc/packed_attention_bwd.cu``) on CUDA
@@ -251,9 +253,26 @@ def packed_attention(
         if not supports_packed_bwd(t, head_dim):
             raise ValueError(f"packed attention under a gradient needs T <= {MAX_T_BWD}, got T={t}")
         return PackedAttention.apply(q, k, v, kv_mask.float(), num_heads)
-    if q.device.type == "cpu":
-        return packed_attention_reference(q, k, v, kv_mask, num_heads)
+    return torch.ops.mmr.packed_attention(q, k, v, kv_mask, num_heads)
+
+
+@torch.library.custom_op("mmr::packed_attention", mutates_args=(), device_types="cuda")
+def _packed_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_mask: torch.Tensor,
+                         num_heads: int) -> torch.Tensor:
+    """K1's forward without a gradient as the custom op ``mmr::packed_attention``
+    (what a ``torch.export`` program calls): the wrapper's launch on CUDA
+    tensors, counted there."""
     return packed_attention_fwd(q, k, v, kv_mask, num_heads, want_lse=False)[0]
+
+
+@_packed_attention_op.register_kernel("cpu")
+def _packed_attention_cpu(q, k, v, kv_mask, num_heads):
+    return packed_attention_reference(q, k, v, kv_mask, num_heads).contiguous()
+
+
+@_packed_attention_op.register_fake
+def _packed_attention_fake(q, k, v, kv_mask, num_heads):
+    return q.new_empty(q.shape)
 
 
 packed_attention.launches = 0

@@ -7,7 +7,9 @@ batch rows, the votes resident in the CTAs' shared memory across
 iterations; it reads fp32 or bf16 inputs as they are and writes fp32.
 ``capsule_routing_fused`` launches it on CUDA
 tensors (or raises) and runs ``capsule_routing_reference``, the plain
-version, on CPU tensors. Under a gradient it goes through
+version, on CPU tensors; without a gradient it does so through the custom
+op ``mmr::capsule_routing``, which ``torch.export`` keeps in a serving
+program. Under a gradient it goes through
 ``FusedCapsuleRouting``, an autograd Function with that forward whose
 backward recomputes the plain program under autograd and returns its VJP,
 as pallas_capsule.py does: the JAX package has no backward kernel for K3.
@@ -60,9 +62,7 @@ def capsule_routing_fused(
     """-> (decision pose [B,M,D], decision act [B,M], coef [B,N,M]), fp32."""
     if torch.is_grad_enabled() and (pose.requires_grad or act.requires_grad or w.requires_grad):
         return FusedCapsuleRouting.apply(pose, act, w, int(num_iters))
-    if pose.device.type == "cpu":
-        return capsule_routing_reference(pose, act, w, num_iters)
-    return _launch(pose, act, w, num_iters)
+    return torch.ops.mmr.capsule_routing(pose, act, w, int(num_iters))
 
 
 _ENTRY = {torch.float32: "capsule_routing_f32", torch.bfloat16: "capsule_routing_bf16"}
@@ -108,3 +108,25 @@ def empty_launch(device) -> None:
 
 
 capsule_routing_fused.launches = 0
+
+
+@torch.library.custom_op("mmr::capsule_routing", mutates_args=(), device_types="cuda")
+def _capsule_routing_op(pose: torch.Tensor, act: torch.Tensor, w: torch.Tensor,
+                        num_iters: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K3 without a gradient as the custom op ``mmr::capsule_routing`` (what
+    a ``torch.export`` program calls): ``_launch`` on CUDA tensors, counted
+    there."""
+    return _launch(pose, act, w, num_iters)
+
+
+@_capsule_routing_op.register_kernel("cpu")
+def _capsule_routing_cpu(pose, act, w, num_iters):
+    return tuple(x.contiguous() for x in capsule_routing_reference(pose, act, w, num_iters))
+
+
+@_capsule_routing_op.register_fake
+def _capsule_routing_fake(pose, act, w, num_iters):
+    b, n, _ = pose.shape
+    m, d = w.shape[2], w.shape[3]
+    f32 = torch.float32
+    return pose.new_empty((b, m, d), dtype=f32), pose.new_empty((b, m), dtype=f32), pose.new_empty((b, n, m), dtype=f32)

@@ -127,7 +127,7 @@ def test_parser_matches_the_jax_cli(cmd, monkeypatch):
     got = {k: v for k, v in _describe(tcli.build_parser()).items() if k[0] == cmd}
     device = got.pop((cmd, ("--device",)), None)
     assert got == ref
-    if cmd in ("train", "unimodal", "eval", "predict"):
+    if cmd in ("train", "unimodal", "eval", "predict", "interpret"):
         assert device == ("device", "cuda", ["cuda", "cpu"], False, None, None, None, "_StoreAction", None)
     else:
         assert device is None
@@ -209,12 +209,8 @@ PHENO_ATTEN_MULT = os.path.join(os.path.dirname(__file__), "..", "configs", "phe
     (["train", "--set", "train.ckpt_backend=orbax_async"], "item 13"),
     (["eval", "--ckpt", "ORBAX"], "item 13"),
     (["predict", "--ckpt", "ORBAX"], "item 13"),
-    (["predict", "--artifact", "x", "--family", "trimf"], "item 11"),
-    (["predict", "--artifact", "x"], "item 11"),
-    (["predict", "--ckpt", "x", "--export-artifact", "y"], "item 11"),
     (["unimodal", "--modality", "note", "--impressions-csv", "x"], "item 10"),
     (["etl", "varmap", "--data-dir", "x", "--out", "y"], "item 10"),
-    (["interpret", "--ckpt", "x"], "item 9"),
 ])
 def test_unported_options_raise_naming_their_roadmap_item(argv, item, tmp_path):
     if argv[0] == "train":
@@ -241,6 +237,70 @@ def test_formerly_unported_options_now_run(argv, tmp_path):
     assert rc == 0 and summary["epochs_ran"] == 1 and np.isfinite(summary["best_val_auroc"])
     assert ("[text-cache]" in text) == ("encoder.text_embedding_cache=true" in argv)
     shutil.rmtree(tmp_path / "final")  # ~0.2 GB of train state: keep the suite's disk small
+
+
+@pytest.fixture(scope="module")
+def exported(two_epochs, tmp_path_factory):
+    """`cli predict --export-artifact` of the two-epoch run's checkpoint."""
+    art = str(tmp_path_factory.mktemp("cli") / "art")
+    rc, text = run(tcli.main, ["predict", "--ckpt", two_epochs[0], "--export-artifact", art, "--device", "cpu"])
+    assert rc == 0 and json.loads(text.strip().splitlines()[-1]) == {"artifact": art, "platforms": ["cpu"]}
+    return art
+
+
+@pytest.fixture(scope="module")
+def gated_ckpt(tmp_path_factory):
+    """A seeded gated-concat checkpoint (learned gate) at the tiny widths."""
+    cfg = tc.apply_overrides(tc.Config(), TINY_SETS)
+    torch.manual_seed(0)
+    out = str(tmp_path_factory.mktemp("cli") / "gated")
+    save_checkpoint(os.path.join(out, "final"), build_model(cfg, "gated_concat", device="cpu").state_dict(), cfg)
+    return out
+
+
+@pytest.mark.parametrize("case", ["artifact_any_family", "artifact", "export_artifact", "interpret"])
+def test_formerly_unported_predict_and_interpret_run(case, two_epochs, exported, gated_ckpt, tmp_path):
+    """The serving artifact (ROADMAP.md §1 item 11) and `cli interpret` (item
+    9) run: an artifact serves its own family whatever --family says, a
+    checkpoint exports, the gated sweep writes its CSV."""
+    out = str(tmp_path / "out")
+    argv = {
+        "artifact_any_family": ["predict", "--artifact", exported, "--family", "trimf", "--out", out],
+        "artifact": ["predict", "--artifact", exported, "--out", out],
+        "export_artifact": ["predict", "--ckpt", two_epochs[0], "--export-artifact", out],
+        "interpret": ["interpret", "--ckpt", gated_ckpt, "--out-csv", out, "--n-mc", "2"],
+    }[case]
+    rc, text = run(tcli.main, [*argv, "--device", "cpu"])
+    assert rc == 0
+    if case.startswith("artifact"):
+        with open(out) as f:
+            rows = [json.loads(line) for line in f]
+        assert len(rows) == TINY_SETS["data.synthetic_n"] and len(rows[0]["top_routes"]) == 3
+    elif case == "export_artifact":
+        assert sorted(os.listdir(out)) == ["meta.json", "program.pt2"]
+    else:
+        with open(out) as f:
+            table = list(csv.reader(f))
+        assert len(table) == 1 + TINY_SETS["data.synthetic_n"] and "gate__LNI" in table[0]
+        assert "block means:" in text and f"wrote {len(table) - 1} rows" in text
+
+
+def test_cli_export_and_serve(two_epochs, exported, tmp_path):
+    """`predict --artifact` scores the split as `predict --ckpt` does (the JAX
+    test's tolerance), and the flags refuse each other."""
+    paths = {}
+    for flag, src in (("--artifact", exported), ("--ckpt", two_epochs[0])):
+        paths[flag] = str(tmp_path / f"{flag[2:]}.jsonl")
+        rc, _ = run(tcli.main, ["predict", flag, src, "--out", paths[flag], "--device", "cpu"])
+        assert rc == 0
+    rows = {flag: [json.loads(line) for line in open(path)] for flag, path in paths.items()}
+    np.testing.assert_allclose([r["probs"] for r in rows["--artifact"]], [r["probs"] for r in rows["--ckpt"]],
+                               rtol=1e-5, atol=1e-6)
+    assert [r["top_routes"] for r in rows["--artifact"]] == [r["top_routes"] for r in rows["--ckpt"]]
+    for argv in (["predict", "--ckpt", two_epochs[0], "--artifact", exported], ["predict"],
+                 ["predict", "--artifact", exported, "--export-artifact", str(tmp_path / "again")]):
+        with pytest.raises(SystemExit):
+            tcli.main([*argv, "--device", "cpu"])
 
 
 def test_a_multi_host_environment_raises(monkeypatch, tmp_path):

@@ -2,8 +2,8 @@
 FAME++ curriculum uni -> bi -> tri (loss-based gate, configs/fame_missing.yaml)
 and the gated-concat curriculum step1 -> step2 -> step3, each stage warm
 started with --init-from; eval (with the drop table) and predict on a
-non-capsule family; LateFusion and TriMF; the 7-route capsule head; and the
-options that still raise."""
+non-capsule family; LateFusion and TriMF; the 7-route capsule head; a
+FAME++ serving artifact; and the options that still raise."""
 import json
 import os
 import shutil
@@ -184,9 +184,27 @@ def test_per_route_mult_train_eval_predict(tmp_path):
     shutil.rmtree(out)  # ~0.2 GB of train state: keep the suite's disk small
 
 
+def test_formerly_unported_fame_artifact_serves(fame_chain, tmp_path):
+    """`predict --artifact --family fame` (ROADMAP.md §1 item 11) runs: the
+    loss-based FAME++ checkpoint exported with its route-loss EMA serves the
+    test split as the checkpoint does (the JAX artifact test's tolerance)."""
+    art, probs = str(tmp_path / "art"), {}
+    rc, _ = run(tcli.main, ["predict", "--ckpt", fame_chain["tri"], "--family", "fame", "--export-artifact", art,
+                            "--device", "cpu"])
+    assert rc == 0
+    for flag, src in (("--artifact", art), ("--ckpt", fame_chain["tri"])):
+        out = str(tmp_path / f"{flag[2:]}.jsonl")
+        rc, _ = run(tcli.main, ["predict", flag, src, "--family", "fame", "--out", out, "--device", "cpu"])
+        with open(out) as f:
+            probs[flag] = [json.loads(line)["probs"] for line in f]
+        assert rc == 0 and len(probs[flag]) == SETS["data.synthetic_n"]
+    np.testing.assert_allclose(probs["--artifact"], probs["--ckpt"], rtol=1e-5, atol=1e-6)
+    with open(os.path.join(art, "meta.json")) as f:
+        assert json.load(f)["family"] == "fame"
+
+
 @pytest.mark.parametrize("argv, item", [
     (["unimodal", "--modality", "omop", "--inspect-csv", "x"], "item 10"),
-    (["predict", "--artifact", "x", "--family", "fame"], "item 11"),
 ])
 def test_what_is_not_ported_still_raises(argv, item, tmp_path):
     if argv[0] == "train":

@@ -572,3 +572,91 @@ def test_attention_bwd_refuses_unsupported_shapes(cuda):
         with pytest.raises(ValueError, match="T=320"):
             attention_bwd_di(y4, y4)
     assert (packed_attention_bwd.launches, flash_self_attention.bwd_launches, attention_bwd_di.launches) == before
+
+
+# --- the kernels as custom ops (what a torch.export serving program calls) ---
+
+
+def _op_case(name, dev):
+    """(op, its arguments on `dev`, (wrapper, counter attribute) it adds to)."""
+    g = torch.Generator().manual_seed(1)
+    if name == "capsule_routing":
+        pose, act = torch.randn(16, 10, 32, generator=g), torch.rand(16, 10, generator=g)
+        w = capsule_weight_init(10, 32, 2, 64, generator=g)
+        return torch.ops.mmr.capsule_routing.default, (pose.to(dev), act.to(dev), w.to(dev), 3), (
+            capsule_routing_fused, "launches")
+    q, k, v = (torch.randn(2, 256, 128, generator=g).to(dev, torch.bfloat16) for _ in range(3))
+    m = torch.ones(2, 256, device=dev)
+    m[0, 200:] = 0.0
+    if name == "packed_attention":
+        return torch.ops.mmr.packed_attention.default, (q, k, v, m, 2), (packed_attention, "launches")
+    wrapper = flash_self_attention if name == "flash" else splash_self_attention
+    q4, k4, v4 = (x.unflatten(2, (2, 64)) for x in (q, k, v))
+    return torch.ops.mmr.segment_attention.default, (q4, k4, v4, m, name), (wrapper, "launches")
+
+
+OPS = ["packed_attention", "flash", "splash", "capsule_routing"]
+
+
+COUNTERS = ((packed_attention, "launches"), (flash_self_attention, "launches"),
+            (splash_self_attention, "launches"), (capsule_routing_fused, "launches"),
+            (packed_attention_bwd, "launches"), (flash_self_attention, "bwd_launches"),
+            (splash_self_attention, "bwd_launches"))
+
+
+def _counts():
+    return [getattr(fn, attr) for fn, attr in COUNTERS]
+
+
+@pytest.mark.parametrize("name", OPS)
+def test_custom_op_launches_its_kernel_once(cuda, name):
+    """Each custom op on CUDA tensors launches its kernel through the
+    wrapper, adding one to that wrapper's count and nothing elsewhere, with
+    the bits of the wrapper's own launch."""
+    op, args, counter = _op_case(name, cuda)
+    before = _counts()
+    got = op(*args)
+    torch.cuda.synchronize()
+    moved = [a - b for a, b in zip(_counts(), before)]
+    assert moved == [int(c == counter) for c in COUNTERS]
+    if name == "capsule_routing":
+        ref = capsule_routing_fused(*args)
+    elif name == "packed_attention":
+        ref = packed_attention_fwd(*args, want_lse=False)[0]
+    else:
+        ref = segment_attention_fwd(*args[:4], False, counter[0])[0]
+    for a, b in zip(got if isinstance(got, tuple) else (got,), ref if isinstance(ref, tuple) else (ref,)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name", OPS)
+def test_custom_op_passes_opcheck_on_cuda(cuda, name):
+    """torch.library.opcheck: the schema, the fake (meta) implementation
+    against the kernel's outputs, and tracing through AOT dispatch."""
+    op, args, _ = _op_case(name, cuda)
+    torch.library.opcheck(op, args)
+
+
+def test_int8_matmul_on_the_card_is_the_exact_integer_product(cuda):
+    """ops/quant.int8_matmul (torch._int_mm) at BERT-base's shapes (768 ->
+    3072, rows > 16) against the int32 product on the CPU, bit for bit."""
+    from multimodalrouting_tpu_torch.ops.quant import int8_matmul, quantize_per_channel, quantize_per_token
+
+    g = torch.Generator().manual_seed(2)
+    x, w = torch.randn(2, 40, 768, generator=g), torch.randn(3072, 768, generator=g) * 0.02
+    xq, _ = quantize_per_token(x)
+    wq, _ = quantize_per_channel(w, axis=1)
+    got = int8_matmul(xq.to(cuda), wq.to(cuda).t())
+    ref = (xq.reshape(-1, 768).long() @ wq.t().long()).reshape(2, 40, 3072)
+    assert got.dtype == torch.int32 and torch.equal(got.cpu().long(), ref)
+
+
+def test_int8_matmul_on_the_card_takes_more_than_16_rows(cuda):
+    """The card's _int_mm refuses 16 rows or fewer: the int8 body's products
+    are over every token of the chunk batch, far above it."""
+    from multimodalrouting_tpu_torch.ops.quant import int8_matmul
+
+    xq = torch.ones(16, 768, dtype=torch.int8, device=cuda)
+    wq = torch.ones(768, 64, dtype=torch.int8, device=cuda)
+    with pytest.raises(RuntimeError):
+        int8_matmul(xq, wq)

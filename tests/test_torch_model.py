@@ -290,17 +290,22 @@ def test_per_route_mult_branch_builds(over):
 
 @pytest.mark.parametrize("over", [{"encoder.vision_backbone": "densenet121"}, {"encoder.int8_text": True}])
 def test_unported_branches_raise(over):
-    """The int8 BERT body raises naming ROADMAP.md. DenseNet-121 was on this
-    list until it was ported: it now builds and serves."""
+    """The branches that raised naming ROADMAP.md until they were ported now
+    build and serve: DenseNet-121 and the int8 BERT body
+    (ops/quant.py, every BERT matmul a QuantDense; tests/test_torch_quant.py
+    holds it against the JAX package)."""
+    from multimodalrouting_tpu_torch.ops.quant import QuantDense
+
     _, tcfg = _cfgs(**over)
+    model = build_model(tcfg, device="cpu")
+    with torch.no_grad():
+        out = model(torch_batch(tiny_batch(n=2, seed=1)))
+    assert tuple(out.logits.shape) == (2, 2) and torch.isfinite(out.logits).all()
     if over.get("encoder.vision_backbone") == "densenet121":
-        model = build_model(tcfg, device="cpu")
-        with torch.no_grad():
-            out = model(torch_batch(tiny_batch(n=2, seed=1)))
-        assert model.encoders.imgenc.backbone.out_channels == 1024 and tuple(out.logits.shape) == (2, 2)
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(tcfg, device="cpu")
+        assert model.encoders.imgenc.backbone.out_channels == 1024
+    else:
+        layer = model.encoders.bbert.bert.layer_0
+        assert all(isinstance(m, QuantDense) for m in (layer.intermediate, layer.output, layer.attention.attn.q_proj))
 
 
 def test_bridge_checks_coverage(served):
