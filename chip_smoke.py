@@ -137,7 +137,19 @@ toolkit. It
    logits equal to the model's, f(obs) = G + UC + BI + TI to fp32 rounding,
    against the fp32 sweep on the CPU with the same permutations, then `cli
    interpret --out-csv` with the JAX package's columns;
-23. prints a {"kernels": [...]} line (each kernel with its launches on its
+23. the data layer (phase_data): a seeded raw MIMIC-IV-style csv.gz dump
+   of 192 patients through `cli etl varmap | cohort | export --max-len 512
+   --max-chunks 8` (stays/s, the tokenizer chosen, the native binner), 320^2
+   JPEGs at the exported paths, then `cli train` of the full-width flagship
+   on the export (24 x 17 labs) for one epoch, `cli eval --drop-table` and
+   `cli predict --split test` (K1 = 12 and K3 = 1 per forward and per frozen
+   step; each prediction with its stay_id), has_i exactly where a JPEG
+   decoded, a timed frozen step at the export's note pack, one streamed
+   epoch over exactly the dense train split's stays (the same launches),
+   prefetch_to_device bit-equal to batch_to, the INSPECT note driver with a
+   native WordPiece built by g++ (K1 = 12 per embedding minibatch), and `cli
+   etl medfuse | inspect | legacy` (no kernel);
+24. prints a {"kernels": [...]} line (each kernel with its launches on its
    own path and on every path), the card's name and power limit, and the
    {"ok": true, "device": ...} line last.
 
@@ -2903,6 +2915,476 @@ def phase_interpret(dev, tmp: str) -> dict:
     return out
 
 
+# --- the data layer: raw csv.gz -> cli etl -> cli train | eval | predict ----
+
+# the 17 canonical variables' dictionary rows (data/varmap.py:VAR_CFG's
+# patterns), each with a plausible value range and unit
+CHART_ITEMS = (  # (itemid, label, abbreviation, unit, low, high)
+    (220045, "Heart Rate", "HR", "bpm", 55, 130),
+    (220179, "Systolic Blood Pressure", "NBPs", "mmHg", 85, 170),
+    (220180, "Diastolic Blood Pressure", "NBPd", "mmHg", 40, 95),
+    (220181, "Mean Blood Pressure", "NBPm", "mmHg", 55, 115),
+    (220210, "Respiratory Rate", "RR", "insp/min", 10, 32),
+    (223762, "Temperature Celsius", "Temp C", "°C", 35.5, 39.5),
+    (220277, "O2 saturation pulseoxymetry", "SpO2", "%", 86, 100),
+)
+LAB_ITEMS = (  # (itemid, label, unit, low, high)
+    (50983, "Sodium", "mEq/L", 128, 150), (50971, "Potassium", "mEq/L", 3.0, 5.6),
+    (50902, "Chloride", "mEq/L", 94, 112), (50882, "Bicarbonate", "mEq/L", 16, 32),
+    (51006, "Urea Nitrogen", "mg/dL", 6, 60), (50912, "Creatinine", "mg/dL", 0.5, 4.0),
+    (50931, "Glucose", "mg/dL", 70, 260), (51221, "Hematocrit", "%", 22, 48),
+    (51301, "White Blood Cells", "K/uL", 3, 22), (51265, "Platelet Count", "K/uL", 60, 420),
+)
+NOTE_WORDS = ("patient", "admitted", "with", "acute", "on", "chronic", "respiratory", "failure", "and", "sepsis",
+              "blood", "pressure", "stable", "overnight", "metoprolol", "mg", "po", "bid", "prn", "iv", "daily",
+              "dose", "history", "of", "no", "known", "drug", "allergies", "intubated", "sedated", "lungs",
+              "clear", "bilateral", "infiltrates", "effusion", "cxr", "shows", "improved", "worsened", "plan",
+              "continue", "monitor", "lactate", "creatinine", "urine", "output", "fluids", "pressors",
+              "weaned", "extubated", "tolerating", "diet", "family", "meeting", "goals", "care", "the", "a")
+DATA_PATIENTS = 192
+
+
+def write_raw_mimic_dump(d: str, seed: int, n: int = DATA_PATIENTS) -> dict:
+    """A raw MIMIC-IV-style csv.gz dump under `d`, from `seed` with numpy,
+    as tests/test_etl.py builds one but at a cohort's mix: `n` patients
+    (~95% adults), ICU stays of 50-240 h (~8% shorter than 48 h), ~12%
+    in-hospital deaths after the observation window, ICD-9 diagnoses,
+    d_items / d_labitems rows for all 17 canonical variables with chart
+    events every ~2 h and lab events every ~8 h over the first 50 h, notes
+    of ~300-4,000 words in 1-3 parts (~10% of admissions without one,
+    de-identification brackets included) and CXR metadata (one study in the
+    first 48 h) for about half of the patients. -> counts of what it wrote."""
+    import pandas as pd
+
+    os.makedirs(d, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    base = pd.Timestamp("2150-01-01")
+    sid, hadm, stay = np.arange(n) + 10000, np.arange(n) + 20000, np.arange(n) + 30000
+    intime = base + pd.to_timedelta(rng.integers(0, 24 * 365, n), "h")
+    los_h = np.where(rng.random(n) < 0.08, rng.uniform(20, 47, n), rng.uniform(50, 240, n))
+    outtime = intime + pd.to_timedelta(np.round(los_h * 60), "m")
+    dead = rng.random(n) < 0.12
+    frames = {
+        "patients": pd.DataFrame({"subject_id": sid, "gender": rng.choice(["M", "F"], n), "anchor_year": 2150,
+                                  "anchor_age": np.where(rng.random(n) < 0.05, rng.integers(15, 18, n),
+                                                         rng.integers(18, 91, n))}),
+        "icustays": pd.DataFrame({"subject_id": sid, "hadm_id": hadm, "stay_id": stay, "intime": intime,
+                                  "outtime": outtime}),
+        "admissions": pd.DataFrame({"subject_id": sid, "hadm_id": hadm, "admittime": intime - pd.Timedelta(hours=6),
+                                    "dischtime": outtime + pd.Timedelta(hours=30),
+                                    "deathtime": pd.Series(outtime).where(dead), "hospital_expire_flag": dead.astype(int)}),
+        "diagnoses_icd": pd.DataFrame({"hadm_id": np.repeat(hadm, 2), "icd_version": 9,
+                                       "icd_code": rng.choice(["4280", "49121", "5849", "0389", "4019"], 2 * n)}),
+        "d_items": pd.DataFrame([{"itemid": i, "label": lab, "abbreviation": ab, "linksto": "chartevents",
+                                  "unitname": u} for i, lab, ab, u, _, _ in CHART_ITEMS]),
+        "d_labitems": pd.DataFrame([{"itemid": i, "label": lab, "fluid": "Blood", "unitname": u}
+                                    for i, lab, u, _, _ in LAB_ITEMS]).assign(fluid="blood"),
+    }
+    ce, le = [], []
+    for k in range(n):
+        hours = np.arange(0.0, 50.0, 2.0) + rng.uniform(0, 1.5, 25)
+        for i, _, _, u, lo, hi in CHART_ITEMS:
+            ce.append(pd.DataFrame({"stay_id": stay[k], "itemid": i, "valueuom": u,
+                                    "charttime": intime[k] + pd.to_timedelta(np.round(hours * 60), "m"),
+                                    "valuenum": np.round(rng.uniform(lo, hi, len(hours)), 1)}))
+        hours = np.arange(1.0, 50.0, 8.0) + rng.uniform(0, 3, 7)
+        for i, _, u, lo, hi in LAB_ITEMS:
+            le.append(pd.DataFrame({"hadm_id": hadm[k], "itemid": i, "valueuom": u,
+                                    "charttime": intime[k] + pd.to_timedelta(np.round(hours * 60), "m"),
+                                    "valuenum": np.round(rng.uniform(lo, hi, len(hours)), 2)}))
+    frames["chartevents"], frames["labevents"] = pd.concat(ce), pd.concat(le)
+    notes = []
+    for k in np.flatnonzero(rng.random(n) >= 0.10):
+        words = int(rng.uniform(300, 4000))
+        parts = np.array_split(rng.choice(NOTE_WORDS, words), int(rng.integers(1, 4)))
+        for j, part in enumerate(parts):
+            text = " ".join(part) + f". Seen by [**Doctor {k}**] on [**2150-01-0{j + 1}**]."
+            notes.append({"hadm_id": hadm[k], "charttime": intime[k] + pd.Timedelta(hours=float(rng.uniform(1, 46))),
+                          "text": text})
+    frames["notes"] = pd.DataFrame(notes)
+    with_cxr = np.flatnonzero(rng.random(n) < 0.5)
+    study = intime[with_cxr] + pd.to_timedelta(np.round(rng.uniform(1, 46, len(with_cxr)) * 60), "m")
+    frames["cxr_metadata"] = pd.DataFrame({
+        "subject_id": sid[with_cxr], "study_id": 50000000 + with_cxr, "dicom_id": [f"d{k:05d}cxr" for k in with_cxr],
+        "StudyDate": study.strftime("%Y%m%d").astype(int), "StudyTime": study.strftime("%H%M%S").astype(float)})
+    for name, df in frames.items():
+        df.to_csv(os.path.join(d, f"{name}.csv.gz"), index=False, compression="gzip")
+    return {name: len(df) for name, df in frames.items()}
+
+
+def write_cxr_jpegs(export_dir: str, image_root: str, seed: int, size: int = 320) -> int:
+    """A size^2 grayscale JPEG at every exported cxr_path under `image_root`
+    (MIMIC-CXR-JPG's layout) -> how many."""
+    import pandas as pd
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:size, :size]
+    n = 0
+    for p in pd.read_parquet(os.path.join(export_dir, "images_48h.parquet"))["cxr_path"]:
+        if isinstance(p, str) and p:
+            full = os.path.join(image_root, p)
+            os.makedirs(os.path.dirname(full), exist_ok=True)
+            lungs = 120 + 60 * np.cos((xx - size / 2) / size * 6) * np.exp(-((yy - size / 2) / size) ** 2 * 4)
+            arr = np.clip(lungs + rng.normal(0, 18, (size, size)), 0, 255).astype(np.uint8)
+            Image.fromarray(arr, mode="L").save(full, format="JPEG", quality=90)
+            n += 1
+    return n
+
+
+def write_impressions(d: str, seed: int, n: int = 96) -> tuple:
+    """An INSPECT impressions CSV of `n` patients (1-2 impressions each, a few
+    hundred words over a written vocab.txt's words) and that vocab.txt, in
+    BERT's special-token layout -> (csv path, vocab path)."""
+    import pandas as pd
+
+    rng = np.random.default_rng(seed)
+    pieces = ["##s", "##ed", "##ing", "##al", "##ly", "##ion"]
+    tokens = ["[PAD]"] + [f"[unused{i}]" for i in range(99)] + ["[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+    tokens += sorted(set(NOTE_WORDS) | {"pulmonary", "embolism", "segmental", "artery", "filling", "defect",
+                                        "scan", "no", "evidence", "emboli", "right", "left", "lobe", ".", ","}) + pieces
+    vocab = os.path.join(d, "vocab.txt")
+    with open(vocab, "w") as f:
+        f.write("\n".join(tokens) + "\n")
+    rows = []
+    for pid in range(n):
+        pe = int(pid % 2)
+        for r in range(1 + int(rng.random() < 0.4)):
+            head = "filling defect in segmental pulmonary artery emboli seen" if pe else "no evidence of emboli"
+            words = " ".join(rng.choice(NOTE_WORDS, int(rng.integers(200, 700))))
+            rows.append({"person_id": pid, "impression_text": f"{head} . {words} , scan {r} .",
+                         "pe_positive_nlp": pe, "1_month_mortality": int(rng.random() < 0.3),
+                         "12_month_PH": int(rng.random() < 0.2), "year_of_birth": int(2130 - rng.integers(20, 95))})
+    csv = os.path.join(d, "radiology_impressions_with_all_labels.csv.gz")
+    pd.DataFrame(rows).to_csv(csv, index=False, compression="gzip")
+    return csv, vocab
+
+
+def write_medfuse_tree(d: str, seed: int, per_split: int = 12) -> str:
+    """A MedFuse benchmark directory (phenotyping: listfiles and per-stay
+    timeseries CSVs; val stays under train/, as MedFuse lays them) -> its
+    root."""
+    rng = np.random.default_rng(seed)
+    root = os.path.join(d, "ehr")
+    classes = ("Acute renal failure", "Septicemia", "Shock")
+    for folder in ("train", "test"):
+        os.makedirs(os.path.join(root, "phenotyping", folder))
+    sid = 1000
+    for split in ("train", "val", "test"):
+        folder = "test" if split == "test" else "train"
+        lines = ["stay,period_length,stay_id," + ",".join(classes)]
+        for k in range(per_split):
+            name = f"{sid}_episode1_timeseries.csv"
+            hours = np.sort(rng.uniform(0, 47, 30))
+            with open(os.path.join(root, "phenotyping", folder, name), "w") as f:
+                f.write("Hours,Heart Rate,Glascow coma scale total\n")
+                f.writelines(f"{h:.2f},{rng.uniform(60, 110):.1f},{rng.integers(3, 16)}\n" for h in hours)
+            lines.append(f"{name},48.0,{sid}," + ",".join(str(int(x)) for x in rng.random(3) < 0.3))
+            sid += 1
+        with open(os.path.join(root, "phenotyping", f"{split}_listfile.csv"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+    with open(os.path.join(d, "channels.json"), "w") as f:
+        json.dump({"id_to_channel": ["Heart Rate", "Glascow coma scale total"],
+                   "is_categorical_channel": {"Heart Rate": False, "Glascow coma scale total": True},
+                   "possible_values": {"Glascow coma scale total": [str(v) for v in range(3, 16)]},
+                   "normal_values": {"Heart Rate": "86", "Glascow coma scale total": "15"}}, f)
+    return root
+
+
+def write_inspect_tree(d: str, seed: int, n: int = 64) -> list:
+    """INSPECT's cohort inputs (metadata / mapping / labels / splits as TSV,
+    impressions, an OMOP condition table) -> `cli etl inspect`'s arguments."""
+    import pandas as pd
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(d, "omop"))
+    imp = np.arange(n) + 1
+    study = pd.Timestamp("2130-01-01") + pd.to_timedelta(rng.integers(0, 3000, n), "D")
+    for name, df in (
+        ("metadata", pd.DataFrame({"impression_id": imp, "modality": "CT"})),
+        ("mapping", pd.DataFrame({"impression_id": imp, "person_id": imp + 700,
+                                  "procedure_DATETIME": study.strftime("%Y-%m-%d")})),
+        ("labels", pd.DataFrame({"impression_id": imp, "person_id": imp + 700, "pe_positive_nlp": imp % 2,
+                                 "1_month_mortality": (rng.random(n) < 0.2).astype(int)})),
+        ("splits", pd.DataFrame({"impression_id": imp[: n // 2], "split_name": rng.choice(["test", "valid"], n // 2)})),
+    ):
+        df.to_csv(os.path.join(d, f"{name}.tsv"), sep="\t", index=False)
+    pd.DataFrame({"impression_id": imp, "impressions": ["PE seen" if i % 2 else "clear" for i in imp]}).to_csv(
+        os.path.join(d, "impressions.csv"), index=False)
+    m = 8 * n
+    pd.DataFrame({"person_id": rng.choice(imp + 700, m), "condition_concept_id": rng.integers(100, 400, m),
+                  "condition_start_DATETIME": (pd.Timestamp("2129-06-01") + pd.to_timedelta(
+                      rng.integers(0, 3600, m), "D")).strftime("%Y-%m-%d")}).to_csv(
+        os.path.join(d, "omop", "condition_occurrence.csv"), index=False)
+    return [a for k in ("metadata", "mapping", "labels", "splits") for a in (f"--{k}", os.path.join(d, f"{k}.tsv"))] + [
+        "--impressions", os.path.join(d, "impressions.csv"), "--omop-dir", os.path.join(d, "omop")]
+
+
+def timed_cli(label: str, argv: list) -> tuple:
+    """run_cli(argv) -> (lines, launches, seconds)."""
+    t0 = time.perf_counter()
+    lines, launches = run_cli(argv)
+    secs = time.perf_counter() - t0
+    log(f"[data] {label}: {secs:.2f}s")
+    return lines, launches, secs
+
+
+def phase_data(dev, tmp: str) -> dict:
+    """The data layer on the card: a raw MIMIC-style csv.gz dump
+    (write_raw_mimic_dump, DATA_PATIENTS patients) through `cli etl varmap |
+    cohort | export --max-len 512 --max-chunks 8` (timed, stays/s, the
+    tokenizer the export chose, the native binner), 320^2 JPEGs at the
+    exported paths, then `cli train` of the flagship (configs/trimodal_mort
+    .yaml at full width on the export's 24 x 17 labs, one epoch): K1 = 12
+    and K3 = 1 per forward and per frozen step, nothing else; `cli eval
+    --drop-table` and `cli predict --split test` (one row per test stay,
+    each with its stay_id); has_i exactly where a JPEG decoded, with
+    non-zero pixels; load_split's time; a frozen step at the export's note
+    pack, timed; one streaming epoch (data.stream=true, the identity
+    sampler) whose stream holds exactly the dense train split's stays, with
+    the same launch counts; prefetch_to_device bit-equal to batch_to over the
+    dense split's batches, both timed; the INSPECT note driver (`cli unimodal
+    --impressions-csv --vocab`, the native WordPiece built by g++ here) at
+    512 x 8 (K1 = 12 per embedding minibatch); then `cli etl medfuse |
+    inspect | legacy` on small written trees (rows, s, no kernel).
+    -> {path: launches}."""
+    import pandas as pd
+
+    from multimodalrouting_tpu_torch.data import images as image_io
+    from multimodalrouting_tpu_torch.data import native_binner, streaming
+    from multimodalrouting_tpu_torch.data.batches import slice_batch
+    from multimodalrouting_tpu_torch.data.loader import prefetch_to_device
+
+    t0 = time.perf_counter()
+    out, none = {}, expected()
+    raw, work = os.path.join(tmp, "data_raw"), os.path.join(tmp, "data")
+    t1 = time.perf_counter()
+    wrote = write_raw_mimic_dump(raw, SEED + 40)
+    log(f"[data] raw dump of {DATA_PATIENTS} patients in {time.perf_counter() - t1:.2f}s: {wrote}")
+
+    # --- ETL, in-process through the CLI ---
+    varmap, cohort, export, images = (os.path.join(work, x) for x in ("varmap.csv", "cohort", "export", "cxr"))
+    lines, launches, secs = timed_cli("etl varmap", ["etl", "varmap", "--data-dir", raw, "--out", varmap])
+    summary = json.loads(lines[-1])
+    require(summary["variables"] == 17 and launches == none, f"etl varmap: {summary}, launches {launches}")
+    lines, launches, secs = timed_cli("etl cohort", [
+        "etl", "cohort", "--data-dir", raw, "--out", cohort, "--varmap", varmap,
+        "--cxr-meta", os.path.join(raw, "cxr_metadata.csv.gz"), "--notes", os.path.join(raw, "notes.csv.gz")])
+    summary = json.loads(lines[-1])
+    stays = summary["stays"]
+    require(native_binner._LIB is not None, "etl cohort did not load the native binner (build/native/libbinner.so)")
+    require(stays > 0.75 * DATA_PATIENTS and launches == none, f"etl cohort: {summary}, launches {launches}")
+    log(f"[data] etl cohort: {stays} stays {summary['splits']}, {stays / secs:.1f} stays/s, native binner")
+    lines, launches, secs = timed_cli("etl export", ["etl", "export", "--cohort", cohort, "--out", export,
+                                                     "--max-len", "512", "--max-chunks", "8"])
+    chosen = [line for line in lines if line.startswith("[tokenizer]")]
+    require(len(chosen) == 1 and launches == none, f"etl export: tokenizer lines {chosen}, launches {launches}")
+    log(f"[data] etl export: {stays / secs:.1f} stays/s; {chosen[0]}")
+    notes = pd.read_parquet(os.path.join(export, "notes_48h.parquet"))
+    struct = pd.read_parquet(os.path.join(export, "structured_48h.parquet"))
+    require(int(struct["bin"].max()) + 1 == 24 and struct.shape[1] == 2 + 17, f"structured {struct.shape}")
+    log(f"[data] note chunks per stay: {notes['n_chunks'].value_counts().sort_index().to_dict()} "
+        f"(shape {notes['shape_s'].iloc[0]} x {notes['shape_l'].iloc[0]})")
+    t1 = time.perf_counter()
+    n_jpeg = write_cxr_jpegs(export, images, SEED + 41)
+    log(f"[data] {n_jpeg} JPEGs (320^2 grayscale) written in {time.perf_counter() - t1:.2f}s")
+
+    # --- the flagship on the export ---
+    yaml = os.path.join(ROOT, "configs", "trimodal_mort.yaml")
+    sets = set_args("data.synthetic=false", f"data.data_root={export}", f"data.image_root={images}",
+                    "encoder.structured_n_feats=17", "encoder.structured_seq_len=24", "train.epochs=1",
+                    "train.min_epochs=0", "train.ckpt_every=0")
+    cfg = load_cfg(yaml, overrides=dict(kv.split("=", 1) for kv in sets[1::2]), environ={})
+    bs = cfg.train.batch_size
+    with open(os.path.join(export, "splits.json")) as f:
+        split_ids = {k: [int(x) for x in v] for k, v in json.load(f).items()}
+    n_tr, n_va, n_te = (len(split_ids[k]) for k in ("train", "val", "test"))
+    steps, val_b, test_b = n_tr // bs, -(-n_va // bs), -(-n_te // bs)
+    run_dir = os.path.join(work, "run")
+    train = ["train", "--family", "capsule", "--task", "mort", "--routes", "10", "--config", yaml, "--out", run_dir,
+             "--device", "cuda", *sets]
+
+    def per_forward(k3: int) -> dict:
+        return expected(packed_attention=12 * k3, capsule_routing=k3)
+
+    # the host seconds spent decoding and transforming images, per command
+    decode = {"s": 0.0, "n": 0}
+    real_loader = image_io.make_image_loader
+
+    def timed_loader(*args, **kw):
+        load = real_loader(*args, **kw)
+
+        def timed(row):
+            t = time.perf_counter()
+            try:
+                return load(row)
+            finally:
+                decode["s"] += time.perf_counter() - t
+                decode["n"] += 1
+        return timed
+
+    image_io.make_image_loader = timed_loader
+    try:
+        lines, launches, secs = timed_cli("cli train", train)
+    finally:
+        image_io.make_image_loader = real_loader
+    summary = json.loads(lines[-1])
+    with open(os.path.join(run_dir, "history.json")) as f:
+        epoch = json.load(f)[0]
+    ckpt = [line for line in lines if line.startswith("[ckpt] final")]
+    log(f"[data] train: {n_tr} stays, {steps} frozen steps of {bs}, epoch {epoch['sec']:.2f}s "
+        f"({steps * bs / epoch['sec']:.1f} stays/s), train_loss {epoch['train_loss']:.5f}; {ckpt}; "
+        f"{decode['n']} image rows decoded in {decode['s']:.3f}s, all in load_split before the epoch "
+        f"({100 * decode['s'] / secs:.1f}% of the command)")
+    require(np.isfinite(epoch["train_loss"]) and np.isfinite(summary["best_val_auroc"]), f"cli train: {summary}")
+    require(launches == per_forward(steps + 2 * val_b),
+            f"cli train launches {launches}, expected K3 = {steps} steps + 2 x {val_b} validation forwards, "
+            f"K1 = 12 per forward")
+    out["data_train"] = launches
+
+    lines, launches, secs = timed_cli("cli eval --drop-table", ["eval", "--ckpt", run_dir, "--drop-table",
+                                                                "--device", "cuda"])
+    rows = [line.split()[0] for line in lines if line.split()[:1] and line.split()[0] in
+            ("full", "dropL", "dropN", "dropI", "rand1")]
+    n_full = (n_te // bs) * bs or n_te
+    require(rows == ["full", "dropL", "dropN", "dropI", "rand1"]
+            and launches == per_forward(test_b + 5 * -(-n_full // bs)), f"cli eval: rows {rows}, launches {launches}")
+    out["data_eval"] = launches
+
+    preds_path = os.path.join(work, "predictions_test.jsonl")
+    lines, launches, secs = timed_cli("cli predict --split test", ["predict", "--ckpt", run_dir, "--split", "test",
+                                                                   "--out", preds_path, "--device", "cuda"])
+    with open(preds_path) as f:
+        preds = [json.loads(line) for line in f]
+    require([p["stay_id"] for p in preds] == split_ids["test"] and all(0.0 <= p["probs"] <= 1.0 for p in preds),
+            f"cli predict: {len(preds)} rows for {n_te} test stays, or stay ids out of order")
+    require(launches == per_forward(test_b), f"cli predict launches {launches}")
+    out["data_predict"] = launches
+    shutil.rmtree(os.path.join(run_dir, "final"))  # ~1 GB of train state, read by eval and predict
+
+    # has_i exactly where a JPEG decoded; load_split's time per split
+    image_rows = pd.read_parquet(os.path.join(export, "images_48h.parquet")).set_index("stay_id")
+    dense = {}
+    for split in ("train", "test"):
+        t1 = time.perf_counter()
+        dense[split], sids = port_cli._load_split(cfg, "mort", split)
+        secs = time.perf_counter() - t1
+        b = dense[split]
+        jpeg = np.array([isinstance(image_rows.loc[s, "cxr_path"], str)
+                         and os.path.exists(os.path.join(images, image_rows.loc[s, "cxr_path"])) for s in sids])
+        pix = np.abs(np.asarray(b.image, np.float32)).reshape(len(sids), -1).sum(1)
+        require(np.array_equal(np.asarray(b.has_i) > 0, jpeg) and bool((pix[jpeg] > 0).all())
+                and bool((pix[~jpeg] == 0).all()), f"{split}: has_i differs from the decoded JPEGs")
+        log(f"[data] load_split {split}: {len(sids)} stays in {secs:.2f}s ({len(sids) / secs:.1f} stays/s), "
+            f"{int(jpeg.sum())} images decoded, {int(np.asarray(b.has_n).sum())} with notes, "
+            f"image {b.image.dtype} {tuple(b.image.shape[1:])}")
+
+    # the frozen step at the export's note pack (the first 16 train stays)
+    sub = slice_batch(dense["train"], 0, bs)
+    cap = note_pack_bucket(cfg, sub)
+    torch.manual_seed(SEED)
+    model = build_model(cfg, device="cuda", train=True)
+    state = create_train_state(cfg, model)
+    step = make_train_step(cfg, model)
+    gen = torch.Generator(device=dev).manual_seed(cfg.train.seed)
+    ms = timed_steps(step, state, batch_to(sub, dev), gen, cap, warmup=2, steps=5)
+    log(f"[data] frozen step at the export's pack: {ms:.2f} ms, note_pack={cap} of {sub.chunk_mask.size} chunk "
+        f"slots ({int(sub.chunk_mask.sum())} valid), as the flagship training phase's cohort packs 96")
+    del model, state, step
+    torch.cuda.empty_cache()
+
+    # prefetch_to_device against batch_to over the dense split's batches
+    batches = [slice_batch(dense["train"], i, bs) for i in range(0, steps * bs, bs)]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    plain = [batch_to(b, dev) for b in batches]
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t1) * 1e3 / len(batches)
+    t1 = time.perf_counter()
+    fetched = list(prefetch_to_device(iter(batches), size=2, device=dev))
+    torch.cuda.synchronize()
+    pre_ms = (time.perf_counter() - t1) * 1e3 / len(batches)
+    same = all((g is None and r is None) or (g.dtype == r.dtype and torch.equal(g, r))
+               for got, ref in zip(fetched, plain) for g, r in zip(got, ref))
+    require(len(fetched) == len(plain) and same, "prefetch_to_device differs from batch_to")
+    log(f"[data] prefetch_to_device: {len(batches)} batches bit-equal to batch_to; {pre_ms:.3f} ms a batch "
+        f"against batch_to's {plain_ms:.3f} ms ({sum(t.numel() * t.element_size() for t in plain[0] if t is not None) / 1e6:.1f} MB a batch)")
+    del plain, fetched, batches, dense
+
+    # one streaming epoch: the same command with data.stream=true
+    calls, pulled = [], []
+    real = streaming.iter_split_batches
+
+    def recording(*args, **kw):
+        calls.append((args, kw))
+        for batch, sids in real(*args, **kw):
+            pulled.extend(int(s) for s in sids)
+            yield batch, sids
+
+    streaming.iter_split_batches = recording
+    image_io.make_image_loader = timed_loader
+    decode.update(s=0.0, n=0)
+    try:
+        lines, launches, secs = timed_cli("cli train data.stream=true",
+                                          [*train, *set_args("data.stream=true", "train.sampler_mode=none")])
+    finally:
+        streaming.iter_split_batches = real
+        image_io.make_image_loader = real_loader
+    decoded = dict(decode)  # the command's own, before the replay below decodes again
+    shutil.rmtree(os.path.join(run_dir, "final"))
+    (args, kw), = calls
+    stream = [int(s) for _, sids in real(*args, **{**kw, "drop_remainder": False, "stats": None}) for s in sids]
+    require(sorted(stream) == sorted(split_ids["train"]) and len(set(stream)) == len(stream)
+            and pulled == stream[:len(pulled)] and len(pulled) == steps * bs,
+            f"streaming epoch: {len(stream)} stays streamed ({len(set(stream))} distinct) for {n_tr} train stays, "
+            f"{len(pulled)} pulled")
+    require(launches == per_forward(steps + 2 * val_b), f"streaming cli train launches {launches}")
+    with open(os.path.join(run_dir, "history.json")) as f:
+        epoch = json.load(f)[0]
+    log(f"[data] streaming epoch: the dense train split's {n_tr} stays exactly, {len(pulled)} in {steps} steps "
+        f"(the remainder dropped), epoch {epoch['sec']:.2f}s, train_loss {epoch['train_loss']:.5f}; "
+        f"{decoded['n']} image rows decoded in {decoded['s']:.3f}s (val's in load_split among them), the epoch's "
+        f"host share from decoding at most {100 * decoded['s'] / epoch['sec']:.1f}%")
+    out["data_stream"] = launches
+
+    # the INSPECT note driver with the native WordPiece, at 512 x 8
+    csv, vocab = write_impressions(work, SEED + 42)
+    dst = os.path.join(work, "uni_note")
+    lines, launches, secs = timed_cli("cli unimodal --impressions-csv", [
+        "unimodal", "--modality", "note", "--impressions-csv", csv, "--vocab", vocab, "--config", yaml,
+        "--out", dst, "--epochs", "2", "--device", "cuda"])
+    summary = json.loads(lines[-1])
+    chosen = [line for line in lines if line.startswith("[tokenizer]")]
+    require(len(chosen) == 1 and chosen[0].startswith("[tokenizer] native WordPiece"),
+            f"note driver tokenizer: {chosen}")
+    patients = 96
+    test_n, val_n = max(int(round(patients * 0.15)), 1), max(int(round(patients * 0.05)), 1)
+    minibatches = sum(-(-n // bs) for n in (patients - test_n - val_n, val_n, test_n))
+    require(launches == expected(packed_attention=12 * minibatches),
+            f"note driver launches {launches}, expected K1 = 12 x {minibatches} minibatches")
+    require(summary["tasks"] == ["pe_positive_nlp", "1_month_mortality", "12_month_PH"], f"note driver: {summary}")
+    unimodal_reports("cli unimodal --impressions-csv", dst, summary["tasks"])
+    log(f"[data] note driver: {chosen[0]}; {patients} patients, {minibatches} embedding minibatches of {bs} x 8 x 512")
+    out["data_note_driver"] = launches
+
+    # the host-only ETLs
+    for label, argv, rows_key in (
+        ("etl medfuse", ["medfuse", "--ehr-data-dir", write_medfuse_tree(os.path.join(work, "mf"), SEED + 43),
+                         "--task", "phenotyping", "--out", os.path.join(work, "mf_out"), "--channels-config",
+                         os.path.join(work, "mf", "channels.json"), "--data-pairs", "partial_ehr"], "splits"),
+        ("etl inspect", ["inspect", *write_inspect_tree(os.path.join(work, "insp"), SEED + 44),
+                         "--out", os.path.join(work, "insp_out")], "ehr_rows"),
+        ("etl legacy", ["legacy", "--data-dir", raw, "--out", os.path.join(work, "legacy")], "rows"),
+    ):
+        lines, launches, secs = timed_cli(label, ["etl", *argv])
+        summary = json.loads(lines[-1])
+        require(launches == none and summary.get(rows_key), f"{label}: {summary}, launches {launches}")
+        log(f"[data] {label}: {rows_key} {summary[rows_key]} in {secs:.2f}s, no kernel")
+    shutil.rmtree(work)
+    log(f"[data] phase done in {time.perf_counter() - t0:.1f}s")
+    return out
+
+
 def ptxas_report() -> None:
     """Print each library's ptxas lines (the kernel each group of lines is
     for, its registers, spills and any warning) and fail if an instance of
@@ -2966,6 +3448,7 @@ def main() -> int:
         by_path.update(phase_artifact(dev, tmp))
         by_path.update(phase_int8(dev, tmp))
         by_path.update(phase_interpret(dev, tmp))
+        by_path.update(phase_data(dev, tmp))
     for k in kernels:  # each kernel's own main path: the path this slice or an earlier one brought it up on
         k["launches"] = by_path[MAIN_PATH[k["name"]]][k["name"]]
         k["launches_by_path"] = {path: counts.get(k["name"], 0) for path, counts in by_path.items()}

@@ -20,6 +20,9 @@
   python -m multimodalrouting_tpu_torch.cli unimodal --modality behrt|note|omop|ct \\
       [--task multitask|readmit] [--stratify auto|on|off]   # 01_BEHRT.py, 02_BEHRT.py,
                                      # 01_BioClinicalBert.py, INSPECT's OMOP and CT trainers
+  python -m multimodalrouting_tpu_torch.cli unimodal --modality note --impressions-csv imp.csv [--vocab vocab.txt]
+  python -m multimodalrouting_tpu_torch.cli unimodal --modality omop --inspect-csv final_structured_dataset.csv
+  python -m multimodalrouting_tpu_torch.cli etl varmap|cohort|export|medfuse|inspect|legacy ...
 
 The baselines (late_fusion, trimf) train under the fame loss family, and
 ``eval`` writes the route heatmap tables only for a family with alpha and an
@@ -44,13 +47,19 @@ orbax checkpoint (``<dir>/<name>.orbax/``) raises.
 and ``predict --artifact DIR`` serves one; ``interpret`` runs the gated
 family's occlusion and UC/BI/TI sweep (``audit/sweep.py``).
 
+``etl`` takes a raw MIMIC-style csv.gz dump through ``varmap``, ``cohort``
+and ``export`` to the parquet model inputs (``data/``) that ``train``,
+``eval``, ``predict`` and ``unimodal`` read with ``data.synthetic=false
+data.data_root=EXPORT`` (images under ``data.image_root``; the train split
+streamed under ``data.stream=true``); ``predict`` writes each row's
+``stay_id``. ``etl medfuse | inspect | legacy`` are the other cohorts' ETLs,
+and ``unimodal --impressions-csv`` / ``--inspect-csv`` their INSPECT
+loaders. ``encoder.text_embedding_cache=true`` runs the frozen BERT body
+once per split (``train/text_cache.py``) in ``train`` and ``eval``.
+
 What the port does not have yet raises ``NotImplementedError`` naming its
-ROADMAP.md item, and never runs another path in its place: the ``etl``
-subcommand, ``unimodal``'s ``--impressions-csv`` and ``--inspect-csv`` (the
-INSPECT loaders), a real cohort (``data.data_root`` with
-``data.synthetic=false``), device meshes and multi-host runs.
-``encoder.text_embedding_cache=true`` runs the frozen BERT body once per
-split (``train/text_cache.py``) in ``train`` and ``eval``.
+ROADMAP.md item, and never runs another path in its place: device meshes
+and multi-host runs (item 12).
 
 Config resolution is the JAX package's: defaults <- --config file <-
 MIMICIV_* env vars <- --set key=value overrides.
@@ -86,36 +95,86 @@ def _parse_sets(pairs: List[str]) -> Dict[str, str]:
 
 def _check_cfg(cfg, family: str) -> None:
     """Refuse the configurations the port does not run."""
-    if not (cfg.data.synthetic or not cfg.data.data_root):
-        raise _not_ported(f"the real-cohort loaders (data.data_root={cfg.data.data_root!r})", "10")
     if cfg.train.num_data_shards * cfg.train.num_model_shards > 1:
         raise _not_ported("a multi-device --mesh", "12")
 
 
-def _load_data(cfg, task: str):
-    """(train, val, test) synthetic cohorts of ``data.synthetic_n`` stays
-    each, seeds 0 / 1 / 2, notes clipped to 128 tokens and images to 96^2 as
+SPLITS = ("train", "val", "test")
+
+
+def _synthetic(cfg) -> bool:
+    return cfg.data.synthetic or not cfg.data.data_root
+
+
+def _synthetic_split(cfg, task: str, split: str):
+    """A synthetic cohort of ``data.synthetic_n`` stays, seed 0 / 1 / 2 for
+    train / val / test, notes clipped to 128 tokens and images to 96^2 as
     the JAX CLI clips them."""
     from multimodalrouting_tpu_torch.data.synthetic import make_synthetic_cohort
 
     n, e = cfg.data.synthetic_n, cfg.encoder
+    return make_synthetic_cohort(
+        n,
+        t=e.structured_seq_len,
+        f=e.structured_n_feats,
+        s=e.notes_max_chunks,
+        l=min(e.text_max_len, 128),
+        image_size=min(e.image_size, 96),
+        vocab_size=e.bert_vocab_size,
+        pos_rate=cfg.data.synthetic_pos_rate,
+        missing_rate=cfg.data.synthetic_missing_rate,
+        seed=SPLITS.index(split),
+        task=task,
+    )
 
-    def mk(seed):
-        return make_synthetic_cohort(
-            n,
-            t=e.structured_seq_len,
-            f=e.structured_n_feats,
-            s=e.notes_max_chunks,
-            l=min(e.text_max_len, 128),
-            image_size=min(e.image_size, 96),
-            vocab_size=e.bert_vocab_size,
-            pos_rate=cfg.data.synthetic_pos_rate,
-            missing_rate=cfg.data.synthetic_missing_rate,
-            seed=seed,
-            task=task,
-        )
 
-    return mk(0), mk(1), mk(2)
+def _image_loading(cfg, split: str):
+    """(image_loader, image_dtype) of a real export's split: the augmenting
+    transform stack for train, the deterministic one for val and test
+    (reference build_image_transform(split), main.py:907-925), uint8 pixels
+    under ``encoder.image_uint8_transfer``."""
+    from multimodalrouting_tpu_torch.data.images import make_image_loader
+
+    e = cfg.encoder
+    pixels = "uint8" if e.image_uint8_transfer else "normalized"
+    loader = make_image_loader(split, spec=e.image_transform, resize=e.image_resize, crop=e.image_size,
+                               seed=cfg.train.seed, root=cfg.data.image_root, pixels=pixels)
+    return loader, (np.uint8 if pixels == "uint8" else np.float32)
+
+
+def _load_split(cfg, task: str, split: str):
+    """One split as a host ``Batch`` and its stay ids: a synthetic cohort
+    (no ids), or the split of the export under ``data.data_root``."""
+    from multimodalrouting_tpu_torch.data.loader import load_split
+
+    if split not in SPLITS:
+        raise SystemExit(f"--split must be train|val|test, got {split!r}")
+    if _synthetic(cfg):
+        return _synthetic_split(cfg, task, split), None
+    loader, dtype = _image_loading(cfg, split)
+    arrays = load_split(cfg.data.data_root, split, task=task, image_size=cfg.encoder.image_size,
+                        image_loader=loader, image_dtype=dtype)
+    return arrays.batch, arrays.stay_ids
+
+
+def _load_data(cfg, task: str, splits=SPLITS):
+    """The host ``Batch`` of each of `splits` (train, val, test by default):
+    synthetic cohorts, or the export under ``data.data_root`` with the train
+    split streamed (``StreamingSplit``) under ``data.stream`` while val and
+    test stay dense, as the JAX CLI loads them."""
+
+    def one(split):
+        if split != "train" or _synthetic(cfg) or not cfg.data.stream:
+            return _load_split(cfg, task, split)[0]
+        from multimodalrouting_tpu_torch.data.streaming import StreamingSplit
+
+        loader, dtype = _image_loading(cfg, "train")
+        return StreamingSplit(cfg.data.data_root, "train", task=task, image_size=cfg.encoder.image_size,
+                              image_loader=loader, image_dtype=dtype,
+                              rows_per_read=cfg.data.stream_rows_per_read,
+                              shuffle_buffer=cfg.data.stream_shuffle_buffer, seed=cfg.train.seed)
+
+    return tuple(one(split) for split in splits)
 
 
 def cmd_train(args) -> int:
@@ -155,7 +214,7 @@ def cmd_train(args) -> int:
     cfg = load_cfg(args.config, overrides)
     _check_cfg(cfg, args.family)
 
-    train_b, val_b, _ = _load_data(cfg, cfg.model.task)
+    train_b, val_b = _load_data(cfg, cfg.model.task, splits=("train", "val"))
     family = loss_family(args.family)
     stage = args.stage or ""
     torch.manual_seed(cfg.train.seed)
@@ -212,7 +271,7 @@ def cmd_eval(args) -> int:
 
     cfg = load_config(args.ckpt, args.name)
     _check_cfg(cfg, args.family)
-    _, _, test_b = _load_data(cfg, cfg.model.task)
+    test_b, _ = _load_split(cfg, cfg.model.task, "test")
     model = build_model(cfg, args.family, device=args.device)
     family = loss_family(args.family)
     # eval reads the weights, their EMA and the route-loss EMA, not the
@@ -310,12 +369,11 @@ def cmd_predict(args) -> int:
             server.server_close()
         return 0
 
-    split_ix = {"train": 0, "val": 1, "test": 2}
-    if args.split not in split_ix:
-        raise SystemExit(f"--split must be train|val|test, got {args.split!r}")
-    cohort = _load_data(pred.cfg, pred.cfg.model.task)[split_ix[args.split]]
+    # a real export's split decodes its images with the deterministic eval
+    # stack (any split but train), the pixels its val / test metrics saw
+    cohort, stay_ids = _load_split(pred.cfg, pred.cfg.model.task, args.split)
     out_path = args.out or os.path.join(args.ckpt or args.artifact, f"predictions_{args.split}.jsonl")
-    n = write_predictions_jsonl(pred, cohort, out_path)
+    n = write_predictions_jsonl(pred, cohort, out_path, stay_ids=stay_ids)
     print(json.dumps({"rows": n, "out": out_path, "temperature": pred.temperature}))
     return 0
 
@@ -343,7 +401,9 @@ def _unimodal_cfg(args):
 def cmd_unimodal(args) -> int:
     """The unimodal trainers and their fairness report (01_BEHRT.py,
     02_BEHRT.py, 01_BioClinicalBert.py, INSPECT/BEHRT.py, INSPECT's CT
-    branch) on the synthetic cohorts."""
+    branch) on the synthetic cohorts or a real export; ``--impressions-csv``
+    runs INSPECT's text-only multitask trainer (INSPECT/BioClinicalBERT.py)
+    on the tasks the CSV's label columns name."""
     from multimodalrouting_tpu_torch.train.unimodal import train_unimodal
 
     if args.modality in ("omop", "ct"):
@@ -351,19 +411,33 @@ def cmd_unimodal(args) -> int:
     cfg = _unimodal_cfg(args)
     if cfg.data.stream:
         raise SystemExit("unimodal trainers need dense splits; unset data.stream")
+    tasks = None
     if args.impressions_csv:
+        # impressions CSV -> per-patient note Batches with age-bucket fairness
+        # groups; the label columns found in the CSV are the tasks
         if args.modality != "note":
             raise SystemExit("--impressions-csv requires --modality note")
-        raise _not_ported("the INSPECT impressions loader (--impressions-csv)", "10")
-    _check_cfg(cfg, "")
-    # multitask labels (mortality / pe / ph) ride the synthetic "multitask" y
-    data_task = args.task or cfg.model.task
-    train_b, val_b, test_b = _load_data(cfg, data_task)
-    # the wide-BEHRT multitask trainer's split protocol: multilabel-stratified
-    # 20% test, then 5/80 of the rest as val, over the pooled splits
-    # (Unimodal/MIMIC/BEHRT.py:228-232); on by default for behrt + multitask
-    stratify = (args.modality == "behrt" and data_task == "multitask" if args.stratify == "auto"
-                else args.stratify == "on")
+        from multimodalrouting_tpu_torch.data.inspect_etl import load_impressions_dataset
+
+        e = cfg.encoder
+        splits = load_impressions_dataset(args.impressions_csv, max_len=e.text_max_len, stride=args.stride,
+                                          max_chunks=e.notes_max_chunks, tokenizer_name=e.text_model_name,
+                                          vocab_path=args.vocab, seed=cfg.train.seed)
+        train_b, val_b, test_b = splits["train"], splits["val"], splits["test"]
+        tasks = splits["_tasks"]
+        data_task = args.task or "multitask"
+        stratify = False
+    else:
+        _check_cfg(cfg, "")
+        # multitask labels (mortality / pe / ph) ride the synthetic "multitask"
+        # y; readmit is a binary label column in real exports
+        data_task = args.task or cfg.model.task
+        train_b, val_b, test_b = _load_data(cfg, data_task)
+        # the wide-BEHRT multitask trainer's split protocol: multilabel-stratified
+        # 20% test, then 5/80 of the rest as val, over the pooled splits
+        # (Unimodal/MIMIC/BEHRT.py:228-232); on by default for behrt + multitask
+        stratify = (args.modality == "behrt" and data_task == "multitask" if args.stratify == "auto"
+                    else args.stratify == "on")
     if stratify:
         from multimodalrouting_tpu_torch.data.batches import concat_batches, take_batch
         from multimodalrouting_tpu_torch.data.stratified import stratified_three_way
@@ -376,8 +450,8 @@ def cmd_unimodal(args) -> int:
               f"| val {len(va_idx)} | test {len(te_idx)}")
     out_dir = args.out or os.path.join(cfg.out_dir, f"unimodal_{args.modality}")
     os.makedirs(out_dir, exist_ok=True)
-    res = train_unimodal(cfg, train_b, val_b, test_b, modality=args.modality, task=data_task, out_dir=out_dir,
-                         device=args.device)
+    res = train_unimodal(cfg, train_b, val_b, test_b, modality=args.modality, task=data_task, tasks=tasks,
+                         out_dir=out_dir, device=args.device)
     _print_unimodal(args.modality, res, out_dir)
     return 0
 
@@ -418,19 +492,26 @@ def synthetic_splits(cfg, split) -> dict:
 def _cmd_unimodal_inspect(args) -> int:
     """INSPECT's OMOP concept multitask trainer (INSPECT/BEHRT.py) or its
     CT-volume one on the synthetic cohort (``synthetic_omop_split`` /
-    ``synthetic_ct_split``); ``--inspect-csv`` needs the INSPECT loader."""
-    from multimodalrouting_tpu_torch.train.unimodal import train_ct, train_omop
+    ``synthetic_ct_split``); the OMOP one reads ``--inspect-csv``
+    (final_structured_dataset.csv[.gz]: three concept-name columns and the
+    INSPECT label columns, optional ``split`` / ``sens``) where given."""
+    from multimodalrouting_tpu_torch.train.unimodal import INSPECT_TASKS, train_ct, train_omop
 
     cfg = _unimodal_cfg(args)
-    if args.modality == "omop" and args.inspect_csv:
-        raise _not_ported("the INSPECT structured loader (--inspect-csv)", "10")
     out_dir = args.out or os.path.join(cfg.out_dir, f"unimodal_{args.modality}")
     os.makedirs(out_dir, exist_ok=True)
     t = cfg.train
     common = dict(hidden=cfg.model.d, lr=t.lr, weight_decay=t.weight_decay,
                   batch_size=t.batch_size, epochs=t.epochs, patience=t.early_stop_patience, seed=t.seed,
                   out_dir=out_dir, device=args.device)
-    if args.modality == "omop":
+    if args.modality == "omop" and args.inspect_csv:
+        from multimodalrouting_tpu_torch.data.inspect_etl import load_inspect_structured
+
+        data = load_inspect_structured(args.inspect_csv, seed=t.seed)
+        vocab_sizes = tuple(int(v) for v in data.pop("_vocab_sizes"))
+        tasks = INSPECT_TASKS[:len(data.pop("_tasks"))]
+        res = train_omop(data, vocab_sizes=vocab_sizes, tasks=tasks, **common)
+    elif args.modality == "omop":
         res = train_omop(synthetic_splits(cfg, synthetic_omop_split), vocab_sizes=(64, 48, 56), **common)
     else:
         res = train_ct(synthetic_splits(cfg, synthetic_ct_split), backbone=cfg.encoder.vision_backbone, **common)
@@ -439,7 +520,137 @@ def _cmd_unimodal_inspect(args) -> int:
 
 
 def cmd_etl(args) -> int:
-    raise _not_ported("the offline ETL (cli etl)", "10")
+    """The offline ETL drivers, the JAX CLI's subcommands on the port's
+    ``data/`` modules:
+
+      etl varmap  — cohort/build_varmap_17.py
+      etl cohort  — cohort/build_cohort.py main:590
+      etl export  — cohort/export_model_inputs.py main:164
+      etl medfuse — MedFuse_Preprocessing/fusion_main.py:27-71 (listfile +
+                    per-stay CSV chain) to parquet model inputs
+      etl inspect — INSPECT/Data/00+01+02 (cohort merge, long OMOP EHR
+                    filtered to study_time, impressions with labels)
+      etl legacy  — Data/icustay_dataset.py:83-197 (wide lab pivot + PE/PH
+                    labels + cleaned concatenated notes)
+
+    ``varmap`` -> ``cohort`` -> ``export`` take a raw MIMIC-style csv.gz dump
+    to the parquet model inputs that ``train --set data.synthetic=false
+    --set data.data_root=EXPORT`` reads."""
+    import pandas as pd
+
+    if args.etl_cmd == "varmap":
+        from multimodalrouting_tpu_torch.data.varmap import build_varmap
+
+        def read_dict(name):
+            for cand in (name + ".csv.gz", name + ".csv"):
+                p = os.path.join(args.data_dir, cand)
+                if os.path.exists(p):
+                    return pd.read_csv(p)
+            raise SystemExit(f"missing {name}.csv[.gz] under {args.data_dir}")
+
+        vm = build_varmap(read_dict("d_items"), read_dict("d_labitems"))
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)) or ".", exist_ok=True)
+        vm.to_csv(args.out, index=False)
+        print(json.dumps({"varmap": args.out, "rows": int(len(vm)), "variables": int(vm["variable"].nunique())}))
+        return 0
+
+    if args.etl_cmd == "cohort":
+        from multimodalrouting_tpu_torch.data.cohort import CohortConfig, build_cohort
+
+        master = build_cohort(CohortConfig(
+            data_dir=args.data_dir, out_dir=args.out, varmap_path=args.varmap, cxr_meta_path=args.cxr_meta,
+            notes_path=args.notes, listfile_dir=args.listfile_dir, seed=args.seed, min_age=args.min_age,
+            window_hours=args.window_hours, bin_hours=args.bin_hours, ccs_map9_path=args.ccs_map9,
+            ccs_map10_path=args.ccs_map10,
+        ))
+        print(json.dumps({"cohort": args.out, "stays": int(len(master)),
+                          "splits": {k: int(v) for k, v in master["split"].value_counts().items()}}))
+        return 0
+
+    if args.etl_cmd == "export":
+        from multimodalrouting_tpu_torch.data.exporter import export_model_inputs
+        from multimodalrouting_tpu_torch.data.tokenization import ChunkingConfig
+
+        export_model_inputs(args.cohort, args.out, tokenizer_name=args.tokenizer,
+                            chunking=ChunkingConfig(max_len=args.max_len, stride=args.stride,
+                                                    max_chunks=args.max_chunks))
+        print(json.dumps({"export": args.out, "files": sorted(os.listdir(args.out))}))
+        return 0
+
+    if args.etl_cmd == "medfuse":
+        from multimodalrouting_tpu_torch.data.medfuse import medfuse_export
+
+        summary = medfuse_export(
+            args.ehr_data_dir, args.task, args.out, timestep=args.timestep, impute_strategy=args.impute,
+            config_path=args.channels_config, normalizer_state=args.normalizer_state,
+            period_length=args.period_length, cxr_data_dir=args.cxr_data_dir, icu_stays_csv=args.icu_stays,
+            data_pairs=args.data_pairs, data_ratio=args.data_ratio, seed=args.seed,
+        )
+        print(json.dumps(summary))
+        return 0
+
+    if args.etl_cmd == "inspect":
+        from multimodalrouting_tpu_torch.data.inspect_etl import (
+            OMOP_TABLES,
+            build_long_ehr,
+            impressions_with_labels,
+            merge_cohort,
+        )
+
+        def read(path, required=True):
+            if path is None or not os.path.exists(path):
+                if required:
+                    raise SystemExit(f"missing required input {path!r}")
+                return None
+            # sep=None sniffs tsv vs csv (the reference's inputs are tsv)
+            return pd.read_csv(path, sep=None, engine="python")
+
+        metadata, mapping, labels, splits = (read(p) for p in (args.metadata, args.mapping, args.labels,
+                                                               args.splits))
+        imps = read(args.impressions, required=False)
+        cohort = merge_cohort(metadata, mapping, labels, splits, imps)
+        os.makedirs(args.out, exist_ok=True)
+        cohort_csv = os.path.join(args.out, "inspect_cohort.csv")
+        cohort.to_csv(cohort_csv, index=False)
+        outputs = {"cohort": cohort_csv, "rows": int(len(cohort))}
+        if args.omop_dir:
+            tables = {}
+            for name in OMOP_TABLES:
+                for cand in (f"{name}.csv.gz", f"{name}.csv"):
+                    p = os.path.join(args.omop_dir, cand)
+                    if os.path.exists(p):
+                        tables[name] = pd.read_csv(p, low_memory=False)
+                        break
+            long = build_long_ehr(tables, cohort, demographics=read(args.demographics, required=False))
+            ehr_csv = os.path.join(args.out, "inspect_long_ehr.csv.gz")
+            long.to_csv(ehr_csv, index=False, compression="gzip")
+            outputs["long_ehr"] = ehr_csv
+            outputs["ehr_rows"] = int(len(long))
+        if imps is not None:
+            iw_csv = os.path.join(args.out, "inspect_impressions_with_labels.csv")
+            impressions_with_labels(imps, labels).to_csv(iw_csv, index=False)
+            outputs["impressions_with_labels"] = iw_csv
+        print(json.dumps(outputs))
+        return 0
+
+    if args.etl_cmd == "legacy":
+        from multimodalrouting_tpu_torch.data.legacy_cohort import load_legacy_cohort
+
+        structured, notes = load_legacy_cohort(args.data_dir, window_hours=args.window_hours,
+                                               bin_hours=args.bin_hours)
+        os.makedirs(args.out, exist_ok=True)
+        s_csv = os.path.join(args.out, "final_structured_dataset.csv")
+        n_csv = os.path.join(args.out, "final_unstructured_notes.csv")
+        structured.to_csv(s_csv, index=False)
+        # the reference embeds the notes offline (Data/icustay_dataset.py:150-197);
+        # here `unimodal --modality note` embeds them, so the export carries
+        # the cleaned concatenated text
+        notes.to_csv(n_csv, index=False)
+        print(json.dumps({"structured": s_csv, "rows": int(len(structured)),
+                          "notes": n_csv, "note_rows": int(len(notes))}))
+        return 0
+
+    raise SystemExit(f"unknown etl subcommand {args.etl_cmd!r}")
 
 
 def cmd_interpret(args) -> int:
@@ -461,7 +672,7 @@ def cmd_interpret(args) -> int:
     model = build_model(cfg, "gated_concat", device=args.device)
     weights, _ = load_serving(args.ckpt, args.name, like=model.state_dict())
     model.load_state_dict(weights)
-    _, _, test_b = _load_data(cfg, cfg.model.task)
+    test_b, _ = _load_split(cfg, cfg.model.task, "test")
     batch = batch_to(slice_batch(test_b, 0, min(test_b.batch_size, args.max_samples)), args.device)
     with torch.inference_mode():
         out = model(batch)

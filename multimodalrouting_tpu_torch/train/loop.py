@@ -29,9 +29,16 @@ With ``encoder.text_embedding_cache`` the frozen BERT body runs once over
 each split after the state exists (``train/text_cache.py``), and every
 step and evaluation starts from the cached chunk embeddings.
 
-Not ported: meshes and streaming splits (ROADMAP.md §1 items 12 and 10);
-they raise, as do background checkpoint saves
-(``train.ckpt_backend=orbax_async``, item 13).
+A streaming split (``data/streaming.py:StreamingSplit``, ``data.stream``)
+is pulled batch by batch through its ``epoch_iter`` instead of sliced, with
+the JAX loop's rules: ``train.sampler_mode`` sqrt / hybrid switch on the
+split's streaming resampler (``enable_sampler``), and chunk bucketing, which
+needs random access, raises ``ValueError``. Its resume restarts at the
+epoch the step implies, and that epoch's stream is drawn again from the
+split's seed plus the epoch, as the JAX loop does.
+
+Not ported: meshes (ROADMAP.md §1 item 12); they raise, as do background
+checkpoint saves (``train.ckpt_backend=orbax_async``, item 13).
 """
 from __future__ import annotations
 
@@ -156,7 +163,20 @@ def train_model(
             "unset data.stream (streaming re-draws batches every epoch)"
         )
     if streaming:
-        raise NotImplementedError("streaming splits are not ported yet (ROADMAP.md §1 item 10)")
+        # sequential pulls: the samplers and bucketing that need random
+        # access get the JAX loop's streaming rules and messages
+        if t.sampler_mode not in ("", "none", "pos_weight"):
+            if hasattr(train_cohort, "enable_sampler"):
+                train_cohort.enable_sampler(t.sampler_mode)
+            else:
+                raise ValueError(
+                    f"train.sampler_mode={t.sampler_mode!r} needs random access; "
+                    "this streaming split supports 'none' or 'pos_weight' "
+                    "(use data.stream_shuffle_buffer for shuffling)"
+                )
+        if t.chunk_bucketing:
+            raise ValueError("train.chunk_bucketing needs random access; "
+                             "disable it for streaming splits")
     if ckpt_dir and t.ckpt_backend == "orbax_async":
         raise NotImplementedError("background checkpoint saves are not ported yet (ROADMAP.md §1 item 13)")
     rng = np.random.default_rng(t.seed)
@@ -210,9 +230,12 @@ def train_model(
         best_metric, best_epoch, best_f1 = state.loop["best_metric"], state.loop["best_epoch"], state.loop["best_f1"]
     history: List[Dict[str, float]] = []
     for epoch in range(state.step // steps_per_epoch, t.epochs):
-        order = weighted_sample_order(np.asarray(train_cohort.y)[:n_train], rng, mode=t.sampler_mode)
-        if t.chunk_bucketing and train_cohort.chunk_mask is not None:
-            order = chunk_bucketed_order(order, np.asarray(train_cohort.chunk_mask), t.batch_size, rng)
+        if streaming:
+            batch_iter = train_cohort.epoch_iter(epoch, t.batch_size)
+        else:
+            order = weighted_sample_order(np.asarray(train_cohort.y)[:n_train], rng, mode=t.sampler_mode)
+            if t.chunk_bucketing and train_cohort.chunk_mask is not None:
+                order = chunk_bucketed_order(order, np.asarray(train_cohort.chunk_mask), t.batch_size, rng)
         lr_enc = 0.0 if epoch < t.encoder_warmup_epochs else t.encoder_lr * lr_scale
         detach = epoch < t.detach_priors_epochs
         act_temp = None
@@ -224,7 +247,12 @@ def train_model(
         t0 = time.perf_counter()
         losses, skipped, alpha_mean = [], 0, None
         for s in range(steps_per_epoch):
-            sub = take_batch(train_cohort, order[s * t.batch_size : (s + 1) * t.batch_size])
+            if streaming:
+                sub = next(batch_iter, None)
+                if sub is None:
+                    break  # the resampled stream ran short of a full epoch
+            else:
+                sub = take_batch(train_cohort, order[s * t.batch_size : (s + 1) * t.batch_size])
             metrics = train_step(
                 state, batch_to(sub, dev), generator, t.lr * lr_scale, lr_enc,
                 detach_priors=detach, act_temperature=act_temp, note_pack=note_pack_bucket(cfg, sub),

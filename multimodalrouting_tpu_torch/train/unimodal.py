@@ -8,7 +8,8 @@ multimodalrouting_tpu/train/unimodal.py):
   focal loss over note embeddings that the frozen chunked BERT
   (``_note_encoder``) computes once per split (``_embed_notes``; the two are
   the JAX trainer's ``_note_embeddings``);
-- ``train_omop``: INSPECT/BEHRT.py's OMOP concept model, four tasks;
+- ``train_omop``: INSPECT/BEHRT.py's OMOP concept model, four tasks (or as
+  many as an INSPECT CSV labels, ``cli unimodal --inspect-csv``);
 - ``train_ct``: INSPECT's CT branch, a per-slice ResNet under GroupNorm.
 
 Each is a small single-modality fit (``_fit``): epochs of a numpy
@@ -285,6 +286,8 @@ def train_unimodal(
     *,
     modality: str = "behrt",  # behrt | note
     task: str = "mort",  # mort | readmit (behrt); the label source
+    tasks: Optional[Tuple[str, ...]] = None,  # explicit task names (the INSPECT
+    # impressions CSV's label columns) override the y-shape inference
     out_dir: Optional[str] = None,
     log_fn: Callable[[str], None] = print,
     device="cuda",
@@ -296,7 +299,7 @@ def train_unimodal(
     t, e = cfg.train, cfg.encoder
     dev = resolve_device(device)
     y_tr, y_va = np.asarray(train_b.y), np.asarray(val_b.y)
-    tasks = _tasks_for(y_tr, task)
+    tasks = tuple(tasks) if tasks else _tasks_for(y_tr, task)
     y_te = np.asarray(test_b.y)
 
     if modality == "behrt":
@@ -361,11 +364,10 @@ class CTMultitask(nn.Module):
         return {t: getattr(self, f"head_{t}")(z)[:, 0] for t in self.tasks}
 
 
-def _fit_and_report(modality: str, model: nn.Module, data, pack, *, lr, weight_decay, batch_size,
+def _fit_and_report(modality: str, model: nn.Module, data, pack, *, tasks, lr, weight_decay, batch_size,
                       epochs, patience, seed, out_dir, log_fn) -> UnimodalResult:
     """train_omop's and train_ct's shared body: fit on "train" / "val" over
-    INSPECT_TASKS, evaluate on "test", write the reports."""
-    tasks = INSPECT_TASKS
+    `tasks`, evaluate on "test", write the reports."""
     x_tr, y_tr = pack("train")
     x_va, y_va = pack("val")
     params, history = _fit(
@@ -384,6 +386,7 @@ def train_omop(
     data: Dict[str, Dict[str, np.ndarray]],  # split -> {proc, meas, drug, y[B,K], sens?}
     *,
     vocab_sizes: Tuple[int, int, int],
+    tasks: Tuple[str, ...] = INSPECT_TASKS,
     hidden: int = 128,
     lr: float = 1e-3,
     weight_decay: float = 1e-2,
@@ -396,15 +399,16 @@ def train_omop(
     device="cuda",
 ) -> UnimodalResult:
     """INSPECT's OMOP concept multitask trainer (INSPECT/BEHRT.py:62-90):
-    splits "train" / "val" / "test" of concept-id arrays and labels."""
+    splits "train" / "val" / "test" of concept-id arrays and labels
+    [B, len(tasks)]."""
     from multimodalrouting_tpu_torch.models.full import resolve_device
 
     def pack(split):
         d = data[split]
         return np.stack([d["proc"], d["meas"], d["drug"]], axis=1).astype(np.int64), np.asarray(d["y"], np.float32)
 
-    model = _seeded(seed, lambda: OMOPStacked(vocab_sizes, hidden, INSPECT_TASKS), resolve_device(device))
-    return _fit_and_report("omop", model, data, pack, lr=lr, weight_decay=weight_decay,
+    model = _seeded(seed, lambda: OMOPStacked(vocab_sizes, hidden, tasks), resolve_device(device))
+    return _fit_and_report("omop", model, data, pack, tasks=tuple(tasks), lr=lr, weight_decay=weight_decay,
                              batch_size=batch_size, epochs=epochs, patience=patience, seed=seed, out_dir=out_dir,
                              log_fn=log_fn)
 
@@ -434,6 +438,6 @@ def train_ct(
         return np.asarray(d["x"], np.float32), np.asarray(d["y"], np.float32)
 
     model = _seeded(seed, lambda: CTMultitask(hidden, backbone, INSPECT_TASKS), resolve_device(device))
-    return _fit_and_report("ct", model, data, pack, lr=lr, weight_decay=weight_decay,
+    return _fit_and_report("ct", model, data, pack, tasks=INSPECT_TASKS, lr=lr, weight_decay=weight_decay,
                              batch_size=batch_size, epochs=epochs, patience=patience, seed=seed, out_dir=out_dir,
                              log_fn=log_fn)

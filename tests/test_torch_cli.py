@@ -205,12 +205,9 @@ PHENO_ATTEN_MULT = os.path.join(os.path.dirname(__file__), "..", "configs", "phe
 
 @pytest.mark.parametrize("argv, item", [
     (["train", "--mesh", "data=2"], "item 12"),
-    (["train", "--set", "data.synthetic=false", "--set", "data.data_root=/nonexistent"], "item 10"),
     (["train", "--set", "train.ckpt_backend=orbax_async"], "item 13"),
     (["eval", "--ckpt", "ORBAX"], "item 13"),
     (["predict", "--ckpt", "ORBAX"], "item 13"),
-    (["unimodal", "--modality", "note", "--impressions-csv", "x"], "item 10"),
-    (["etl", "varmap", "--data-dir", "x", "--out", "y"], "item 10"),
 ])
 def test_unported_options_raise_naming_their_roadmap_item(argv, item, tmp_path):
     if argv[0] == "train":

@@ -204,7 +204,9 @@ def test_formerly_unported_fame_artifact_serves(fame_chain, tmp_path):
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["unimodal", "--modality", "omop", "--inspect-csv", "x"], "item 10"),
+    (["train", "--family", "fame", "--stage", "tri", "--mesh", "data=2"], "item 12"),
+    (["train", "--family", "gated_concat", "--stage", "step1", "--set", "train.ckpt_backend=orbax_async"],
+     "item 13"),
 ])
 def test_what_is_not_ported_still_raises(argv, item, tmp_path):
     if argv[0] == "train":

@@ -1,8 +1,10 @@
 """The port's ``train_model`` on the CPU: the sample order, chunk bucketing
 and pack capacities of the JAX package's loop from the same seed, two
-epochs of training with a history, and checkpoints that the serving
-``Predictor`` loads and serves."""
+epochs of training with a history, checkpoints that the serving
+``Predictor`` loads and serves, and a streaming split (``StreamingSplit``)
+under each sampler mode with the JAX loop's refusals."""
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -15,7 +17,9 @@ from multimodalrouting_tpu_torch.models.full import build_model
 from multimodalrouting_tpu_torch.serve import Predictor
 from multimodalrouting_tpu_torch.train import loop as tloop
 from tests.helpers import TINY, tiny_batch
-from tests.torch_parity import train_cohorts
+from tests.torch_parity import one_torch_thread, train_cohorts  # noqa: F401 (one_torch_thread: a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 LOOP = {**TINY, "encoder.vision_norm": "batch", "encoder.text_max_len": 16, "encoder.image_size": 32,
         "train.epochs": 2, "train.min_epochs": 0, "train.encoder_warmup_epochs": 1, "train.log_every": 2}
@@ -83,6 +87,82 @@ def test_train_model_refuses_what_is_not_ported(over):
     cfg = tc.apply_overrides(tc.Config(), {**LOOP, **over})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tloop.train_model(cfg, build_model(cfg, device="cpu", train=True), tiny_batch(4), tiny_batch(4))
+
+
+STREAM = {**LOOP, "encoder.structured_seq_len": 4, "encoder.structured_n_feats": 2, "encoder.notes_max_chunks": 1,
+          "encoder.text_max_len": 8, "train.batch_size": 8, "train.use_ema": False, "train.log_every": 0}
+
+
+@pytest.fixture(scope="module")
+def stream_export(tmp_path_factory):
+    """tests/test_streaming_loader.py's export: 40 stays, 32 of them train."""
+    from tests.test_streaming_loader import _write_export
+
+    d = str(tmp_path_factory.mktemp("stream"))
+    _write_export(d, 40, t=4, f=2, s=1, l=8)
+    return d
+
+
+@pytest.mark.parametrize("sampler", ["none", "pos_weight", "sqrt", "hybrid"])
+def test_train_model_runs_a_streaming_split(sampler, stream_export, tmp_path):
+    """A StreamingSplit is pulled epoch by epoch (the JAX loop's streaming
+    branch): sqrt / hybrid switch on its resampler, the steps are the
+    stream's batches, and the run checkpoints and resumes."""
+    from multimodalrouting_tpu_torch.data.loader import load_split
+    from multimodalrouting_tpu_torch.data.streaming import StreamingSplit
+
+    resume = sampler == "none"  # two epochs and a resume on one sampler; one epoch on the others
+    epochs = 2 if resume else 1
+    cfg = tc.apply_overrides(tc.Config(), {**STREAM, "train.sampler_mode": sampler, "train.epochs": epochs})
+    tr = StreamingSplit(stream_export, "train", image_size=32, shuffle_buffer=16, seed=0)
+    va = load_split(stream_export, "val", image_size=32).batch
+    result = tloop.train_model(cfg, build_model(cfg, device="cpu", train=True), tr, va, log_fn=lambda s: None,
+                               ckpt_dir=str(tmp_path) if resume else None)
+    assert [row["epoch"] for row in result.history] == list(range(epochs))
+    assert all(np.isfinite(row["train_loss"]) for row in result.history)
+    assert (tr._resample_fn is not None) == (sampler in ("sqrt", "hybrid"))
+    if sampler in ("none", "pos_weight"):  # each epoch the whole split once: 4 batches of 8
+        assert tr.stats.batches_emitted == 4 * epochs and result.state.step == 4 * epochs
+    if not resume:
+        return
+    # a resume from the last checkpoint restarts at the epoch its step implies
+    from multimodalrouting_tpu_torch.ckpt import restore_train_state
+    from multimodalrouting_tpu_torch.train.state import create_train_state
+
+    cfg3 = tc.apply_overrides(cfg, {"train.epochs": 3})
+    model = build_model(cfg3, device="cpu", train=True)
+    state = restore_train_state(str(tmp_path), create_train_state(cfg3, model), name="last")
+    again = tloop.train_model(cfg3, model, tr, va, state=state, log_fn=lambda s: None)
+    assert [row["epoch"] for row in again.history] == [2] and again.state.step > result.state.step
+    shutil.rmtree(tmp_path)  # ~0.7 GB of train states: keep the suite's disk small
+
+
+@pytest.mark.parametrize("over, match", [
+    ({"train.chunk_bucketing": True}, "train.chunk_bucketing needs random access"),
+    ({"encoder.text_embedding_cache": True}, "text_embedding_cache needs a dense split"),
+])
+def test_train_model_refuses_what_a_stream_cannot_do(over, match, stream_export):
+    """The JAX loop's refusals on a streaming split, with its messages."""
+    from multimodalrouting_tpu_torch.data.streaming import StreamingSplit
+
+    cfg = tc.apply_overrides(tc.Config(), {**STREAM, "train.sampler_mode": "none", **over})
+    tr = StreamingSplit(stream_export, "train", image_size=32)
+    with pytest.raises(ValueError, match=match):
+        tloop.train_model(cfg, build_model(cfg, device="cpu", train=True), tr, tiny_batch(4))
+
+
+def test_train_model_refuses_a_sampler_a_stream_cannot_draw():
+    """A split with ``epoch_iter`` but no ``enable_sampler`` takes only
+    'none' / 'pos_weight', as in the JAX loop."""
+    class Sequential:
+        batch_size = 8
+
+        def epoch_iter(self, epoch, batch_size):
+            yield from ()
+
+    cfg = tc.apply_overrides(tc.Config(), {**STREAM, "train.sampler_mode": "sqrt"})
+    with pytest.raises(ValueError, match="needs random access; this streaming split supports 'none'"):
+        tloop.train_model(cfg, build_model(cfg, device="cpu", train=True), Sequential(), tiny_batch(4))
 
 
 def test_metric_copies_match_jax():

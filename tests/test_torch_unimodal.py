@@ -17,8 +17,8 @@ fp32, at tiny sizes:
 - whole runs of ``train_unimodal`` / ``train_omop`` / ``train_ct``, where
   the train loss falls (or the task is learnt) as the JAX tests require;
 - ``cli unimodal --device cpu`` for all four modalities with the JAX CLI's
-  JSON keys, the INSPECT CSV flags refused naming ROADMAP item 10, and a run
-  in a process where jax cannot be imported.
+  JSON keys, the INSPECT CSV flags (``--impressions-csv`` / ``--inspect-csv``)
+  on written CSVs, and a run in a process where jax cannot be imported.
 """
 import json
 import os
@@ -388,9 +388,29 @@ def test_cli_unimodal_ct_learns_the_slab_task(tmp_path):
 
 @pytest.mark.parametrize("argv", [["--modality", "note", "--impressions-csv", "x.csv"],
                                   ["--modality", "omop", "--inspect-csv", "x.csv"]])
-def test_cli_unimodal_inspect_loaders_raise(argv):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 10"):
-        tcli.main(["unimodal", *argv, "--device", "cpu"])
+def test_cli_unimodal_inspect_loaders_run(argv, tmp_path):
+    """The INSPECT loaders behind both flags (tests/test_torch_data_cli.py
+    holds them at more tasks, the native WordPiece and the JAX driver's task
+    names): one epoch on a written CSV, the CSV's tasks reported."""
+    import pandas as pd
+
+    from tests.test_torch_data_etl import inspect_structured_csv
+    from tests.test_unimodal_legacy_inspect import _impressions_csv
+
+    if "note" in argv:
+        csv, tasks = str(_impressions_csv(tmp_path, n=24)), ["pe_positive_nlp", "1_month_mortality"]
+        sets = ["encoder.bert_hidden=32", "encoder.bert_layers=1", "encoder.bert_heads=4",
+                "encoder.bert_intermediate=64", "encoder.bert_max_position=64", "encoder.notes_max_chunks=2",
+                "encoder.text_max_len=16", "encoder.d=16"]
+    else:
+        csv = inspect_structured_csv(tmp_path / "final_structured_dataset.csv", n=64, split=True)
+        pd.read_csv(csv).drop(columns=["12_month_PH"]).to_csv(csv, index=False)  # three label columns
+        tasks, sets = ["pe", "mort1m", "read1m"], []
+    argv = [csv if a == "x.csv" else a for a in argv]
+    rc, text = run(tcli.main, ["unimodal", *argv, "--epochs", "1", "--out", str(tmp_path / "run"), "--device", "cpu",
+                               *(a for kv in ["model.d=16", "train.batch_size=8", *sets] for a in ("--set", kv))])
+    res = json.loads(text.strip().splitlines()[-1])
+    assert rc == 0 and res["tasks"] == tasks and (tmp_path / "run" / "fairness.json").exists()
 
 
 def test_cli_unimodal_needs_no_jax(tmp_path):

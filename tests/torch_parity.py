@@ -250,3 +250,120 @@ def assert_step(tcfg, family, model_family, jcfg_model_vars, batch, stage="", **
     if jmetrics.gates_mean is not None:
         assert_close(metrics.gates_mean, jmetrics.gates_mean)
     return init, tmodel, state, jstate
+
+
+# --- the data layer (data/*.py): files and batches, bit for bit --------------
+
+
+def assert_same_files(got_dir, ref_dir, skip=()):
+    """Every file under `ref_dir` (recursively) is under `got_dir` with the
+    same contents: parquet and CSV (gz) frames by ``pd.testing.
+    assert_frame_equal``, JSON by value, NPZ array by array, anything else
+    byte for byte; and no file is missing on either side."""
+    import json
+    import os
+
+    import pandas as pd
+
+    def listing(d):
+        return sorted(os.path.relpath(os.path.join(r, f), d) for r, _, fs in os.walk(d) for f in fs
+                      if os.path.relpath(os.path.join(r, f), d) not in skip)
+
+    names = listing(ref_dir)
+    assert names and listing(got_dir) == names, (listing(got_dir), names)
+    for name in names:
+        got, ref = os.path.join(got_dir, name), os.path.join(ref_dir, name)
+        if name.endswith(".parquet"):
+            pd.testing.assert_frame_equal(pd.read_parquet(got), pd.read_parquet(ref), check_exact=True, obj=name)
+        elif name.endswith((".csv", ".csv.gz")):
+            pd.testing.assert_frame_equal(pd.read_csv(got), pd.read_csv(ref), check_exact=True, obj=name)
+        elif name.endswith(".json"):
+            with open(got) as g, open(ref) as r:
+                assert json.load(g) == json.load(r), name
+        elif name.endswith(".npz"):
+            zg, zr = np.load(got), np.load(ref)
+            assert sorted(zg.files) == sorted(zr.files), name
+            for k in zr.files:
+                assert zg[k].dtype == zr[k].dtype, (name, k)
+                np.testing.assert_array_equal(zg[k], zr[k], err_msg=f"{name}:{k}")
+        else:
+            with open(got, "rb") as g, open(ref, "rb") as r:
+                assert g.read() == r.read(), name
+    return names
+
+
+def assert_same_batch(got, ref, fields=None):
+    """A port Batch against a JAX Batch, field by field: the same dtype and
+    shape and the same bits (None where the JAX one is None)."""
+    for name in fields or ref._fields:
+        g, r = getattr(got, name), getattr(ref, name)
+        if r is None:
+            assert g is None, name
+            continue
+        g, r = np.asarray(g), np.asarray(r)
+        assert g.dtype == r.dtype and g.shape == r.shape, (name, g.dtype, r.dtype, g.shape, r.shape)
+        np.testing.assert_array_equal(g, r, err_msg=name)
+
+
+def write_cxr_jpegs(export_dir, image_root, seed: int = 0, size=(48, 48)) -> int:
+    """A grayscale JPEG at every exported ``cxr_path`` under `image_root`, as
+    MIMIC-CXR-JPG lays them out -> the number written."""
+    import os
+
+    import pandas as pd
+    from PIL import Image
+
+    images = pd.read_parquet(os.path.join(export_dir, "images_48h.parquet"))
+    rng = np.random.default_rng(seed)
+    n = 0
+    for p in images.get("cxr_path", []):
+        if not isinstance(p, str) or not p:
+            continue
+        full = os.path.join(image_root, p)
+        os.makedirs(os.path.dirname(full), exist_ok=True)
+        Image.fromarray(rng.integers(30, 220, size=size, dtype=np.uint8), mode="L").save(full, format="JPEG")
+        n += 1
+    return n
+
+
+@pytest.fixture(scope="module")
+def port_native_build_dir(tmp_path_factory):
+    """The port's C++ data libraries built into a temporary directory for a
+    module (``data/native_build.BUILD_DIR``), never the JAX package's
+    ``native/*.so``; the JAX package's own build code writes its libraries
+    into another (``_SO``), so no other test process loads one half
+    written."""
+    from multimodalrouting_tpu.data import native_binner as jnative_binner
+    from multimodalrouting_tpu.data import native_tokenizer as jnative_tokenizer
+    from multimodalrouting_tpu_torch.data import native_binner, native_build
+
+    d = tmp_path_factory.mktemp("native_build")
+    (d / "jax").mkdir()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(native_build, "BUILD_DIR", str(d))
+        mp.setattr(native_binner, "_LIB", None)
+        mp.setattr(jnative_binner, "_SO", str(d / "jax" / "libbinner.so"))
+        mp.setattr(jnative_binner, "_LIB", None)
+        mp.setattr(jnative_tokenizer, "_SO", str(d / "jax" / "libwordpiece.so"))
+        yield str(d)
+
+
+def port_etl_export(raw_dir, d, max_len: int = 32, max_chunks: int = 2):
+    """The port's ``cli etl varmap | cohort | export`` chain over a raw dump
+    into `d` (``d/export``), JPEGs at the export's ``cxr_path``s under
+    ``d/images`` -> (export dir, image root)."""
+    import contextlib
+    import io
+
+    from multimodalrouting_tpu_torch import cli as tcli
+
+    for argv in (["varmap", "--data-dir", str(raw_dir), "--out", str(d / "varmap.csv")],
+                 ["cohort", "--data-dir", str(raw_dir), "--out", str(d / "cohort"), "--varmap",
+                  str(d / "varmap.csv"), "--cxr-meta", str(raw_dir / "cxr_metadata.csv.gz"),
+                  "--notes", str(raw_dir / "notes.csv.gz")],
+                 ["export", "--cohort", str(d / "cohort"), "--out", str(d / "export"), "--max-len", str(max_len),
+                  "--max-chunks", str(max_chunks)]):
+        with contextlib.redirect_stdout(io.StringIO()):
+            assert tcli.main(["etl", *argv]) == 0, argv
+    assert write_cxr_jpegs(str(d / "export"), str(d / "images")) > 0
+    return str(d / "export"), str(d / "images")
