@@ -149,12 +149,32 @@ toolkit. It
    prefetch_to_device bit-equal to batch_to, the INSPECT note driver with a
    native WordPiece built by g++ (K1 = 12 per embedding minibatch), and `cli
    etl medfuse | inspect | legacy` (no kernel);
-24. prints a {"kernels": [...]} line (each kernel with its launches on its
-   own path and on every path), the card's name and power limit, and the
-   {"ok": true, "device": ...} line last.
+24. the process mesh (phase_mesh; parallel/): two ranks of this script
+   share cuda:0 over gloo (NCCL puts no two ranks on one card), the
+   kernels built here before they start: (a) three fine-tuned data=2 steps
+   of the full-width flagship on 16 stays, 8 a rank (K1/K2/K3 = 12/12/1 per
+   rank per step, the parameters bit-identical across the ranks, step 1's
+   loss and global gradient norm within 2e-2 of the one-process step on
+   the same 16, per-rank step ms, peak memory and the gradient reduction's
+   bytes and ms), (b) the same under ZeRO-1 (its parameters after one step
+   within 1e-6 of (a)'s, each rank's Adam bytes at most 0.55 of (a)'s),
+   (c) a frozen data=1, model=2 step (K1 = 12 per rank, each rank's BERT
+   recorded on half the note pack that one process runs it on, the loss
+   within 2e-2 of the one-process frozen step), (d) `cli
+   train --mesh data=2` as two processes with the JAX package's variables
+   (one epoch, one checkpoint written by rank 0) and `cli eval` of it here
+   (K3 = 1 per forward), (e) NCCL chosen by init_multihost in a world of
+   one, each collective helper run on a CUDA tensor. Two ranks on one card
+   give no scaling figure;
+25. prints a {"kernels": [...]} line (each kernel with its launches on its
+   own path and on every path, the mesh's per rank), the card's name and
+   power limit, and the {"ok": true, "device": ...} line last.
 
 Any failed check raises, and the script exits non-zero without the last
 line. Without a CUDA card it exits 2 before doing anything.
+
+`--mesh-rank RANK WORLD PORT WORKDIR DEVICE` and `--cli-rank ARGV_JSON` run
+one rank of phase_mesh; the script starts them itself.
 """
 from __future__ import annotations
 
@@ -3385,6 +3405,370 @@ def phase_data(dev, tmp: str) -> dict:
     return out
 
 
+# --- the process mesh (phase_mesh): two ranks sharing the card over gloo ------
+
+# every dropout 0, so that the two ranks' step equals the one-process step
+MESH_DET = {"model.attn_dropout": 0.0, "model.relu_dropout": 0.0, "model.res_dropout": 0.0,
+            "model.embed_dropout": 0.0, "encoder.dropout": 0.0, "train.route_dropout_p": 0.0}
+MESH_BATCH = 16  # the global batch: 8 stays a rank at data=2
+MESH_TOL = 2e-2  # a two-rank bf16 step against the one-process bf16 step (E2E_TOL)
+# ZeRO against replicated moments after one step, fp32 masters: only the
+# clip norm's sum runs in another order, and Adam's update is invariant to
+# that scale but for eps; an element moves by lr * O(1) at most
+ZERO_ATOL = 1e-6
+
+
+def step_spies(norms: list, reduces: list):
+    """Wrap steps.apply_gradients to record the global norm of the gradients
+    it receives (averaged over the world on a mesh), and the gradient
+    reduction to record its (bytes, ms), synchronised on both sides; ->
+    undo."""
+    from multimodalrouting_tpu_torch.train import steps as train_steps
+
+    real_apply, real_reduce = train_steps.apply_gradients, train_steps.average_gradients
+
+    def apply(state, grads, **kw):
+        norms.append(float(torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(g.float()) for g in grads.values()]))))
+        return real_apply(state, grads, **kw)
+
+    def reduce(grads):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real_reduce(grads)
+        torch.cuda.synchronize()
+        reduces.append((sum(g.numel() * g.element_size() for g in grads), (time.perf_counter() - t0) * 1e3))
+
+    train_steps.apply_gradients, train_steps.average_gradients = apply, reduce
+
+    def undo():
+        train_steps.apply_gradients, train_steps.average_gradients = real_apply, real_reduce
+
+    return undo
+
+
+def record_chunk_rows(model) -> list:
+    """The chunks each BERT call of `model`'s note encoder runs on, recorded
+    as they come (on a model mesh, this rank's slice)."""
+    enc = model.encoders.bbert
+    rows, real = [], enc.chunk_embeddings
+
+    def spy(ids, attn, generator=None):
+        rows.append(int(ids.shape[0]))
+        return real(ids, attn, generator)
+
+    enc.chunk_embeddings = spy
+    return rows
+
+
+def mesh_step_run(label: str, cfg, dev, mesh=None, steps: int = 1, zero: bool = False) -> tuple:
+    """`steps` train steps of the full-width flagship on the MESH_BATCH
+    stays (this rank's rows on a data mesh), the first alone: -> (results,
+    the model, its parameters after the first step on the host, after the
+    last on the card). Launch counts over all steps."""
+    from multimodalrouting_tpu_torch.parallel.mesh import shard_batch
+    from multimodalrouting_tpu_torch.parallel.zero import shard_optimizer_state
+
+    torch.manual_seed(SEED)
+    model = build_model(cfg, device="cuda", train=True)
+    seed_signal(model, "capsule")  # a nonzero head: the first loss depends on the stays
+    state = create_train_state(cfg, model)
+    chunk_rows = record_chunk_rows(model)
+    if zero:
+        shard_optimizer_state(state, mesh)
+    cohort = full_width_cohort(cfg, MESH_BATCH, SEED)
+    local = cohort if mesh is None or mesh.n_data == 1 else shard_batch(cohort, mesh)
+    cap = note_pack_bucket(cfg, local)
+    batch = batch_to(local, dev)
+    step = make_train_step(cfg, model)
+    gen = torch.Generator(device=dev).manual_seed(cfg.train.seed)
+    norms, reduces = [], []
+    undo = step_spies(norms, reduces)
+    try:
+        torch.cuda.synchronize()
+        reset_counts()
+        first = step(state, batch, gen, cfg.train.lr, cfg.train.lr, note_pack=cap)
+        after_first = {n: p.detach().cpu() for n, p in model.named_parameters()} if mesh is not None else None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rest = [step(state, batch, gen, cfg.train.lr, cfg.train.lr, note_pack=cap) for _ in range(steps - 1)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        undo()
+    launches = read_counts()
+    losses = [float(m.loss) for m in (first, *rest)]
+    require(all(np.isfinite(losses)) and all(m.grad_finite for m in (first, *rest)), f"{label}: non-finite step")
+    params = {n: p.detach() for n, p in model.named_parameters()}
+    slots = np.asarray(local.chunk_mask).size  # the chunks BERT runs on unpacked
+    out = {
+        "loss": losses[0], "grad_norm": norms[0], "losses": losses, "launches": launches, "note_pack": cap,
+        "chunk_rows": chunk_rows, "pack_rows": cap if 0 < cap < slots else slots,
+        "valid_chunks": int(np.asarray(local.chunk_mask).sum()), "rows": local.batch_size,
+        "step_ms": wall / max(steps - 1, 1) * 1e3 if steps > 1 else None,
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "adam_bytes": sum(v.numel() * v.element_size() for d in (state.mu, state.nu) for v in d.values()),
+        "reduce_bytes": reduces[-1][0], "reduce_ms": float(np.mean([ms for _, ms in reduces[1:] or reduces])),
+    }
+    del state, batch
+    return out, model, after_first, params
+
+
+def params_sha(params: dict) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for name in sorted(params):
+        h.update(params[name].float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def mesh_rank(rank: int, world: int, port: str, work: str, device: str = "cuda") -> int:
+    """One rank of phase_mesh (`chip_smoke.py --mesh-rank RANK WORLD PORT
+    WORK DEVICE`), two ranks on cuda:0 over gloo: (a) 3 fine-tuned data=2
+    steps, (b) the same under ZeRO-1, compared with (a) after its first
+    step, (c) a frozen data=1, model=2 step; each rank's results to
+    WORK/rank<r>.json."""
+    from multimodalrouting_tpu_torch.parallel import mesh as pmesh
+    from multimodalrouting_tpu_torch.parallel.distributed import init_multihost
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    tag = f"[mesh rank {rank}]"
+    require(init_multihost(f"127.0.0.1:{port}", world, rank, backend="gloo", device=device,
+                           log_fn=lambda m: log(f"{tag} {m}")), "init_multihost did not join")
+    dev = torch.device("cuda", torch.cuda.current_device()) if device == "cuda" else torch.device(device)
+    results = {}
+    data = pmesh.make_mesh(2, 1, batch_size=MESH_BATCH)
+    pmesh.warmup_collectives(data, dev, log_fn=lambda m: log(f"{tag} {m}"))
+    pmesh.set_active_mesh(data)
+    ft = {"encoder.finetune_text": True, **MESH_DET, "train.num_data_shards": 2}
+    a, model, first, params = mesh_step_run("data=2", flagship_cfg(**ft), dev, data, steps=3)
+    a["params_sha"] = params_sha(params)
+    results["mesh_data"] = a
+    del model, params
+    torch.cuda.empty_cache()
+    b, model, zero_first, params = mesh_step_run(
+        "data=2 ZeRO", flagship_cfg(**ft, **{"train.zero_sharded_opt": True}), dev, data, steps=3, zero=True)
+    # (b) against (a), each after its first step
+    b["max_abs_vs_replicated"] = max(float((zero_first[n] - first[n]).abs().max()) for n in first)
+    b["params_sha"] = params_sha(params)
+    results["mesh_zero"] = b
+    del model, params, first, zero_first
+    torch.cuda.empty_cache()
+    pmesh.set_active_mesh(pmesh.make_mesh(1, 2))
+    c, model, _, params = mesh_step_run("data=1,model=2 frozen",
+                                        flagship_cfg(**MESH_DET, **{"train.num_model_shards": 2}), dev,
+                                        pmesh.get_active_mesh())
+    c["params_sha"] = params_sha(params)
+    results["mesh_model"] = c
+    pmesh.set_active_mesh(None)
+    del model, params
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(results, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def cli_rank(argv: list) -> int:
+    """One rank of phase_mesh's `cli train --mesh` (`chip_smoke.py
+    --cli-rank ARGV_JSON`, the JAX package's variables in the environment):
+    the process group joined over gloo, as only the card phase may share a
+    card between ranks, then the CLI."""
+    from multimodalrouting_tpu_torch.parallel.distributed import init_multihost
+
+    argv = json.loads(argv)
+    require(init_multihost(backend="gloo", device=argv[argv.index("--device") + 1]), "init_multihost did not join")
+    try:
+        return port_cli.main(argv)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def spawn_ranks(args_of, env_of=None, timeout: int = 600) -> list:
+    """Two rank processes of this script, their output relayed; -> their
+    outputs. Fails if either exits non-zero; kills both on the way out."""
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), *args_of(r)], cwd=ROOT,
+                              env={**os.environ, **(env_of(r) if env_of else {})}, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        for line in out.splitlines():
+            log(f"[mesh rank {r}] {line}" if not line.startswith("[mesh rank") else line)
+        require(p.returncode == 0, f"rank {r} exited {p.returncode}")
+    return outs
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_nccl(dev) -> None:
+    """(e) One rank under NCCL (world 1, cuda:0): init_multihost picks NCCL
+    by itself, and each collective helper runs once on a CUDA tensor."""
+    import torch.distributed as dist
+
+    from multimodalrouting_tpu_torch.parallel import mesh as pmesh
+    from multimodalrouting_tpu_torch.parallel.distributed import init_multihost
+    from multimodalrouting_tpu_torch.parallel.zero import ZeroShards
+
+    require(init_multihost(f"127.0.0.1:{free_port()}", 1, 0, log_fn=log), "NCCL world did not initialise")
+    try:
+        backend = dist.get_backend()
+        require(backend == "nccl", f"init_multihost chose {backend} with a card of its own")
+        mesh = pmesh.make_mesh(1, 1)
+        dev = torch.device("cuda", torch.cuda.current_device())
+        pmesh.warmup_collectives(mesh, dev, log_fn=log)
+        pmesh.set_active_mesh(mesh)
+        x = torch.arange(6.0, device=dev).reshape(3, 2).requires_grad_()
+        s = pmesh.global_sum(x)
+        s.sum().backward()
+        g = pmesh.gather_chunks(x.detach())
+        grads = [torch.ones(4, device=dev), torch.full((2,), 3.0, device=dev, dtype=torch.bfloat16)]
+        pmesh.average_gradients(grads)
+        host = pmesh.host_gather(x.detach(), mesh)
+        z = ZeroShards(mesh, {"w": slice(0, 3)})
+        w = torch.zeros(3, 2, device=dev)
+        w[0:3] = 1.0
+        z.gather_param_(w, "w")
+        ok = (torch.equal(s, x) and torch.equal(x.grad, torch.ones_like(x)) and torch.equal(g, x)
+              and torch.equal(pmesh.global_mean(x.detach()), x.detach()) and float(grads[1][0]) == 3.0
+              and np.array_equal(host, x.detach().cpu().numpy()) and z.all_finite(True, dev)
+              and float(z.sum(torch.ones(1, device=dev))) == 1.0 and bool((w == 1).all()))
+        require(ok, "an NCCL collective helper gave a wrong result")
+        log(f"[mesh] (e) NCCL on {torch.cuda.get_device_name(0)}: global_sum (and its backward), global_mean, "
+            "gather_chunks, average_gradients (fp32, bf16), host_gather and ZeRO's all_finite / sum / gather "
+            "each ran on a CUDA tensor")
+    finally:
+        pmesh.set_active_mesh(None)
+        dist.destroy_process_group()
+
+
+def phase_mesh(dev, tmp: str) -> dict:
+    """The process mesh on one card: (a) two ranks on cuda:0 over gloo take
+    3 fine-tuned data=2 steps of the full-width flagship on 16 stays (8 a
+    rank), K1/K2/K3 = 12/12/1 per rank per step, parameters bit-identical
+    across ranks, step 1's loss and global gradient norm within MESH_TOL of
+    the one-process step on the same 16; (b) the same under ZeRO-1, its
+    parameters after one step within ZERO_ATOL of (a)'s, each rank's Adam
+    bytes at most 0.55 of (a)'s; (c) a frozen data=1, model=2 step, K1 = 12
+    per rank on half the note pack, the loss within MESH_TOL of the
+    one-process frozen step; (d) `cli train --mesh data=2` as two processes
+    with the JAX package's variables for one epoch, one checkpoint written
+    by rank 0, `cli eval` of it in this process (K3 = 1 per forward); (e)
+    NCCL in a world of one. Step times are of two ranks sharing one card:
+    not a scaling figure. -> {path: launches}."""
+    t0 = time.perf_counter()
+    # the one-process references, freed before the ranks start: three
+    # processes share the card's memory
+    ft = {"encoder.finetune_text": True, **MESH_DET}
+    one, model, _, _ = mesh_step_run("one process", flagship_cfg(**ft), dev)
+    del model
+    one_frozen, model, _, _ = mesh_step_run("one process frozen", flagship_cfg(**MESH_DET), dev)
+    del model
+    torch.cuda.empty_cache()
+    log(f"[mesh] one process, 16 stays: fine-tuned loss {one['loss']:.5f} grad_norm {one['grad_norm']:.5f} "
+        f"(pack {one['note_pack']}); frozen loss {one_frozen['loss']:.5f} (pack {one_frozen['note_pack']})")
+    work = os.path.join(tmp, "mesh")
+    os.makedirs(work)
+    port = str(free_port())
+    spawn_ranks(lambda r: ["--mesh-rank", str(r), "2", port, work, dev.type])
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    out = {}
+    per_step = {"packed_attention": 12, "packed_attention_bwd": 12, "capsule_routing": 1}
+    for path, steps, counts in (("mesh_data", 3, per_step), ("mesh_zero", 3, per_step),
+                                ("mesh_model", 1, {"packed_attention": 12, "capsule_routing": 1})):
+        want = expected(**{k: v * steps for k, v in counts.items()})
+        for r, rk in enumerate(ranks):
+            got = rk[path]
+            require(got["launches"] == want, f"{path} rank {r}: launches {got['launches']}, expected {want}")
+            out[f"{path}.rank{r}"] = got["launches"]
+        require(ranks[0][path]["params_sha"] == ranks[1][path]["params_sha"],
+                f"{path}: the ranks' parameters differ")
+    a0 = ranks[0]["mesh_data"]
+    rel = {key: abs(a0[key] - one[key]) / abs(one[key]) for key in ("loss", "grad_norm")}
+    for key in rel:
+        require(rel[key] <= MESH_TOL, f"(a) step 1 {key} {a0[key]} against one process {one[key]}: rel {rel[key]:.3e}")
+    log(f"[mesh] (a) data=2 fine-tuned: step 1 loss {a0['loss']:.5f} grad_norm {a0['grad_norm']:.5f} (rel "
+        f"{rel['loss']:.2e} / {rel['grad_norm']:.2e} of one process); losses {[round(x, 5) for x in a0['losses']]}; "
+        "parameters bit-identical across ranks")
+    for r, rk in enumerate(ranks):
+        a = rk["mesh_data"]
+        log(f"[mesh] (a) rank {r}: {a['rows']} stays, pack {a['note_pack']} ({a['valid_chunks']} valid chunks), "
+            f"K1/K2/K3 {a['launches']['packed_attention']}/{a['launches']['packed_attention_bwd']}/"
+            f"{a['launches']['capsule_routing']} over 3 steps, step_ms={a['step_ms']:.1f} (two ranks sharing "
+            f"one card), peak_memory_gb={a['peak_gb']:.2f}, adam_bytes={a['adam_bytes']}, "
+            f"reduce_ms={a['reduce_ms']:.1f} for {a['reduce_bytes']} bytes a step")
+        b = rk["mesh_zero"]
+        ratio = b["adam_bytes"] / a["adam_bytes"]
+        require(b["max_abs_vs_replicated"] <= ZERO_ATOL, f"(b) rank {r}: ZeRO parameters off by "
+                f"{b['max_abs_vs_replicated']:.3e} from the replicated ones (limit {ZERO_ATOL})")
+        require(ratio <= 0.55, f"(b) rank {r}: Adam bytes {b['adam_bytes']} = {ratio:.3f} of replicated")
+        log(f"[mesh] (b) rank {r}: ZeRO-1 max|param - replicated| after one step {b['max_abs_vs_replicated']:.3e} "
+            f"(limit {ZERO_ATOL}), adam_bytes={b['adam_bytes']} ({ratio:.3f} of replicated), "
+            f"step_ms={b['step_ms']:.1f}, peak_memory_gb={b['peak_gb']:.2f}")
+        require(a["chunk_rows"] == [a["pack_rows"]] * 3, f"(a) rank {r}: BERT ran on {a['chunk_rows']} chunks, "
+                f"expected its pack of {a['pack_rows']} in each of 3 steps")
+    c0 = ranks[0]["mesh_model"]
+    rel = abs(c0["loss"] - one_frozen["loss"]) / abs(one_frozen["loss"])
+    require(rel <= MESH_TOL, f"(c) loss {c0['loss']} against one process {one_frozen['loss']}: rel {rel:.3e}")
+    # each rank's BERT ran on half of the pack that one process ran on
+    half = -(-one_frozen["chunk_rows"][0] // 2)
+    require(one_frozen["chunk_rows"] == [one_frozen["pack_rows"]], f"(c) one process: BERT ran on "
+            f"{one_frozen['chunk_rows']} chunks, expected its pack of {one_frozen['pack_rows']}")
+    for r, rk in enumerate(ranks):
+        require(rk["mesh_model"]["chunk_rows"] == [half], f"(c) rank {r}: BERT ran on "
+                f"{rk['mesh_model']['chunk_rows']} chunks, expected {half} of the pack's {one_frozen['pack_rows']}")
+    log(f"[mesh] (c) data=1,model=2 frozen: loss {c0['loss']:.5f} (rel {rel:.2e}), pack {c0['note_pack']} "
+        f"chunks, BERT on {ranks[0]['mesh_model']['chunk_rows'][0]} / {ranks[1]['mesh_model']['chunk_rows'][0]} "
+        f"of them on ranks 0 / 1 (measured), K1 = {c0['launches']['packed_attention']} per rank")
+
+    # (d) the CLI on a data mesh, then eval in this process
+    run_dir = os.path.join(tmp, "mesh_cli")
+    yaml = os.path.join(ROOT, "configs", "trimodal_mort.yaml")
+    argv = ["train", "--config", yaml, "--mesh", "data=2", "--out", run_dir, "--device", "cuda", "--epochs", "1",
+            *set_args(*CLI_ONCE)]
+    port = str(free_port())
+    t1 = time.perf_counter()
+    outs = spawn_ranks(lambda r: ["--cli-rank", json.dumps(argv)],
+                       lambda r: {"JAX_COORDINATOR_ADDRESS": f"127.0.0.1:{port}", "JAX_NUM_PROCESSES": "2",
+                                  "JAX_PROCESS_ID": str(r)})
+    secs = time.perf_counter() - t1
+    for r, text in enumerate(outs):
+        require(f"[distributed] process {r}/2" in text, f"cli rank {r} printed no [distributed] line")
+    dirs = sorted(d for d in os.listdir(run_dir) if os.path.isdir(os.path.join(run_dir, d)))
+    require(dirs == ["final"], f"cli train --mesh wrote {dirs}, expected one checkpoint")
+    summary = json.loads(outs[0].strip().splitlines()[-1])
+    log(f"[mesh] (d) cli train --mesh data=2: {secs:.1f}s for both ranks, {summary}")
+    lines, launches = run_cli(["eval", "--ckpt", run_dir, "--device", "cuda"])
+    want = expected(capsule_routing=-(-CLI_N // CLI_BATCH))
+    require(launches == want, f"cli eval of the mesh checkpoint: launches {launches}, expected {want}")
+    out["mesh_cli_eval"] = launches
+    shutil.rmtree(run_dir)
+
+    phase_nccl(dev)
+    log(f"[mesh] phase done in {time.perf_counter() - t0:.1f}s")
+    return out
+
+
 def ptxas_report() -> None:
     """Print each library's ptxas lines (the kernel each group of lines is
     for, its registers, spills and any warning) and fail if an instance of
@@ -3449,6 +3833,7 @@ def main() -> int:
         by_path.update(phase_int8(dev, tmp))
         by_path.update(phase_interpret(dev, tmp))
         by_path.update(phase_data(dev, tmp))
+        by_path.update(phase_mesh(dev, tmp))
     for k in kernels:  # each kernel's own main path: the path this slice or an earlier one brought it up on
         k["launches"] = by_path[MAIN_PATH[k["name"]]][k["name"]]
         k["launches_by_path"] = {path: counts.get(k["name"], 0) for path, counts in by_path.items()}
@@ -3461,4 +3846,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:  # one rank of phase_mesh
+        sys.exit(mesh_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5], sys.argv[6]))
+    if sys.argv[1:2] == ["--cli-rank"]:
+        sys.exit(cli_rank(sys.argv[2]))
     sys.exit(main())

@@ -57,9 +57,17 @@ and ``unimodal --impressions-csv`` / ``--inspect-csv`` their INSPECT
 loaders. ``encoder.text_embedding_cache=true`` runs the frozen BERT body
 once per split (``train/text_cache.py``) in ``train`` and ``eval``.
 
+``train`` runs on a process mesh under ``--mesh data=N[,model=M]`` (one
+process per rank, launched by ``torchrun --nproc-per-node N*M`` or with the
+JAX package's ``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES`` /
+``JAX_PROCESS_ID`` in each; ``parallel/``): data parallelism, the note
+chunks sharded over 'model', ZeRO-1 under ``train.zero_sharded_opt``; rank
+0 writes the checkpoints, which ``eval`` and ``predict`` serve in one
+process. ``--mesh`` without such a launch refuses with the command to use.
+
 What the port does not have yet raises ``NotImplementedError`` naming its
-ROADMAP.md item, and never runs another path in its place: device meshes
-and multi-host runs (item 12).
+ROADMAP.md item, and never runs another path in its place: tensor, GPipe
+and route parallelism and microbatching on a mesh (item 12).
 
 Config resolution is the JAX package's: defaults <- --config file <-
 MIMICIV_* env vars <- --set key=value overrides.
@@ -75,12 +83,6 @@ from typing import Dict, List, Optional
 import numpy as np
 
 FAMILIES = ["capsule", "gated_concat", "fame", "late_fusion", "trimf"]
-# the JAX package's multi-host triggers (parallel/distributed.py:init_multihost)
-MULTIHOST_ENV = ("JAX_COORDINATOR_ADDRESS", "TPU_WORKER_HOSTNAMES")
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md §1 item {item})")
 
 
 def _parse_sets(pairs: List[str]) -> Dict[str, str]:
@@ -91,12 +93,6 @@ def _parse_sets(pairs: List[str]) -> Dict[str, str]:
         k, v = p.split("=", 1)
         out[k] = v
     return out
-
-
-def _check_cfg(cfg, family: str) -> None:
-    """Refuse the configurations the port does not run."""
-    if cfg.train.num_data_shards * cfg.train.num_model_shards > 1:
-        raise _not_ported("a multi-device --mesh", "12")
 
 
 SPLITS = ("train", "val", "test")
@@ -178,18 +174,12 @@ def _load_data(cfg, task: str, splits=SPLITS):
 
 
 def cmd_train(args) -> int:
-    import torch
+    import torch.distributed as dist
 
-    from multimodalrouting_tpu_torch.ckpt import restore_train_state
     from multimodalrouting_tpu_torch.configs import load_cfg
-    from multimodalrouting_tpu_torch.models.full import build_model
-    from multimodalrouting_tpu_torch.train.loop import train_model
-    from multimodalrouting_tpu_torch.train.state import create_train_state, n_route_loss_ema_for
-    from multimodalrouting_tpu_torch.train.steps import loss_family
-    from multimodalrouting_tpu_torch.utils.profiling import trace_context
+    from multimodalrouting_tpu_torch.parallel.distributed import init_multihost
+    from multimodalrouting_tpu_torch.parallel.mesh import check_mesh_roles, launch_hint
 
-    if any(os.environ.get(k) for k in MULTIHOST_ENV):
-        raise _not_ported("a multi-host run", "12")
     overrides = _parse_sets(args.set or [])
     if args.task:
         overrides.setdefault("model.task", args.task)
@@ -212,7 +202,35 @@ def cmd_train(args) -> int:
             key = "num_data_shards" if axis == "data" else "num_model_shards"
             overrides[f"train.{key}"] = n.strip()
     cfg = load_cfg(args.config, overrides)
-    _check_cfg(cfg, args.family)
+    ranks = cfg.train.num_data_shards * cfg.train.num_model_shards
+    if ranks > 1:  # before any process group: what a mesh cannot run refuses first
+        check_mesh_roles(cfg)
+    # the process group from the JAX package's or torchrun's variables
+    # (parallel/distributed.py); a no-op in one process
+    joined = not dist.is_initialized() and init_multihost(device=args.device)
+    try:
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        if dist.is_initialized():
+            print(f"[distributed] process {dist.get_rank()}/{world}: 1 local / {world} global devices "
+                  f"({args.device})", flush=True)
+        if ranks != world:
+            raise SystemExit(f"--mesh data={cfg.train.num_data_shards},model={cfg.train.num_model_shards} has "
+                             f"{ranks} ranks and this run has {world} process(es): {launch_hint(ranks)}")
+        return _train(args, cfg, rank0=not dist.is_initialized() or dist.get_rank() == 0)
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def _train(args, cfg, rank0: bool) -> int:
+    import torch
+
+    from multimodalrouting_tpu_torch.ckpt import restore_train_state
+    from multimodalrouting_tpu_torch.models.full import build_model
+    from multimodalrouting_tpu_torch.train.loop import train_model
+    from multimodalrouting_tpu_torch.train.state import create_train_state, n_route_loss_ema_for
+    from multimodalrouting_tpu_torch.train.steps import loss_family
+    from multimodalrouting_tpu_torch.utils.profiling import trace_context
 
     train_b, val_b = _load_data(cfg, cfg.model.task, splits=("train", "val"))
     family = loss_family(args.family)
@@ -236,8 +254,9 @@ def cmd_train(args) -> int:
     with trace_context(args.profile_dir, cuda=args.device == "cuda"):
         result = train_model(cfg, model, train_b, val_b, family=family, stage=stage, state=state,
                              ckpt_dir=out_dir)
-    with open(os.path.join(out_dir, "history.json"), "w") as f:
-        json.dump(result.history, f, indent=2)
+    if rank0:  # the ranks' histories are the same; one writer
+        with open(os.path.join(out_dir, "history.json"), "w") as f:
+            json.dump(result.history, f, indent=2)
     print(
         json.dumps(
             {
@@ -270,7 +289,6 @@ def cmd_eval(args) -> int:
     from multimodalrouting_tpu_torch.train.text_cache import attach_note_cache
 
     cfg = load_config(args.ckpt, args.name)
-    _check_cfg(cfg, args.family)
     test_b, _ = _load_split(cfg, cfg.model.task, "test")
     model = build_model(cfg, args.family, device=args.device)
     family = loss_family(args.family)
@@ -331,7 +349,6 @@ def cmd_predict(args) -> int:
     (JSONL or HTTP), with the validation-fitted temperature and thresholds
     and the route audit per prediction (``serve.py``); ``--export-artifact``
     writes a checkpoint's serving artifact (``artifact.py``) and exits."""
-    from multimodalrouting_tpu_torch.ckpt import load_config
     from multimodalrouting_tpu_torch.serve import Predictor, make_http_server, write_predictions_jsonl
 
     if args.artifact and args.ckpt:
@@ -342,11 +359,9 @@ def cmd_predict(args) -> int:
         if args.export_artifact:
             raise SystemExit("--export-artifact needs --ckpt (a live Predictor)")
         pred = ExportedPredictor(args.artifact, device=args.device)
-        _check_cfg(pred.cfg, pred.family)
     else:
         if not args.ckpt:
             raise SystemExit("one of --ckpt or --artifact is required")
-        _check_cfg(load_config(args.ckpt, args.name), args.family)
         pred = Predictor(args.ckpt, args.family, name=args.name, batch_size=args.batch_size, device=args.device)
 
     if args.export_artifact:
@@ -428,7 +443,6 @@ def cmd_unimodal(args) -> int:
         data_task = args.task or "multitask"
         stratify = False
     else:
-        _check_cfg(cfg, "")
         # multitask labels (mortality / pe / ph) ride the synthetic "multitask"
         # y; readmit is a binary label column in real exports
         data_task = args.task or cfg.model.task
@@ -668,7 +682,6 @@ def cmd_interpret(args) -> int:
     from multimodalrouting_tpu_torch.routes import ROUTES_7, route_mask_from_presence
 
     cfg = load_config(args.ckpt, args.name)
-    _check_cfg(cfg, "gated_concat")
     model = build_model(cfg, "gated_concat", device=args.device)
     weights, _ = load_serving(args.ckpt, args.name, like=model.state_dict())
     model.load_state_dict(weights)

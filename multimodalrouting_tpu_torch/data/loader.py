@@ -145,8 +145,10 @@ def prefetch_to_device(
     stream, up to `size` batches ahead of the consumer, and yielded once the
     consumer's stream waits on the copy's event; the values equal
     ``batch_to(b, device)``'s bit for bit. On another device it is
-    ``batch_to`` in the same order. The JAX package's mesh sharding
-    (`sharding`) is not ported."""
+    ``batch_to`` in the same order. With a mesh as `sharding`
+    (``parallel/mesh.Mesh``) each global batch is first cut to this rank's
+    data shard's rows (``shard_batch``), the JAX package's sharded
+    ``device_put`` on one process's devices."""
     import collections
 
     import torch
@@ -154,7 +156,9 @@ def prefetch_to_device(
     from multimodalrouting_tpu_torch.data.batches import batch_to
 
     if sharding is not None:
-        raise NotImplementedError("sharded prefetch is not ported yet (ROADMAP.md §1 item 12)")
+        from multimodalrouting_tpu_torch.parallel.mesh import shard_batch
+
+        batches = (shard_batch(b, sharding) for b in batches)
     device = torch.device(device)
     if device.type != "cuda":
         for b in batches:

@@ -19,6 +19,15 @@ to the [B*S] grid, where padded chunks are zeroed either way — the output is
 the same as without packing. The JAX package passes the capacity through a
 global context manager; here it is an argument.
 
+On a mesh with ``n_model`` > 1 (the 'model' axis's default role, JAX
+``clinbert.py:300-323``), rank j of a model group runs BERT on its
+contiguous slice of the flattened, packed chunks (padded to equal length,
+as GSPMD pads internally), and ``parallel/mesh.gather_chunks`` assembles
+the [N, H] embeddings in rank order before the projection; its backward
+hands each rank its rows of the gradient. Chunks are independent, so the
+embeddings are those of the unsharded forward. Each slice draws its dropout
+masks from a generator of its own (``slice_generator``).
+
 ``pipeline`` (``train.pipeline_parallel``) holds the layers in the stacked
 pipeline-parallel layout of ``parallel/pp.py`` (``bert.pp_layers``), run as a
 sequential loop on one card, with that layout's own attention dispatch (no
@@ -31,6 +40,7 @@ layout with the JAX package's messages.
 """
 from __future__ import annotations
 
+import hashlib
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -42,6 +52,7 @@ from multimodalrouting_tpu_torch.ops.gelu import apply_gelu
 from multimodalrouting_tpu_torch.ops.layernorm import LayerNorm, bert_layer_norm
 from multimodalrouting_tpu_torch.ops.masked import masked_max, masked_mean
 from multimodalrouting_tpu_torch.ops.quant import QuantDense
+from multimodalrouting_tpu_torch.parallel.mesh import chunk_sharding, gather_chunks, get_active_mesh
 from multimodalrouting_tpu_torch.parallel.pp import PipelinedBertLayers
 
 
@@ -120,6 +131,19 @@ class BertEncoder(nn.Module):
         return x
 
 
+def slice_generator(generator: Optional[torch.Generator], index: int) -> Optional[torch.Generator]:
+    """The dropout generator of model-group rank `index`'s chunk slice:
+    seeded from the state of the group's shared `generator` and `index`, so
+    that each slice draws its own masks; the shared generator then advances
+    alike on every rank of the group."""
+    if generator is None:
+        return None
+    state = generator.get_state().numpy().tobytes() + index.to_bytes(4, "little")
+    seed = int.from_bytes(hashlib.blake2b(state, digest_size=8).digest(), "little")
+    torch.empty(1, device=generator.device).uniform_(generator=generator)
+    return torch.Generator(device=generator.device).manual_seed(seed)
+
+
 class BioClinBERTEncoder(nn.Module):
     """notes {"input_ids" [B,S,L], "attention_mask" [B,S,L], "chunk_mask" [B,S],
     optional "chunk_embs" [B,S,hidden]} -> (H [B,S,d], chunk_mask [B,S], pooled [B,d])."""
@@ -171,7 +195,18 @@ class BioClinBERTEncoder(nn.Module):
             # valid chunks first (stable), then the capacity's padded slots
             pack_idx = torch.argsort(-chunk_mask.reshape(b * s), stable=True)[:note_pack]
             flat_ids, flat_attn = flat_ids[pack_idx], flat_attn[pack_idx]
-        emb = self.chunk_embeddings(flat_ids, flat_attn, generator)
+        mesh = get_active_mesh()
+        if chunk_sharding(mesh):
+            # the 'model' axis's default role: this rank's contiguous slice of
+            # the (packed) chunks, padded to equal length by repeating the last
+            # chunk, through BERT; the gathered embeddings are trimmed back
+            n = flat_ids.shape[0]
+            per = -(-n // mesh.n_model)
+            rows = torch.clamp(torch.arange(per, device=flat_ids.device) + mesh.model_index * per, max=n - 1)
+            gen = slice_generator(generator, mesh.model_index)
+            emb = gather_chunks(self.chunk_embeddings(flat_ids[rows], flat_attn[rows], gen))[:n]
+        else:
+            emb = self.chunk_embeddings(flat_ids, flat_attn, generator)
         return self._project_and_pool(emb, chunk_mask, b, s, pack_idx)
 
     def chunk_embeddings(self, flat_ids: torch.Tensor, flat_attn: torch.Tensor, generator=None) -> torch.Tensor:

@@ -16,7 +16,15 @@ at 0, eps 1e-5), and it computes the new running statistics with flax's rule
 (momentum 0.9 on the old value, the biased batch variance). Those are not
 written into the buffers during the forward: the module keeps them in
 ``batch_update`` for the train step, which commits them only when the
-gradient is finite (``train/state.py:apply_gradients``).
+gradient is finite (``train/state.py:apply_gradients``). On a mesh the batch
+statistics are the global batch's, so every rank normalises and commits the
+same ones, as flax BatchNorm does on the JAX package's globally-sharded
+batch: the mean averaged over the data group (``parallel/mesh.global_mean``),
+then the variance as the average of each rank's second moment about it
+(with one data shard, the one-process statistics). The two passes avoid
+flax's E[x^2] - E[x]^2, whose cancellation on a channel with a large mean
+and a small spread turns the order of the summation into a visible change
+of the variance.
 """
 from __future__ import annotations
 
@@ -27,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from multimodalrouting_tpu_torch.models.layers import Dense
+from multimodalrouting_tpu_torch.parallel.mesh import get_active_mesh, global_mean
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -80,8 +89,12 @@ class BatchNorm(nn.Module):
                 x.float(), self.running_mean, self.running_var, self.weight, self.bias, False, 0.0, self.eps
             ).to(self.dtype)
         xf = x.float()
-        mean = xf.mean(dim=(0, 2, 3))
-        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        mean = global_mean(xf.mean(dim=(0, 2, 3)))
+        mesh = get_active_mesh()
+        if mesh is None or mesh.n_data == 1:  # flax's fast variance, E[x^2] - E[x]^2
+            var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        else:  # the global batch's centred second moment (equal-size data shards)
+            var = global_mean((xf - mean[:, None, None]).square().mean(dim=(0, 2, 3)))
         m = self.MOMENTUM
         with torch.no_grad():
             self.batch_update = (m * self.running_mean + (1 - m) * mean, m * self.running_var + (1 - m) * var)

@@ -1,5 +1,5 @@
-"""The epoch-level training loop of every family on one device over a dense
-split (counterpart of multimodalrouting_tpu/train/loop.py:32-87 and
+"""The epoch-level training loop of every family on one device, or on a
+process mesh, over a dense split (counterpart of multimodalrouting_tpu/train/loop.py:32-87 and
 :152-572). ``family`` is the loss family (capsule, gated_concat or fame;
 the baselines train under fame) and ``stage`` the curriculum stage: the
 train step runs the stage's forward (gated step1 / step2 / step3, fame uni
@@ -37,8 +37,24 @@ needs random access, raises ``ValueError``. Its resume restarts at the
 epoch the step implies, and that epoch's stream is drawn again from the
 split's seed plus the epoch, as the JAX loop does.
 
-Not ported: meshes (ROADMAP.md §1 item 12); they raise, as do background
-checkpoint saves (``train.ckpt_backend=orbax_async``, item 13).
+On a mesh (``train.num_data_shards`` x ``train.num_model_shards`` > 1,
+``parallel/mesh.py``; the JAX loop's :169-226) every rank of the process
+group runs this loop: the epoch order comes from the same numpy generator on
+every rank, which then takes its data shard's rows of each global batch
+(and packs its own chunks); the step is the global batch's
+(``train/steps.py``); under ``train.zero_sharded_opt`` the moments are
+sharded (``parallel/zero.py``); the evaluation gathers every shard's
+outputs, so that every rank takes the same plateau, early-stop and
+best-checkpoint decisions; rank 0 alone writes checkpoints (full moments)
+and the reliability diagram, and the others wait at a barrier. Route
+dropout draws from the generator shared by the ranks, in-layer dropout from
+one of each data shard's, seeded from (``train.seed``, data shard, epoch):
+the ranks of a model group, which hold the same rows, draw the same masks
+(each BERT chunk slice its own, ``models/clinbert.py``), and a mesh run at
+dropout 0 equals the one-process run. Tensor, pipeline and route
+parallelism on a mesh and microbatching on a mesh raise (ROADMAP.md §1 item
+12), as do background checkpoint saves (``train.ckpt_backend=orbax_async``,
+item 13).
 """
 from __future__ import annotations
 
@@ -50,6 +66,7 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from multimodalrouting_tpu_torch.audit.exports import save_reliability_diagram
 from multimodalrouting_tpu_torch.ckpt import TRAIN_STATE, save_checkpoint
@@ -57,7 +74,16 @@ from multimodalrouting_tpu_torch.configs import Config, to_dict
 from multimodalrouting_tpu_torch.data.batches import Batch, batch_to, slice_batch, take_batch
 from multimodalrouting_tpu_torch.metrics.calibration import find_best_thresholds, fit_temperature
 from multimodalrouting_tpu_torch.metrics.classification import epoch_metrics
+from multimodalrouting_tpu_torch.parallel.mesh import (
+    check_mesh_roles,
+    host_gather,
+    make_mesh,
+    set_active_mesh,
+    shard_batch,
+    warmup_collectives,
+)
 from multimodalrouting_tpu_torch.parallel.pp import validate_pp
+from multimodalrouting_tpu_torch.parallel.zero import shard_optimizer_state
 from multimodalrouting_tpu_torch.pretrained import apply_pretrained
 from multimodalrouting_tpu_torch.serve import probs_from_logits
 from multimodalrouting_tpu_torch.train.state import (
@@ -118,19 +144,28 @@ class TrainResult:
     temperature: float
 
 
-def predict_probs(eval_step, state: TrainState, cohort: Batch, batch_size: int, task: str):
+def predict_probs(eval_step, state: TrainState, cohort: Batch, batch_size: int, task: str, mesh=None):
     """Full-split inference in slices of `batch_size` -> (probs, alpha
     [N, R], r_matrix [N, R, K]) on the host; the route audit is None where
-    the model gives none."""
+    the model gives none. On a `mesh` each slice is padded to a full batch
+    by repeating the last row (the JAX loop's clipped gather), each rank
+    runs its data shard's rows, and the outputs are gathered over the data
+    group, so that every rank holds the whole split's."""
     dev = next(state.model.parameters()).device
+    n = cohort.batch_size
     probs, alphas, rms = [], [], []
-    for start in range(0, cohort.batch_size, batch_size):
-        out = eval_step(state, batch_to(slice_batch(cohort, start, batch_size), dev))
-        probs.append(probs_from_logits(out.logits.cpu().numpy(), task))
+    for start in range(0, n, batch_size):
+        if mesh is None:
+            sub, k = slice_batch(cohort, start, batch_size), None
+        else:
+            sub = shard_batch(take_batch(cohort, np.minimum(np.arange(start, start + batch_size), n - 1)), mesh)
+            k = min(batch_size, n - start)
+        out = eval_step(state, batch_to(sub, dev))
+        probs.append(probs_from_logits(host_gather(out.logits, mesh)[:k], task))
         if out.alpha is not None:
-            alphas.append(out.alpha.cpu().numpy())
+            alphas.append(host_gather(out.alpha, mesh)[:k])
         if out.r_matrix is not None:
-            rms.append(out.r_matrix.cpu().numpy())
+            rms.append(host_gather(out.r_matrix, mesh)[:k])
     cat = lambda xs: np.concatenate(xs, 0) if xs else None  # noqa: E731
     return cat(probs), cat(alphas), cat(rms)
 
@@ -150,12 +185,37 @@ def train_model(
     """Train `model` (from ``build_model(..., train=True)``, on its device)
     on numpy cohorts under the loss `family` at curriculum `stage`, from
     `state` where given (a restored one resumes); checkpoints go to
-    ``ckpt_dir/<best|best_f1|last|final>``."""
+    ``ckpt_dir/<best|best_f1|last|final>``.
+
+    With ``train.num_data_shards * train.num_model_shards`` > 1 every rank
+    of the process group (``parallel/distributed.init_multihost``) calls
+    this with the same arguments: the loop runs on the mesh
+    (``parallel/mesh.py``), as described in the module's docstring."""
+    t = cfg.train
+    mesh = None
+    try:
+        if t.num_data_shards * t.num_model_shards > 1:
+            # the JAX package's checks and messages first, before any global
+            # state is set: a refusal must not leave a mesh behind
+            if t.batch_size % t.num_data_shards != 0:
+                raise ValueError(f"train.batch_size={t.batch_size} must be divisible by "
+                                 f"train.num_data_shards={t.num_data_shards}")
+            if t.pipeline_parallel:
+                validate_pp(cfg, t.num_model_shards)
+            check_mesh_roles(cfg)
+            mesh = make_mesh(t.num_data_shards, t.num_model_shards, batch_size=t.batch_size)
+            warmup_collectives(mesh, next(model.parameters()).device, log_fn=log_fn)
+            set_active_mesh(mesh)
+        return _train_model(cfg, model, train_cohort, val_cohort, family=family, stage=stage, state=state,
+                            log_fn=log_fn, ckpt_dir=ckpt_dir, mesh=mesh)
+    finally:
+        if mesh is not None:
+            set_active_mesh(None)
+
+
+def _train_model(cfg: Config, model, train_cohort, val_cohort, *, family, stage, state, log_fn, ckpt_dir,
+                 mesh) -> TrainResult:
     t, m = cfg.train, cfg.model
-    if t.num_data_shards * t.num_model_shards > 1:
-        if t.pipeline_parallel:  # the JAX package's checks and messages first
-            validate_pp(cfg, t.num_model_shards)
-        raise NotImplementedError("device meshes are not ported yet (ROADMAP.md §1 item 12)")
     streaming = hasattr(train_cohort, "epoch_iter")
     if cfg.encoder.text_embedding_cache and streaming:  # the JAX package's check and message first
         raise ValueError(
@@ -182,11 +242,14 @@ def train_model(
     rng = np.random.default_rng(t.seed)
     dev = next(model.parameters()).device
     generator = torch.Generator(device=dev).manual_seed(t.seed)
+    writer = mesh is None or mesh.rank == 0  # one writer of checkpoints and plots
     if state is None:
         if cfg.encoder.bert_weights or cfg.encoder.vision_weights:
             # a fresh init only, and before the state: its EMA starts from them
             apply_pretrained(cfg, model, log_fn=log_fn)
         state = create_train_state(cfg, model, stage=stage, n_route_loss_ema=n_route_loss_ema_for(cfg, family))
+    if mesh is not None and t.zero_sharded_opt:
+        shard_optimizer_state(state, mesh)
     if cfg.encoder.text_embedding_cache:
         # the frozen BERT body once over each split; every step and
         # evaluation then starts from the cached chunk embeddings
@@ -210,15 +273,22 @@ def train_model(
     steps_per_epoch = max(n_train // t.batch_size, 1)
     if cfg.verbose:
         log_fn(f"[config] {json.dumps(to_dict(cfg), sort_keys=True)}")
+        shape = "none" if mesh is None else f"data={mesh.n_data},model={mesh.n_model}"
         log_fn(f"[train] family={family} stage={stage or '-'} n_train={n_train} "
-               f"steps/epoch={steps_per_epoch} mesh=none")
+               f"steps/epoch={steps_per_epoch} mesh={shape}")
 
     def save(name: str, **meta) -> None:
+        # under ZeRO every rank takes part in gathering the moments; rank 0
+        # alone writes, and the others wait for it
         t0 = time.perf_counter()
-        path = save_checkpoint(os.path.join(ckpt_dir, name), serving_state_dict(state), cfg,
-                               train_state=train_state_dict(state), **meta)
-        size = os.path.getsize(os.path.join(path, TRAIN_STATE))
-        log_fn(f"[ckpt] {name}: {TRAIN_STATE} {size} bytes, saved in {time.perf_counter() - t0:.2f}s")
+        train_state = train_state_dict(state) if writer or state.zero is not None else None
+        if writer:
+            path = save_checkpoint(os.path.join(ckpt_dir, name), serving_state_dict(state), cfg,
+                                   train_state=train_state, **meta)
+            size = os.path.getsize(os.path.join(path, TRAIN_STATE))
+            log_fn(f"[ckpt] {name}: {TRAIN_STATE} {size} bytes, saved in {time.perf_counter() - t0:.2f}s")
+        if mesh is not None:
+            dist.barrier()
 
     lr_scale = 1.0
     best_metric, best_epoch, best_f1 = -np.inf, -1, -np.inf
@@ -228,8 +298,17 @@ def train_model(
         generator.set_state(state.loop["generator"])
         lr_scale, plateau_count = state.loop["lr_scale"], state.loop["plateau_count"]
         best_metric, best_epoch, best_f1 = state.loop["best_metric"], state.loop["best_epoch"], state.loop["best_f1"]
+    # on a mesh `generator` (the same on every rank) draws route dropout for
+    # the global batch, and in-layer dropout draws from a generator of the
+    # data shard's, seeded from (train.seed, data shard, epoch): the ranks of
+    # a model group hold the same rows and draw the same masks, as GSPMD
+    # draws one mask per row of the global batch
+    rank_generator = None
     history: List[Dict[str, float]] = []
     for epoch in range(state.step // steps_per_epoch, t.epochs):
+        if mesh is not None:
+            seed = int(np.random.SeedSequence((t.seed, mesh.data_index, epoch)).generate_state(1)[0])
+            rank_generator = torch.Generator(device=dev).manual_seed(seed)
         if streaming:
             batch_iter = train_cohort.epoch_iter(epoch, t.batch_size)
         else:
@@ -253,9 +332,12 @@ def train_model(
                     break  # the resampled stream ran short of a full epoch
             else:
                 sub = take_batch(train_cohort, order[s * t.batch_size : (s + 1) * t.batch_size])
+            if mesh is not None:  # this rank's rows; each rank packs its own chunks
+                sub = shard_batch(sub, mesh)
             metrics = train_step(
-                state, batch_to(sub, dev), generator, t.lr * lr_scale, lr_enc,
+                state, batch_to(sub, dev), generator if mesh is None else rank_generator, t.lr * lr_scale, lr_enc,
                 detach_priors=detach, act_temperature=act_temp, note_pack=note_pack_bucket(cfg, sub),
+                route_generator=generator,
             )
             losses.append(float(metrics.loss))
             skipped += int(not metrics.grad_finite)
@@ -269,7 +351,7 @@ def train_model(
             log_fn(f"[ROUTE HEALTH] collapse alarm: max mean route activation {a.max():.3f} "
                    f"(alpha={np.round(a, 3).tolist()})")
 
-        probs, _, _ = predict_probs(eval_step, state, val_cohort, t.batch_size, m.task)
+        probs, _, _ = predict_probs(eval_step, state, val_cohort, t.batch_size, m.task, mesh=mesh)
         val_m = epoch_metrics(np.asarray(val_cohort.y)[: len(probs)], probs)
         monitor = val_m.get("auroc", val_m.get("auroc_macro", 0.0))
         if np.isnan(monitor):
@@ -310,7 +392,7 @@ def train_model(
             break
 
     # post-training calibration on the validation split
-    probs, _, _ = predict_probs(eval_step, state, val_cohort, t.batch_size, m.task)
+    probs, _, _ = predict_probs(eval_step, state, val_cohort, t.batch_size, m.task, mesh=mesh)
     y_val = np.asarray(val_cohort.y)[: len(probs)]
     eps = 1e-7
     logits_val = np.log(np.clip(probs, eps, 1 - eps)) - np.log1p(-np.clip(probs, eps, 1 - eps))
@@ -318,7 +400,7 @@ def train_model(
         temperature = fit_temperature(logits_val, y_val)
         calibrated = 1 / (1 + np.exp(-logits_val / temperature))
         ths, _ = find_best_thresholds(y_val, calibrated)
-        if ckpt_dir:  # reliability diagram of the calibrated validation probabilities
+        if ckpt_dir and writer:  # reliability diagram of the calibrated validation probabilities
             save_reliability_diagram(y_val, calibrated, ckpt_dir, split="val")
     else:
         temperature = 1.0

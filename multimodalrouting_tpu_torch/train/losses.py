@@ -4,6 +4,10 @@ unimodal trainers' pos_weight-ed one without),
 the death-logit contrast, the clamped pos_weight, the routing regularizers,
 the differentiable fairness penalties (EDDI, soft equalized odds) and the
 2-class cross-entropy. All in fp32.
+
+On a mesh (``parallel/mesh.py``) the clamped pos_weight and the fairness
+penalties, ratios of batch sums, take their sums over the data group
+(``global_sum``): every rank holds the global batch's value.
 """
 from __future__ import annotations
 
@@ -11,6 +15,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from multimodalrouting_tpu_torch.parallel.mesh import global_sum
 
 
 def bce_with_logits(
@@ -73,10 +79,12 @@ def death_logit(logits: torch.Tensor) -> torch.Tensor:
 
 
 def clamped_pos_weight(y: torch.Tensor, lo: float = 0.1, hi: float = 5.0) -> torch.Tensor:
-    """Per-label neg/pos ratio clamped to [lo, hi]."""
+    """Per-label neg/pos ratio clamped to [lo, hi], of the global batch on a
+    mesh."""
     y = y.float()
-    pos = torch.clamp(y.sum(dim=0), min=1.0)
-    neg = torch.clamp((1.0 - y).sum(dim=0), min=1.0)
+    counts = global_sum(torch.stack([y.sum(dim=0), (1.0 - y).sum(dim=0)]))
+    pos = torch.clamp(counts[0], min=1.0)
+    neg = torch.clamp(counts[1], min=1.0)
     return torch.clamp(neg / pos, lo, hi)
 
 
@@ -108,14 +116,17 @@ def eddi_loss(probs: torch.Tensor, targets: torch.Tensor, groups: torch.Tensor, 
     """Differentiable EDDI: mean absolute deviation of each present group's
     mean error |p - y| from the overall mean error."""
     err = (probs.float() - targets.float()).abs()
-    overall = err.mean()
+    masks = [(groups == g).float() for g in range(num_groups)]
+    # the global batch's sums on a mesh: error and count overall, then per group
+    sums = global_sum(torch.stack([err.sum(), err.new_tensor(float(err.numel()))]
+                                  + [x for m in masks for x in ((err * m).sum(), m.sum())]))
+    overall = sums[0] / sums[1]
     total = torch.zeros((), dtype=torch.float32, device=err.device)
     count = torch.zeros((), dtype=torch.float32, device=err.device)
     for g in range(num_groups):
-        m = (groups == g).float()
-        n = m.sum()
+        n = sums[3 + 2 * g]
         has = (n > 0).float()
-        total = total + has * ((err * m).sum() / torch.clamp(n, min=1.0) - overall).abs()
+        total = total + has * (sums[2 + 2 * g] / torch.clamp(n, min=1.0) - overall).abs()
         count = count + has
     return total / torch.clamp(count, min=1.0)
 
@@ -125,13 +136,16 @@ def soft_eq_odds_loss(probs: torch.Tensor, targets: torch.Tensor, groups: torch.
     """Soft equalized odds: squared gaps between groups' mean scores among
     positives (a TPR proxy) and among negatives (an FPR proxy)."""
     probs, targets = probs.float(), targets.float()
+    masks = [(groups == g).float() * sel for sel in (targets, 1.0 - targets) for g in range(num_groups)]
+    # the global batch's sums on a mesh: score and count per (selection, group)
+    sums = global_sum(torch.stack([x for m in masks for x in ((probs * m).sum(), m.sum())]))
     loss = torch.zeros((), dtype=torch.float32, device=probs.device)
-    for sel in (targets, 1.0 - targets):
+    for s in range(2):
         rates, valid = [], []
         for g in range(num_groups):
-            m = (groups == g).float() * sel
-            n = m.sum()
-            rates.append((probs * m).sum() / torch.clamp(n, min=1.0))
+            k = 2 * (s * num_groups + g)
+            n = sums[k + 1]
+            rates.append(sums[k] / torch.clamp(n, min=1.0))
             valid.append((n > 0).float())
         for i in range(num_groups):
             for j in range(i + 1, num_groups):

@@ -22,11 +22,17 @@ count, EMA and BatchNorm statistics as they were; ``step`` still advances.
 Updates are in place: PyTorch parameters are mutable, where the JAX state is
 rebuilt each step.
 
+Under ZeRO-1 (``train.zero_sharded_opt`` on a mesh, ``parallel/zero.py``)
+the state holds only this rank's row slices of the sharded leaves' moments
+(``zero``): the finite guard and the clip norm reduce over the data group,
+Adam and the decay update this rank's rows of each such parameter, and the
+rows are all-gathered before the EMA, in the same ``torch._foreach_*`` order.
+
 ``train_state_dict`` and ``load_train_state_dict`` are the state's on-disk
 form (``ckpt.py`` writes it as ``train_state.pt``): step, count, the model's
 raw state_dict (trained parameters, not the EMA; BatchNorm statistics), the
-moments, the EMA, the route-loss EMA of the loss-based sMRO gate and the
-train loop's schedule (``loop``).
+moments (full ones, gathered under ZeRO), the EMA, the route-loss EMA of
+the loss-based sMRO gate and the train loop's schedule (``loop``).
 """
 from __future__ import annotations
 
@@ -100,6 +106,9 @@ class TrainState:
     # dropout generator states, LR scale, plateau and best values), so that
     # a resumed run continues it; empty for a fresh state
     loop: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    # ZeRO-1 (parallel/zero.py): this rank's row slices of the moments of the
+    # sharded leaves; None when every rank holds the full moments
+    zero: Optional[Any] = None
 
     def params(self) -> List[torch.Tensor]:
         named = dict(self.model.named_parameters())
@@ -144,14 +153,27 @@ def apply_gradients(
     parameter name, broadcastable) multiplies those parameters' updates
     after Adam and weight decay, before the learning rate."""
     state.step += 1
+    z = state.zero
     g = [grads[n].float() for n in state.names]
+    if z is not None:  # this rank's slices of the sharded leaves
+        g = [x[z.slices[n]] if n in z.slices else x for n, x in zip(state.names, g)]
     finite = bool(torch.stack([torch.isfinite(x).all() for x in g]).all()) if g else True
+    if z is not None:
+        finite = z.all_finite(finite, next(state.model.parameters()).device)
     if not finite:
         return False
     params = state.params()
-    g_norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(x) for x in g])) if g else None
+    g_norm = None
+    if g:
+        norms = torch.stack([torch.linalg.vector_norm(x) for x in g])
+        if z is not None:  # a sharded leaf's norm from every rank's slice
+            sharded = torch.tensor([n in z.slices for n in state.names], device=norms.device)
+            norms = torch.where(sharded, z.sum(norms * norms).sqrt(), norms)
+        g_norm = torch.linalg.vector_norm(norms)
     if g and not bool(g_norm < state.grad_clip):
         g = torch._foreach_mul(torch._foreach_div(g, g_norm), state.grad_clip)
+    if z is not None:  # from here on the sharded leaves are this rank's rows
+        full_params, params = params, [p.data[z.slices[n]] if n in z.slices else p for n, p in zip(state.names, params)]
     mu = [state.mu[n] for n in state.names]
     nu = [state.nu[n] for n in state.names]
     torch._foreach_mul_(mu, ADAM_B1)
@@ -168,9 +190,15 @@ def apply_gradients(
         torch._foreach_add_(updates, params, alpha=state.weight_decay)
         for name, u in zip(state.names, updates):
             if update_mask and name in update_mask:
-                u.mul_(update_mask[name])
+                mask = update_mask[name]
+                u.mul_(mask[z.slices[name]] if z is not None and name in z.slices and mask.shape[0] > 1 else mask)
         for name, p, u in zip(state.names, params, updates):
             p.add_(u, alpha=-(lr_enc if is_encoder(name) else lr_head))
+        if z is not None:
+            for name, p in zip(state.names, full_params):
+                if name in z.slices:
+                    z.gather_param_(p, name)
+            params = full_params
         if state.ema is not None:
             ema = [state.ema[n] for n in state.names]
             torch._foreach_mul_(ema, ema_decay)
@@ -211,9 +239,14 @@ def train_state_dict(state: TrainState) -> Dict[str, Any]:
     def cpu(d):
         return {k: v.detach().cpu() for k, v in d.items()}
 
+    mu, nu = state.mu, state.nu
+    if state.zero is not None:  # the full moments, from every rank of the data group
+        from multimodalrouting_tpu_torch.parallel.zero import gather_moments
+
+        mu, nu = gather_moments(state)
     return {
         "step": state.step, "count": state.count, "model": cpu(state.model.state_dict()),
-        "mu": cpu(state.mu), "nu": cpu(state.nu), "ema": None if state.ema is None else cpu(state.ema),
+        "mu": cpu(mu), "nu": cpu(nu), "ema": None if state.ema is None else cpu(state.ema),
         "route_loss_ema": None if state.route_loss_ema is None else state.route_loss_ema.detach().cpu(),
         "loop": dict(state.loop),
     }
@@ -246,9 +279,13 @@ def load_train_state_dict(state: TrainState, saved: Dict[str, Any], *, params_on
         if state.route_loss_ema is not None and rle is not None:
             state.route_loss_ema.copy_(rle)
         if not params_only:
-            for n in state.names:
-                state.mu[n].copy_(saved["mu"][n])
-                state.nu[n].copy_(saved["nu"][n])
+            rows = state.zero.slices if state.zero is not None else {}
+            for n in state.names:  # under ZeRO this rank's rows of the full moments
+                mu, nu = saved["mu"][n], saved["nu"][n]
+                if n in rows:
+                    mu, nu = mu[rows[n]], nu[rows[n]]
+                state.mu[n].copy_(mu)
+                state.nu[n].copy_(nu)
     if not params_only:
         state.count, state.step, state.loop = int(saved["count"]), int(saved["step"]), dict(saved.get("loop") or {})
     return state

@@ -22,7 +22,16 @@ step keeps the EMA of each route's BCE (of stop-gradient route logits;
 uni / bi / tri, masks the route heads outside the stage's block on the
 gradients and on the post-optimizer updates. The eval step runs the EMA
 weights, with the trained route-loss EMA. Randomness (route dropout, every
-dropout) comes from the ``torch.Generator`` the caller passes.
+dropout) comes from the ``torch.Generator`` the caller passes; route dropout
+from ``route_generator`` where one is given.
+
+On a mesh (``parallel/mesh.py``) the step computes the JAX package's
+global-batch numbers from each rank's rows: the BatchNorm moments (in
+``models/cxr.py``), the clamped pos_weight and the fairness penalties (in
+``losses.py``) and the CheXpert term's ratio are sums over the data group;
+route dropout is drawn for the global batch and sliced; the gradients are
+averaged over the world; the logged losses, the route-loss EMA's per-route
+losses and the alpha and gate means are data-group means.
 """
 from __future__ import annotations
 
@@ -33,6 +42,13 @@ import torch.nn.functional as F
 
 from multimodalrouting_tpu_torch.configs import Config
 from multimodalrouting_tpu_torch.data.batches import Batch, slice_batch
+from multimodalrouting_tpu_torch.parallel.mesh import (
+    average_gradients,
+    data_rows,
+    get_active_mesh,
+    global_mean,
+    global_sum,
+)
 from multimodalrouting_tpu_torch.routes import ROUTE_REQUIRES, get_blocks, get_routes, route_mask_from_presence
 from multimodalrouting_tpu_torch.train.losses import (
     bce_with_logits,
@@ -74,14 +90,17 @@ def tracks_route_ema(cfg: Config, family: str) -> bool:
 
 
 def apply_route_dropout(route_mask: torch.Tensor, routes, generator: Optional[torch.Generator], p: float):
-    """With probability p per sample, zero one randomly chosen interaction route."""
+    """With probability p per sample, zero one randomly chosen interaction
+    route. On a mesh the draws are the global batch's (`generator` the same
+    on every rank), of which this rank takes its rows."""
     if p <= 0.0:
         return route_mask
     b, r = route_mask.shape
+    n, lo = data_rows(b)
     dev = route_mask.device
     inter_idx = torch.tensor([i for i, name in enumerate(routes) if len(ROUTE_REQUIRES[name]) > 1], device=dev)
-    choice = inter_idx[torch.randint(0, len(inter_idx), (b,), generator=generator, device=dev)]
-    do_drop = torch.rand((b,), generator=generator, device=dev) < p
+    choice = inter_idx[torch.randint(0, len(inter_idx), (n,), generator=generator, device=dev)[lo : lo + b]]
+    do_drop = torch.rand((n,), generator=generator, device=dev)[lo : lo + b] < p
     drop = F.one_hot(choice, r).to(route_mask.dtype) * do_drop[:, None].to(route_mask.dtype)
     return route_mask * (1.0 - drop)
 
@@ -161,12 +180,12 @@ def make_train_step(cfg: Config, model, family: str = "capsule", **apply_kwargs)
         keep = set(get_blocks(routes)[stage])
         head_keep = torch.tensor([1.0 if i in keep else 0.0 for i in range(len(routes))])
 
-    def forward_loss(state, batch: Batch, generator, detach_priors, act_temperature, note_pack):
+    def forward_loss(state, batch: Batch, generator, route_gen, detach_priors, act_temperature, note_pack):
         kwargs = dict(apply_kwargs)
         rm = None
         if family == "capsule":
             rm = route_mask_from_presence(batch.has_l, batch.has_n, batch.has_i, routes)
-            rm = apply_route_dropout(rm, routes, generator, t.route_dropout_p)
+            rm = apply_route_dropout(rm, routes, route_gen, t.route_dropout_p)
             kwargs.update(route_mask=rm, detach_priors=detach_priors, act_temperature=act_temperature)
         if track_ema:
             kwargs["route_losses_ema"] = state.route_loss_ema
@@ -176,7 +195,8 @@ def make_train_step(cfg: Config, model, family: str = "capsule", **apply_kwargs)
             # CheXpert 14-class auxiliary BCE over image-present samples
             has_i = batch.has_i.float()
             cx = bce_with_logits(out.chexpert_logits, batch.chexpert, sample_weight=has_i, reduce=False)
-            reg = reg + t.chexpert_weight * cx.sum() / (torch.clamp(has_i.sum(), min=1.0) * cx.shape[-1])
+            sums = global_sum(torch.stack([cx.sum(), has_i.sum()]))  # the global batch's ratio
+            reg = reg + t.chexpert_weight * sums[0] / (torch.clamp(sums[1], min=1.0) * cx.shape[-1])
         per_route = None
         if track_ema:  # observation only: plain per-route BCE of the stopped route logits
             y2 = batch.y if batch.y.dim() == 2 else batch.y[:, None]
@@ -192,8 +212,10 @@ def make_train_step(cfg: Config, model, family: str = "capsule", **apply_kwargs)
         detach_priors: bool = False,
         act_temperature=None,
         note_pack: int = 0,
+        route_generator: Optional[torch.Generator] = None,
     ) -> StepMetrics:
         params = state.params()
+        route_gen = generator if route_generator is None else route_generator
         for p in params:
             p.grad = None
         if n_micro > 1:
@@ -205,7 +227,7 @@ def make_train_step(cfg: Config, model, family: str = "capsule", **apply_kwargs)
             per_route = None
             for i in range(n_micro):
                 sub = slice_batch(batch, i * mb, mb)
-                li, ti, ri, out, pi = forward_loss(state, sub, generator, detach_priors, act_temperature, 0)
+                li, ti, ri, out, pi = forward_loss(state, sub, generator, route_gen, detach_priors, act_temperature, 0)
                 li.backward()
                 loss, task, reg = loss + li.detach(), task + ti.detach(), reg + ri.detach()
                 if pi is not None:
@@ -220,11 +242,14 @@ def make_train_step(cfg: Config, model, family: str = "capsule", **apply_kwargs)
                         p.grad.mul_(scale)
         else:
             loss, task, reg, out, per_route = forward_loss(
-                state, batch, generator, detach_priors, act_temperature, note_pack)
+                state, batch, generator, route_gen, detach_priors, act_temperature, note_pack)
             loss.backward()
             loss, task, reg = loss.detach(), task.detach(), reg.detach()
         # a parameter the loss does not reach has a zero gradient, as in JAX
         grads = {n: torch.zeros_like(p) if p.grad is None else p.grad for n, p in zip(state.names, params)}
+        # on a mesh: each rank's gradient of its own loss, averaged over the
+        # world, is the global batch's (parallel/mesh.py)
+        average_gradients(list(grads.values()))
         update_mask = None
         if head_keep is not None:
             # on the gradients (Adam's moments of the frozen slices stay zero)
@@ -240,15 +265,21 @@ def make_train_step(cfg: Config, model, family: str = "capsule", **apply_kwargs)
         )
         for p in params:
             p.grad = None
+        alpha_mean = None if out.alpha is None else out.alpha.detach().mean(dim=0)
+        gates_mean = None if out.gates is None else out.gates.detach().mean(dim=0)
+        if get_active_mesh() is not None:  # the data shards' means of equal-size shards, in one all-reduce
+            parts = [loss, task, reg, per_route, alpha_mean, gates_mean]
+            have = [x for x in parts if x is not None]
+            flat = global_mean(torch.cat([x.float().reshape(-1) for x in have]))
+            it = iter(flat.split([x.numel() for x in have]))
+            loss, task, reg, per_route, alpha_mean, gates_mean = (
+                None if x is None else next(it).view_as(x).to(x.dtype) for x in parts)
         ema = state.route_loss_ema
         if per_route is not None and ema is not None and finite and bool(torch.isfinite(per_route).all()):
             beta = t.route_loss_ema_beta
             ema.mul_(beta).add_(per_route, alpha=1.0 - beta)
-        return StepMetrics(
-            loss=loss, task_loss=task, reg_loss=reg, grad_finite=finite,
-            alpha_mean=None if out.alpha is None else out.alpha.detach().mean(dim=0),
-            gates_mean=None if out.gates is None else out.gates.detach().mean(dim=0),
-        )
+        return StepMetrics(loss=loss, task_loss=task, reg_loss=reg, grad_finite=finite, alpha_mean=alpha_mean,
+                           gates_mean=gates_mean)
 
     return train_step
 

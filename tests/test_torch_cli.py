@@ -204,7 +204,10 @@ PHENO_ATTEN_MULT = os.path.join(os.path.dirname(__file__), "..", "configs", "phe
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["train", "--mesh", "data=2"], "item 12"),
+    (["train", "--mesh", "data=2,model=2", "--set", "train.tensor_parallel=true"], "item 12"),
+    (["train", "--mesh", "model=2", "--set", "train.pipeline_parallel=true", "--set", "encoder.bert_layers=2"],
+     "item 12"),
+    (["train", "--mesh", "data=2", "--set", "train.route_parallel=true"], "item 12"),
     (["train", "--set", "train.ckpt_backend=orbax_async"], "item 13"),
     (["eval", "--ckpt", "ORBAX"], "item 13"),
     (["predict", "--ckpt", "ORBAX"], "item 13"),
@@ -301,9 +304,26 @@ def test_cli_export_and_serve(two_epochs, exported, tmp_path):
 
 
 def test_a_multi_host_environment_raises(monkeypatch, tmp_path):
-    monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", "localhost:1234")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 12"):
-        tcli.main(["train", "--device", "cpu", "--out", str(tmp_path), *_sets()])
+    """A --mesh without a launch, and the JAX package's TPU pod auto-detect,
+    refuse with the command to use; the JAX variables of a one-process world
+    join a process group, train, and leave it again."""
+    import torch.distributed as dist
+
+    from tests.torch_mesh_ranks import free_port
+
+    argv = ["train", "--device", "cpu", "--out", str(tmp_path), *_sets()]
+    with pytest.raises(SystemExit, match="torchrun --nproc-per-node 2 .* JAX_COORDINATOR_ADDRESS"):
+        tcli.main([*argv, "--mesh", "data=2"])
+    monkeypatch.setenv("TPU_WORKER_HOSTNAMES", "t0,t1")
+    with pytest.raises(ValueError, match="TPU pod auto-detect has no counterpart.*torchrun --nproc-per-node"):
+        tcli.main(argv)
+    monkeypatch.delenv("TPU_WORKER_HOSTNAMES")
+    for k, v in (("JAX_COORDINATOR_ADDRESS", f"127.0.0.1:{free_port()}"), ("JAX_NUM_PROCESSES", "1"),
+                 ("JAX_PROCESS_ID", "0")):
+        monkeypatch.setenv(k, v)
+    rc, out = run(tcli.main, argv)
+    assert rc == 0 and "[distributed] process 0/1: 1 local / 1 global devices (cpu)" in out
+    assert not dist.is_initialized()
 
 
 # --- (d) eval against the JAX CLI on the same weights -----------------------

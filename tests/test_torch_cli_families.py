@@ -204,7 +204,8 @@ def test_formerly_unported_fame_artifact_serves(fame_chain, tmp_path):
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["train", "--family", "fame", "--stage", "tri", "--mesh", "data=2"], "item 12"),
+    (["train", "--family", "fame", "--stage", "tri", "--mesh", "data=2", "--set", "train.route_parallel=true"],
+     "item 12"),
     (["train", "--family", "gated_concat", "--stage", "step1", "--set", "train.ckpt_backend=orbax_async"],
      "item 13"),
 ])

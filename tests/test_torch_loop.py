@@ -82,7 +82,11 @@ def test_train_model_runs_the_text_cache():
     assert any(line.startswith("[text-cache]") for line in logs) and np.isfinite(result.history[0]["train_loss"])
 
 
-@pytest.mark.parametrize("over", [{"train.num_data_shards": 2}])
+@pytest.mark.parametrize("over", [
+    {"train.num_data_shards": 2, "train.tensor_parallel": True},
+    {"train.num_data_shards": 2, "train.route_parallel": True},
+    {"train.num_data_shards": 2, "train.microbatch": 2},
+])
 def test_train_model_refuses_what_is_not_ported(over):
     cfg = tc.apply_overrides(tc.Config(), {**LOOP, **over})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
