@@ -502,6 +502,9 @@ def plain_coarse_p(q, k, v, m, heads: int, bits: int) -> torch.Tensor:
     return torch.einsum("bhqk,bkhd->bqhd", p, v4).reshape(n, t, d).to(q.dtype)
 
 
+TP_K1_TAG = "K1 bf16 [96,512,384] dh=64 (a TP rank's 6 heads)"
+
+
 def k1_inputs(n: int, t: int, heads: int, dh: int, dtype, dev, mask):
     g = torch.Generator(device=dev).manual_seed(SEED)
     shape = (n, t, heads * dh)
@@ -554,6 +557,17 @@ def phase_k1(dev) -> dict:
         q2, k2, v2, m2 = k1_inputs(16, 512, 12, 64, torch.float32, dev, mask)
         check_close("K1 fp32 [16,512,768] dh=64", packed_attention(q2, k2, v2, m2, 12),
                     packed_attention_reference(q2, k2, v2, m2, 12), *K1_FP32_TOL)
+        # a tensor-parallel rank's shape at data=1,model=2 (parallel/tp.py): BERT-base's 12 heads split
+        # in two, 6 heads of 64, d = 384, on a 96-chunk pack
+        q2, k2, v2, m2 = k1_inputs(96, 512, 6, 64, torch.bfloat16, dev, mask)
+        out2, lse2 = packed_attention_fwd(q2, k2, v2, m2, 6, want_lse=True)
+        require(torch.equal(out2, packed_attention(q2, k2, v2, m2, 6)), "K1 at 6 heads: a repeat gave other bits")
+        tp_err = check_bf16(TP_K1_TAG, out2, packed_attention_reference(q2, k2, v2, m2, 6),
+                            packed_attention_reference(q2.float(), k2.float(), v2.float(), m2, 6))
+        check_fwd_tiled(TP_K1_TAG, heads4(q2, 6), heads4(k2, 6), heads4(v2, 6), m2, "key_mask", heads4(out2, 6), lse2)
+        tp_ms = fwd_ms(lambda: packed_attention(q2, k2, v2, m2, 6))
+        tp_plain_ms = device_time_ms(lambda: packed_attention_reference(q2, k2, v2, m2, 6), 5)
+        del out2, lse2
         for n2, t2, h2, dh2, m_src in ((32, 512, 6, 128, mask), (8, 1024, 12, 64, None)):
             if m_src is None:  # T = 1024: the cohort's chunks two by two
                 m_src = mask[: 2 * n2].reshape(n2, 1024)
@@ -569,12 +583,18 @@ def phase_k1(dev) -> dict:
     log(f"[k1] kernel_ms={ms:.4f} (with the lse write {ms_lse:.4f}; {fwd_rates(ms, flops, bound_ms)}) "
         f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} ({fwd_rates(library_ms, flops, bound_ms)}) "
         f"bound_ms={bound_ms:.4f} ({bound_by})")
+    tp_flops = 4 * 96 * 6 * t * t * dh
+    tp_bound_ms, _ = bound(4 * 96 * t * 384 * 2 + 96 * t * 4, tp_flops, "bf16")
+    log(f"[k1] {TP_K1_TAG}: kernel_ms={tp_ms:.4f} ({fwd_rates(tp_ms, tp_flops, tp_bound_ms)}) "
+        f"plain_ms={tp_plain_ms:.4f} bound_ms={tp_bound_ms:.4f}")
     return {
         "name": "packed_attention", "route": "cuda",
         "source": "multimodalrouting_tpu_torch/csrc/packed_attention.cu",
         "replaces": "multimodalrouting_tpu/ops/flash_packed.py:58",
         "max_abs_err": err, "ms": ms, "ms_with_lse": ms_lse, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": library_ms,
+        "tp_rank_shape": {"shape": [96, 512, 384], "heads": 6, "max_abs_err": tp_err, "ms": tp_ms,
+                          "plain_ms": tp_plain_ms, "bound_ms": tp_bound_ms},
     }
 
 
@@ -655,18 +675,30 @@ def phase_k2(dev) -> dict:
         check_k2("fp32 [16,512,768] dh=64", q2, k2, v2, m2, do2, 12)
         q2, k2, v2, m2, do2 = k2_inputs(32, 512, 6, 128, torch.bfloat16, dev, mask)
         check_k2("bf16 [32,512,768] dh=128", q2, k2, v2, m2, do2, 6)
+        # a tensor-parallel rank's shape at data=1,model=2: 6 heads of 64, d = 384
+        q2, k2, v2, m2, do2 = k2_inputs(96, 512, 6, 64, torch.bfloat16, dev, mask)
+        tp_err = check_k2("bf16 [96,512,384] dh=64 (a TP rank's 6 heads)", q2, k2, v2, m2, do2, 6)
+        out2, lse2 = packed_attention_fwd(q2, k2, v2, m2, 6, want_lse=True)
+        tp_ms, tp_split = bwd_ms(lambda: packed_attention_bwd(q2, k2, v2, m2, out2, lse2, do2, 6))
+        tp_plain_ms = device_time_ms(lambda: packed_attention_bwd_reference(q2, k2, v2, m2, do2, 6), 5)
+        del q2, k2, v2, m2, do2, out2, lse2
     n, t, d, h, dh = 128, 512, 768, 12, 64
     # reads q, k, v, K1's output o, do, the mask and K1's lse once; writes
     # dq, dk, dv once; five T x T x dh products per head
     bound_ms, bound_by = bound(8 * n * t * d * 2 + n * t * 4 + n * h * t * 4, 10 * n * h * t * t * dh, "bf16")
     log(f"[k2] kernel_ms={ms:.4f} ({describe_split(split)}) plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
         f"bound_ms={bound_ms:.4f} ({bound_by})")
+    tp_bound_ms, _ = bound(8 * 96 * t * 384 * 2 + 96 * t * 4 + 96 * 6 * t * 4, 10 * 96 * 6 * t * t * dh, "bf16")
+    log(f"[k2] bf16 [96,512,384] dh=64 (a TP rank's 6 heads): kernel_ms={tp_ms:.4f} ({describe_split(tp_split)}) "
+        f"plain_ms={tp_plain_ms:.4f} bound_ms={tp_bound_ms:.4f}")
     return {
         "name": "packed_attention_bwd", "route": "cuda",
         "source": "multimodalrouting_tpu_torch/csrc/packed_attention_bwd.cu",
         "replaces": "multimodalrouting_tpu/ops/flash_packed.py:140",
         "max_abs_err": err, "ms": ms, "split_ms": split, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": library_ms,
+        "tp_rank_shape": {"shape": [96, 512, 384], "heads": 6, "max_abs_err": tp_err, "ms": tp_ms,
+                          "split_ms": tp_split, "plain_ms": tp_plain_ms, "bound_ms": tp_bound_ms},
     }
 
 
@@ -3412,6 +3444,7 @@ MESH_DET = {"model.attn_dropout": 0.0, "model.relu_dropout": 0.0, "model.res_dro
             "model.embed_dropout": 0.0, "encoder.dropout": 0.0, "train.route_dropout_p": 0.0}
 MESH_BATCH = 16  # the global batch: 8 stays a rank at data=2
 MESH_TOL = 2e-2  # a two-rank bf16 step against the one-process bf16 step (E2E_TOL)
+TP_CLI_N = 32  # (h)'s synthetic stays per split: 2 steps an epoch
 # ZeRO against replicated moments after one step, fp32 masters: only the
 # clip norm's sum runs in another order, and Adam's update is invariant to
 # that scale but for eps; an element moves by lr * O(1) at most
@@ -3420,22 +3453,23 @@ ZERO_ATOL = 1e-6
 
 def step_spies(norms: list, reduces: list):
     """Wrap steps.apply_gradients to record the global norm of the gradients
-    it receives (averaged over the world on a mesh), and the gradient
-    reduction to record its (bytes, ms), synchronised on both sides; ->
-    undo."""
+    it receives (averaged over the world on a mesh; a model-sharded leaf's
+    slices gathered whole first), and the gradient reduction to record its
+    (bytes, ms), synchronised on both sides; -> undo."""
     from multimodalrouting_tpu_torch.train import steps as train_steps
 
     real_apply, real_reduce = train_steps.apply_gradients, train_steps.average_gradients
 
     def apply(state, grads, **kw):
+        whole = grads if state.shards is None else state.shards.full_dict(grads)
         norms.append(float(torch.linalg.vector_norm(torch.stack(
-            [torch.linalg.vector_norm(g.float()) for g in grads.values()]))))
+            [torch.linalg.vector_norm(g.float()) for g in whole.values()]))))
         return real_apply(state, grads, **kw)
 
-    def reduce(grads):
+    def reduce(grads, *args):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        real_reduce(grads)
+        real_reduce(grads, *args)
         torch.cuda.synchronize()
         reduces.append((sum(g.numel() * g.element_size() for g in grads), (time.perf_counter() - t0) * 1e3))
 
@@ -3461,18 +3495,31 @@ def record_chunk_rows(model) -> list:
     return rows
 
 
-def mesh_step_run(label: str, cfg, dev, mesh=None, steps: int = 1, zero: bool = False) -> tuple:
+def mesh_step_run(label: str, cfg, dev, mesh=None, steps: int = 1, zero: bool = False, spec=None) -> tuple:
     """`steps` train steps of the full-width flagship on the MESH_BATCH
     stays (this rank's rows on a data mesh), the first alone: -> (results,
     the model, its parameters after the first step on the host, after the
-    last on the card). Launch counts over all steps."""
-    from multimodalrouting_tpu_torch.parallel.mesh import shard_batch
+    last on the card). Launch counts over all steps. `spec` (a tensor or
+    route role's ``spec_for_name``) places the state first: this rank's
+    slices of the parameters it shards; the results then carry the whole
+    parameters' hash and the BERT and sharded parameter bytes."""
+    from multimodalrouting_tpu_torch.parallel.mesh import place_state, shard_batch
     from multimodalrouting_tpu_torch.parallel.zero import shard_optimizer_state
 
     torch.manual_seed(SEED)
     model = build_model(cfg, device="cuda", train=True)
     seed_signal(model, "capsule")  # a nonzero head: the first loss depends on the stays
     state = create_train_state(cfg, model)
+    def nbytes(keep) -> int:
+        return sum(p.numel() * p.element_size() for n, p in model.named_parameters() if keep(n))
+
+    placed = {}
+    if spec is not None:
+        whole = {"bert_bytes_whole": nbytes(lambda n: ".bert." in n),
+                 "sharded_bytes_whole": nbytes(lambda n: spec(n) is not None)}
+        shards = place_state(state, mesh, spec)
+        placed = {**whole, "bert_bytes": nbytes(lambda n: ".bert." in n),
+                  "sharded_bytes": nbytes(lambda n: n in shards.dims), "sharded": len(shards.dims)}
     chunk_rows = record_chunk_rows(model)
     if zero:
         shard_optimizer_state(state, mesh)
@@ -3510,7 +3557,10 @@ def mesh_step_run(label: str, cfg, dev, mesh=None, steps: int = 1, zero: bool = 
         "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
         "adam_bytes": sum(v.numel() * v.element_size() for d in (state.mu, state.nu) for v in d.values()),
         "reduce_bytes": reduces[-1][0], "reduce_ms": float(np.mean([ms for _, ms in reduces[1:] or reduces])),
+        **placed,
     }
+    if state.shards is not None:  # every rank of the model group gathers
+        out["params_sha"] = params_sha(state.shards.full_dict(params))
     del state, batch
     return out, model, after_first, params
 
@@ -3528,10 +3578,14 @@ def mesh_rank(rank: int, world: int, port: str, work: str, device: str = "cuda")
     """One rank of phase_mesh (`chip_smoke.py --mesh-rank RANK WORLD PORT
     WORK DEVICE`), two ranks on cuda:0 over gloo: (a) 3 fine-tuned data=2
     steps, (b) the same under ZeRO-1, compared with (a) after its first
-    step, (c) a frozen data=1, model=2 step; each rank's results to
-    WORK/rank<r>.json."""
+    step, (c) a frozen data=1, model=2 step, (f) 3 fine-tuned data=1,
+    model=2 steps under tensor parallelism, (g) a frozen data=1, model=2
+    step under route parallelism of the flagship and of the per-route MulT
+    family; each rank's results to WORK/rank<r>.json."""
     from multimodalrouting_tpu_torch.parallel import mesh as pmesh
     from multimodalrouting_tpu_torch.parallel.distributed import init_multihost
+    from multimodalrouting_tpu_torch.parallel.ep import ep_spec_for_name
+    from multimodalrouting_tpu_torch.parallel.tp import tp_spec_for_name
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3567,6 +3621,22 @@ def mesh_rank(rank: int, world: int, port: str, work: str, device: str = "cuda")
     results["mesh_model"] = c
     pmesh.set_active_mesh(None)
     del model, params
+    torch.cuda.empty_cache()
+    # (f) tensor parallelism: each rank holds half of every BERT layer
+    pmesh.set_active_mesh(pmesh.make_mesh(1, 2, role="tensor"))
+    tp = {**ft, "train.num_data_shards": 1, "train.num_model_shards": 2, "train.tensor_parallel": True}
+    results["mesh_tp"] = mesh_step_run("data=1,model=2 TP fine-tuned", flagship_cfg(**tp), dev,
+                                       pmesh.get_active_mesh(), steps=3, spec=tp_spec_for_name)[0]
+    pmesh.set_active_mesh(None)
+    torch.cuda.empty_cache()
+    # (g) route parallelism: each rank holds three of the six cross streams
+    pmesh.set_active_mesh(pmesh.make_mesh(1, 2, role="route"))
+    ep = {**MESH_DET, "train.num_model_shards": 2, "train.route_parallel": True}
+    for key, yaml in (("mesh_ep", "trimodal_mort.yaml"), ("mesh_ep_route_mult", "pheno_atten_mult.yaml")):
+        results[key] = mesh_step_run(f"data=1,model=2 EP frozen {yaml}", flagship_cfg(yaml, **ep), dev,
+                                     pmesh.get_active_mesh(), spec=ep_spec_for_name)[0]
+        torch.cuda.empty_cache()
+    pmesh.set_active_mesh(None)
     with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
         json.dump(results, f)
     torch.distributed.destroy_process_group()
@@ -3670,9 +3740,20 @@ def phase_mesh(dev, tmp: str) -> dict:
     per rank on half the note pack, the loss within MESH_TOL of the
     one-process frozen step; (d) `cli train --mesh data=2` as two processes
     with the JAX package's variables for one epoch, one checkpoint written
-    by rank 0, `cli eval` of it in this process (K3 = 1 per forward); (e)
-    NCCL in a world of one. Step times are of two ranks sharing one card:
-    not a scaling figure. -> {path: launches}."""
+    by rank 0, `cli eval` of it in this process (K3 = 1 per forward); (f)
+    3 fine-tuned data=1, model=2 steps under tensor parallelism, K1/K2/K3 =
+    36/36/3 per rank (K1 and K2 on each rank's 6 heads, d = 384, the whole
+    pack), step 1's loss and global gradient norm within MESH_TOL of the
+    one-process step, the whole parameters bit-identical across ranks, each
+    rank holding half of the BERT layers' bytes (the embeddings stay whole);
+    (g) a frozen data=1,
+    model=2 step under route parallelism, the flagship (K1 = 12, K3 = 1 per
+    rank) and the per-route MulT family (K1 = 12, K3 = 0), each loss within
+    MESH_TOL of its one-process step; (h) `cli train --mesh data=1,model=2
+    --set train.tensor_parallel=true` for one epoch and `cli eval` of its
+    checkpoint in this process (K3 = 1 per forward); (e) NCCL in a world of
+    one. Step times are of two ranks sharing one card: not a scaling
+    figure. -> {path: launches}."""
     t0 = time.perf_counter()
     # the one-process references, freed before the ranks start: three
     # processes share the card's memory
@@ -3680,6 +3761,9 @@ def phase_mesh(dev, tmp: str) -> dict:
     one, model, _, _ = mesh_step_run("one process", flagship_cfg(**ft), dev)
     del model
     one_frozen, model, _, _ = mesh_step_run("one process frozen", flagship_cfg(**MESH_DET), dev)
+    del model
+    one_mult, model, _, _ = mesh_step_run("one process per-route MulT frozen",
+                                          flagship_cfg("pheno_atten_mult.yaml", **MESH_DET), dev)
     del model
     torch.cuda.empty_cache()
     log(f"[mesh] one process, 16 stays: fine-tuned loss {one['loss']:.5f} grad_norm {one['grad_norm']:.5f} "
@@ -3741,6 +3825,49 @@ def phase_mesh(dev, tmp: str) -> dict:
         f"chunks, BERT on {ranks[0]['mesh_model']['chunk_rows'][0]} / {ranks[1]['mesh_model']['chunk_rows'][0]} "
         f"of them on ranks 0 / 1 (measured), K1 = {c0['launches']['packed_attention']} per rank")
 
+    # (f) tensor parallelism, (g) route parallelism
+    per_step_tp = {"packed_attention": 12, "packed_attention_bwd": 12, "capsule_routing": 1}
+    for path, counts in (("mesh_tp", {k: 3 * v for k, v in per_step_tp.items()}),
+                         ("mesh_ep", {"packed_attention": 12, "capsule_routing": 1}),
+                         ("mesh_ep_route_mult", {"packed_attention": 12})):
+        want = expected(**counts)
+        for r, rk in enumerate(ranks):
+            got = rk[path]
+            require(got["launches"] == want, f"{path} rank {r}: launches {got['launches']}, expected {want}")
+            require(got["chunk_rows"] == [got["pack_rows"]] * len(got["losses"]), f"{path} rank {r}: BERT ran on "
+                    f"{got['chunk_rows']} chunks, expected the whole pack of {got['pack_rows']} in each step")
+            out[f"{path}.rank{r}"] = got["launches"]
+        require(ranks[0][path]["params_sha"] == ranks[1][path]["params_sha"],
+                f"{path}: the ranks' whole parameters differ")
+    f0 = ranks[0]["mesh_tp"]
+    rel = {key: abs(f0[key] - one[key]) / abs(one[key]) for key in ("loss", "grad_norm")}
+    for key in rel:
+        require(rel[key] <= MESH_TOL, f"(f) step 1 {key} {f0[key]} against one process {one[key]}: rel {rel[key]:.3e}")
+    for r, rk in enumerate(ranks):
+        for path in ("mesh_tp", "mesh_ep", "mesh_ep_route_mult"):  # each rank holds half of every sharded leaf
+            g = rk[path]
+            require(g["sharded"] > 0 and 2 * g["sharded_bytes"] == g["sharded_bytes_whole"],
+                    f"{path} rank {r}: {g['sharded']} sharded parameters of {g['sharded_bytes']} bytes, whole "
+                    f"{g['sharded_bytes_whole']}")
+        f = rk["mesh_tp"]
+        share = f["bert_bytes"] / f["bert_bytes_whole"]
+        log(f"[mesh] (f) TP rank {r}: {f['sharded']} parameters sharded, BERT bytes {f['bert_bytes']} "
+            f"({share:.3f} of {f['bert_bytes_whole']}), pack {f['note_pack']} chunks on every rank, "
+            f"K1/K2/K3 {f['launches']['packed_attention']}/{f['launches']['packed_attention_bwd']}/"
+            f"{f['launches']['capsule_routing']} over 3 steps, step_ms={f['step_ms']:.1f} (two ranks sharing one "
+            f"card over gloo), peak_memory_gb={f['peak_gb']:.2f}, reduce_ms={f['reduce_ms']:.1f} for "
+            f"{f['reduce_bytes']} bytes a step")
+    log(f"[mesh] (f) data=1,model=2 TP fine-tuned: step 1 loss {f0['loss']:.5f} grad_norm {f0['grad_norm']:.5f} "
+        f"(rel {rel['loss']:.2e} / {rel['grad_norm']:.2e} of one process); losses "
+        f"{[round(x, 5) for x in f0['losses']]}; whole parameters bit-identical across ranks")
+    for path, ref in (("mesh_ep", one_frozen), ("mesh_ep_route_mult", one_mult)):
+        g0 = ranks[0][path]
+        rel = abs(g0["loss"] - ref["loss"]) / abs(ref["loss"])
+        require(rel <= MESH_TOL, f"(g) {path} loss {g0['loss']} against one process {ref['loss']}: rel {rel:.3e}")
+        log(f"[mesh] (g) {path}: loss {g0['loss']:.5f} (rel {rel:.2e} of one process), {g0['sharded']} parameters "
+            f"sharded, K1 = {g0['launches']['packed_attention']} and K3 = {g0['launches']['capsule_routing']} per "
+            f"rank, peak_memory_gb={g0['peak_gb']:.2f}; whole parameters bit-identical across ranks")
+
     # (d) the CLI on a data mesh, then eval in this process
     run_dir = os.path.join(tmp, "mesh_cli")
     yaml = os.path.join(ROOT, "configs", "trimodal_mort.yaml")
@@ -3762,6 +3889,30 @@ def phase_mesh(dev, tmp: str) -> dict:
     want = expected(capsule_routing=-(-CLI_N // CLI_BATCH))
     require(launches == want, f"cli eval of the mesh checkpoint: launches {launches}, expected {want}")
     out["mesh_cli_eval"] = launches
+    shutil.rmtree(run_dir)
+
+    # (h) the CLI under tensor parallelism on data=1,model=2, then eval in this process
+    run_dir = os.path.join(tmp, "mesh_cli_tp")
+    argv = ["train", "--config", yaml, "--mesh", "data=1,model=2", "--set", "train.tensor_parallel=true",
+            "--out", run_dir, "--device", "cuda", "--epochs", "1",
+            *set_args(*CLI_ONCE, f"data.synthetic_n={TP_CLI_N}")]
+    port = str(free_port())
+    t1 = time.perf_counter()
+    outs = spawn_ranks(lambda r: ["--cli-rank", json.dumps(argv)],
+                       lambda r: {"JAX_COORDINATOR_ADDRESS": f"127.0.0.1:{port}", "JAX_NUM_PROCESSES": "2",
+                                  "JAX_PROCESS_ID": str(r)})
+    secs = time.perf_counter() - t1
+    for r, text in enumerate(outs):
+        require("[mesh] tensor parallelism on data=1,model=2" in text and "[tp] each rank's BERT attention: 6 heads"
+                in text, f"cli rank {r} printed no tensor-parallel placement")
+    dirs = sorted(d for d in os.listdir(run_dir) if os.path.isdir(os.path.join(run_dir, d)))
+    require(dirs == ["final"], f"cli train --mesh TP wrote {dirs}, expected one checkpoint")
+    log(f"[mesh] (h) cli train --mesh data=1,model=2 TP: {secs:.1f}s for both ranks, "
+        f"{json.loads(outs[0].strip().splitlines()[-1])}")
+    lines, launches = run_cli(["eval", "--ckpt", run_dir, "--device", "cuda"])
+    want = expected(capsule_routing=-(-TP_CLI_N // CLI_BATCH))
+    require(launches == want, f"cli eval of the TP mesh checkpoint: launches {launches}, expected {want}")
+    out["mesh_tp_cli_eval"] = launches
     shutil.rmtree(run_dir)
 
     phase_nccl(dev)

@@ -34,6 +34,12 @@ optax state (found by their ``mu`` / ``nu`` / ``count`` fields, leaves
 frozen by the BERT rule or the curriculum stage masked out). The trees may
 be the JAX state in memory as numpy, or a checkpoint as
 ``utils/flax_msgpack.py`` restores it (``ckpt.py``).
+
+``rank_state_dict_from_jax`` adds the mesh's slicing step: JAX variables,
+mapped onto the whole model's state_dict, then this rank's slice of each
+parameter that a role of the 'model' axis shards
+(``parallel/mesh.py:local_state_dict``), as a tensor- or route-parallel
+rank holds it.
 """
 from __future__ import annotations
 
@@ -118,6 +124,16 @@ def state_dict_from_jax(variables: Mapping[str, Any], model: Target) -> Dict[str
     if missing:
         raise KeyError(f"model keys with no JAX leaf: {missing[:8]}{' ...' if len(missing) > 8 else ''}")
     return out
+
+
+def rank_state_dict_from_jax(variables: Mapping[str, Any], model: Target, mesh, spec_for_name) -> Dict[str, torch.Tensor]:
+    """``state_dict_from_jax`` onto the whole `model` (or its state_dict),
+    then this rank's slices of the keys `spec_for_name` shards over `mesh`'s
+    model group (``parallel/tp.py:tp_spec_for_name``,
+    ``parallel/ep.py:ep_spec_for_name``)."""
+    from multimodalrouting_tpu_torch.parallel.mesh import local_state_dict
+
+    return local_state_dict(state_dict_from_jax(variables, model), mesh, spec_for_name)
 
 
 def _converted(tree: Mapping[str, Any], target: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

@@ -61,13 +61,16 @@ once per split (``train/text_cache.py``) in ``train`` and ``eval``.
 process per rank, launched by ``torchrun --nproc-per-node N*M`` or with the
 JAX package's ``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES`` /
 ``JAX_PROCESS_ID`` in each; ``parallel/``): data parallelism, the note
-chunks sharded over 'model', ZeRO-1 under ``train.zero_sharded_opt``; rank
-0 writes the checkpoints, which ``eval`` and ``predict`` serve in one
-process. ``--mesh`` without such a launch refuses with the command to use.
+chunks sharded over 'model', or under ``train.tensor_parallel`` the BERT
+layers' weights and under ``train.route_parallel`` the MulT cross streams,
+ZeRO-1 under ``train.zero_sharded_opt``; rank 0 writes the checkpoints
+(full tensors), which ``eval`` and ``predict`` serve in one process. The
+JAX package's mesh checks run first, with its messages; ``--mesh`` without
+such a launch refuses with the command to use.
 
 What the port does not have yet raises ``NotImplementedError`` naming its
-ROADMAP.md item, and never runs another path in its place: tensor, GPipe
-and route parallelism and microbatching on a mesh (item 12).
+ROADMAP.md item, and never runs another path in its place: the GPipe
+schedule and microbatching on a mesh (item 12c).
 
 Config resolution is the JAX package's: defaults <- --config file <-
 MIMICIV_* env vars <- --set key=value overrides.
@@ -178,7 +181,8 @@ def cmd_train(args) -> int:
 
     from multimodalrouting_tpu_torch.configs import load_cfg
     from multimodalrouting_tpu_torch.parallel.distributed import init_multihost
-    from multimodalrouting_tpu_torch.parallel.mesh import check_mesh_roles, launch_hint
+    from multimodalrouting_tpu_torch.parallel.mesh import launch_hint
+    from multimodalrouting_tpu_torch.train.loop import validate_mesh_config
 
     overrides = _parse_sets(args.set or [])
     if args.task:
@@ -203,8 +207,8 @@ def cmd_train(args) -> int:
             overrides[f"train.{key}"] = n.strip()
     cfg = load_cfg(args.config, overrides)
     ranks = cfg.train.num_data_shards * cfg.train.num_model_shards
-    if ranks > 1:  # before any process group: what a mesh cannot run refuses first
-        check_mesh_roles(cfg)
+    if ranks > 1:  # before any process group: the JAX package's checks, and what a mesh cannot run yet
+        validate_mesh_config(cfg)
     # the process group from the JAX package's or torchrun's variables
     # (parallel/distributed.py); a no-op in one process
     joined = not dist.is_initialized() and init_multihost(device=args.device)

@@ -28,6 +28,15 @@ hands each rank its rows of the gradient. Chunks are independent, so the
 embeddings are those of the unsharded forward. Each slice draws its dropout
 masks from a generator of its own (``slice_generator``).
 
+Under the 'model' axis's ``tensor`` role (``train.tensor_parallel``,
+``parallel/tp.py``) every rank of a model group runs BERT on all of the
+data shard's chunks, and each ``BertLayer`` holds its slice of the layer's
+weights: q/k/v and ``intermediate`` column-parallel behind Megatron's *f*,
+``out_proj`` and ``output`` row-parallel, their partial sums added over the
+group by *g* before the replicated bias, dropout, residual and LayerNorm.
+The attention runs on the rank's heads (its dispatch decided on that local
+shape), with head-local dropout from the rank's ``slice_generator``.
+
 ``pipeline`` (``train.pipeline_parallel``) holds the layers in the stacked
 pipeline-parallel layout of ``parallel/pp.py`` (``bert.pp_layers``), run as a
 sequential loop on one card, with that layout's own attention dispatch (no
@@ -40,7 +49,6 @@ layout with the JAX package's messages.
 """
 from __future__ import annotations
 
-import hashlib
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -52,8 +60,16 @@ from multimodalrouting_tpu_torch.ops.gelu import apply_gelu
 from multimodalrouting_tpu_torch.ops.layernorm import LayerNorm, bert_layer_norm
 from multimodalrouting_tpu_torch.ops.masked import masked_max, masked_mean
 from multimodalrouting_tpu_torch.ops.quant import QuantDense
-from multimodalrouting_tpu_torch.parallel.mesh import chunk_sharding, gather_chunks, get_active_mesh
+from multimodalrouting_tpu_torch.parallel.mesh import (
+    chunk_sharding,
+    copy_to_model_group,
+    gather_chunks,
+    get_active_mesh,
+    role_mesh,
+    slice_generator,
+)
 from multimodalrouting_tpu_torch.parallel.pp import PipelinedBertLayers
+from multimodalrouting_tpu_torch.parallel.tp import row_parallel, tp_self_attention
 
 
 class BertSelfAttentionBlock(nn.Module):
@@ -66,7 +82,11 @@ class BertSelfAttentionBlock(nn.Module):
         self.ln = bert_layer_norm(ln, hidden, 1e-12, dtype)
 
     def forward(self, x, attn_mask, generator=None):
-        h = self.attn(x, x, x, kv_mask=attn_mask, generator=generator)
+        mesh = role_mesh("tensor")
+        if mesh is None:
+            h = self.attn(x, x, x, kv_mask=attn_mask, generator=generator)
+        else:  # this rank's heads; the out-projection summed over the model group
+            h = tp_self_attention(self.attn, x, attn_mask, generator, mesh)
         return self.ln(x + dropout(h, self.dropout, generator))
 
 
@@ -85,7 +105,11 @@ class BertLayer(nn.Module):
 
     def forward(self, x, attn_mask, generator=None):
         x = self.attention(x, attn_mask, generator)
-        h = self.output(apply_gelu(self.intermediate(x), self.gelu))
+        mesh = role_mesh("tensor")
+        if mesh is None:
+            h = self.output(apply_gelu(self.intermediate(x), self.gelu))
+        else:  # this rank's FFN features; the output product summed over the model group
+            h = row_parallel(self.output, apply_gelu(self.intermediate(copy_to_model_group(x)), self.gelu), mesh)
         return self.ln(x + dropout(h, self.dropout, generator))
 
 
@@ -129,19 +153,6 @@ class BertEncoder(nn.Module):
         for i in range(self.layers):
             x = getattr(self, f"layer_{i}")(x, attention_mask, generator)
         return x
-
-
-def slice_generator(generator: Optional[torch.Generator], index: int) -> Optional[torch.Generator]:
-    """The dropout generator of model-group rank `index`'s chunk slice:
-    seeded from the state of the group's shared `generator` and `index`, so
-    that each slice draws its own masks; the shared generator then advances
-    alike on every rank of the group."""
-    if generator is None:
-        return None
-    state = generator.get_state().numpy().tobytes() + index.to_bytes(4, "little")
-    seed = int.from_bytes(hashlib.blake2b(state, digest_size=8).digest(), "little")
-    torch.empty(1, device=generator.device).uniform_(generator=generator)
-    return torch.Generator(device=generator.device).manual_seed(seed)
 
 
 class BioClinBERTEncoder(nn.Module):

@@ -7,6 +7,12 @@ directional cross streams (L<-N, L<-I, N<-L, N<-I, I<-L, I<-N) as another,
 masked pooling, pair merges into LN/LI/NI and the trimodal final_lni. In
 training (a ``generator`` passed) embed_dropout also runs on the three
 inputs before their projections, as in the JAX package.
+
+Under the 'model' axis's ``route`` role (``train.route_parallel``,
+``parallel/ep.py``) this rank holds and runs its slice of the six cross
+streams: the replicated sequences enter through ``copy_to_model_group``,
+the stream-local dropout draws from the rank's ``slice_generator``, and
+``gather_streams`` assembles the six outputs before the pooling.
 """
 from __future__ import annotations
 
@@ -19,6 +25,13 @@ from torch import nn
 from multimodalrouting_tpu_torch.models.layers import Dense, dropout
 from multimodalrouting_tpu_torch.models.transformer import StackedMulTEncoder
 from multimodalrouting_tpu_torch.ops.masked import masked_last, masked_mean
+from multimodalrouting_tpu_torch.parallel.mesh import (
+    copy_to_model_group,
+    gather_streams,
+    role_mesh,
+    slice_generator,
+    stream_slice,
+)
 
 #: (query modality, kv modality) of the six cross streams, route order
 #: LN, LI, NL, NI, IL, IN (L=0, N=1, I=2)
@@ -80,8 +93,17 @@ class MULTRouter(nn.Module):
         q_idx = torch.tensor([q for q, _ in CROSS_STREAMS], device=seqs.device)
         kv_idx = torch.tensor([kv for _, kv in CROSS_STREAMS], device=seqs.device)
         q_masks, kv_masks = mods[q_idx], mods[kv_idx]
-        kv_seqs = seqs[kv_idx]
-        h_cross = self.cross_streams(seqs[q_idx], kv_seqs, kv_seqs, q_masks, kv_masks, generator=generator)
+        mesh = role_mesh("route")
+        if mesh is None:
+            kv_seqs = seqs[kv_idx]
+            h_cross = self.cross_streams(seqs[q_idx], kv_seqs, kv_seqs, q_masks, kv_masks, generator=generator)
+        else:  # this rank's streams, gathered over the model group
+            mine = stream_slice(len(CROSS_STREAMS), mesh)
+            shared = copy_to_model_group(seqs)
+            kv_seqs = shared[kv_idx[mine]]
+            h_cross = gather_streams(self.cross_streams(
+                shared[q_idx[mine]], kv_seqs, kv_seqs, q_masks[mine], kv_masks[mine],
+                generator=slice_generator(generator, mesh.model_index)))
         pooled = {name: pool_fn(h_cross[g], q_masks[g]) for g, name in enumerate(CROSS_NAMES)}
 
         e_ln = self.proj_pair_ln(torch.cat([pooled["LN"], pooled["NL"]], dim=-1))

@@ -20,8 +20,13 @@ is masked out of the keys (and the queries): each sequence's own data pads
 are attended, as the reference attends padded positions of B. The causal
 mask is a per-stream bias with each stream's native offset 1 + |Tk - Tq|
 (``_native_causal_bias``), so the stack itself runs without ``causal``.
-Route-parallel placement over a device mesh is not ported (ROADMAP.md §1
-item 12).
+
+Under the 'model' axis's ``route`` role (``train.route_parallel``,
+``parallel/ep.py``) this rank holds and runs its slice of ``directional``
+(its streams' causal biases with them): the replicated sequences enter
+through ``copy_to_model_group``, the stream-local dropout draws from the
+rank's ``slice_generator``, and ``gather_streams`` assembles the six
+outputs before the pooling; the tri route stays replicated.
 """
 from __future__ import annotations
 
@@ -35,6 +40,13 @@ from multimodalrouting_tpu_torch.models.layers import Dense
 from multimodalrouting_tpu_torch.models.mult import _pad_time
 from multimodalrouting_tpu_torch.models.transformer import StackedMulTEncoder
 from multimodalrouting_tpu_torch.ops.masked import NEG_INF
+from multimodalrouting_tpu_torch.parallel.mesh import (
+    copy_to_model_group,
+    gather_streams,
+    role_mesh,
+    slice_generator,
+    stream_slice,
+)
 
 #: (query, kv) modality per directional route, the reference's build order
 #: (L=0, N=1, I=2)
@@ -155,9 +167,18 @@ class PerRouteMulTFusion(nn.Module):
         seqs, masks = (l_seq, n_seq, i_seq), (l_mask, n_mask, i_mask)
         t_nat = [s.shape[1] for s in seqs]
         t_max = max(t_nat)
-        q, kv, q_ext, kv_ext = _streams(seqs, DIRECTIONAL_STREAMS, t_max)
-        bias = _native_causal_bias(DIRECTIONAL_STREAMS, t_nat, t_max, self.attn_mask).to(l_seq.device)
-        h = self.directional(q, kv, kv, q_ext, kv_ext, generator=generator, attn_bias=bias)
+        mesh = role_mesh("route")
+        if mesh is None:
+            streams, inputs, gen = DIRECTIONAL_STREAMS, seqs, generator
+        else:  # this rank's streams, gathered over the model group below
+            streams = DIRECTIONAL_STREAMS[stream_slice(len(DIRECTIONAL_STREAMS), mesh)]
+            inputs = tuple(copy_to_model_group(s) for s in seqs)
+            gen = slice_generator(generator, mesh.model_index)
+        q, kv, q_ext, kv_ext = _streams(inputs, streams, t_max)
+        bias = _native_causal_bias(streams, t_nat, t_max, self.attn_mask).to(l_seq.device)
+        h = self.directional(q, kv, kv, q_ext, kv_ext, generator=gen, attn_bias=bias)
+        if mesh is not None:
+            h = gather_streams(h)
         # the data masks, padded to t_max, decide the pooled step only
         pmask = [_pad_time(s, m.float(), t_max)[1] for s, m in zip(seqs, masks)]
         routes = {"L": l_pool, "N": n_pool, "I": i_pool}

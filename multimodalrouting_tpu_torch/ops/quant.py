@@ -30,23 +30,31 @@ import torch
 from torch import nn
 
 
+def int8_scale(amax: torch.Tensor) -> torch.Tensor:
+    """The symmetric int8 scale of fp32 maxima |x|."""
+    return torch.clamp(amax / 127.0, min=1e-8)
+
+
+def quantize_with_scale(x32: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """fp32 values -> int8 at scale `s` (broadcast), half to even, +-127."""
+    return torch.clamp(torch.round(x32 / s), -127, 127).to(torch.int8)
+
+
 def quantize_per_channel(w: torch.Tensor, axis: int = 0):
     """Symmetric int8 quantization of a kernel over `axis` (0 for the JAX
     layout [in, out], 1 for torch's [out, in]) -> (wq int8, scale fp32 with
     `axis` kept as 1)."""
     w32 = w.float()
-    s = torch.clamp(w32.abs().amax(dim=axis, keepdim=True) / 127.0, min=1e-8)
-    wq = torch.clamp(torch.round(w32 / s), -127, 127).to(torch.int8)
-    return wq, s
+    s = int8_scale(w32.abs().amax(dim=axis, keepdim=True))
+    return quantize_with_scale(w32, s), s
 
 
 def quantize_per_token(x: torch.Tensor):
     """Symmetric int8 quantization of activations over the last axis ->
     (xq int8, scale fp32 [..., 1])."""
     x32 = x.float()
-    s = torch.clamp(x32.abs().amax(dim=-1, keepdim=True) / 127.0, min=1e-8)
-    xq = torch.clamp(torch.round(x32 / s), -127, 127).to(torch.int8)
-    return xq, s
+    s = int8_scale(x32.abs().amax(dim=-1, keepdim=True))
+    return quantize_with_scale(x32, s), s
 
 
 def int8_matmul(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:

@@ -10,9 +10,23 @@ belongs to two groups:
 
 - its **data group**: the N ranks that share its model position (they hold
   different rows of the global batch);
-- its **model group**: the M ranks that share its data shard (the same rows;
-  under the default 'model' role each runs BERT on its slice of the
-  flattened note chunks, ``models/clinbert.py``).
+- its **model group**: the M ranks that share its data shard (the same rows).
+
+The 'model' axis has one of three roles (``Mesh.role``, from the config by
+``mesh_role``; each excludes the others, as in the JAX package):
+
+- ``chunks`` (the default): each rank of a model group runs BERT on its
+  slice of the flattened note chunks (``models/clinbert.py``);
+- ``tensor`` (``train.tensor_parallel``, ``parallel/tp.py``): the BERT
+  layers' weights are split Megatron-style over the model group;
+- ``route`` (``train.route_parallel``, ``parallel/ep.py``): the stacked
+  6-stream MulT cross programs are split on their stream axis.
+
+Under ``tensor`` and ``route`` the chunk axis takes 'data' only, and
+``place_state`` (the counterpart of the JAX package's
+``param_state_shardings``) keeps this rank's slice of each parameter a
+role's ``spec_for_name`` shards, and of its moments and EMA
+(``ModelShards``).
 
 What GSPMD computes on the global batch the ranks compute through a few
 autograd-aware collectives, each the identity without an active mesh (as
@@ -23,12 +37,18 @@ the JAX package's ``constrain`` is a no-op without one):
 - ``gather_chunks`` over the model group: the rank's slice of chunk
   embeddings gathered in rank order, whose backward is the reduce-scatter
   of the replicated downstream gradient (a sum over the group, then the
-  rank's slice).
+  rank's slice);
+- ``copy_to_model_group`` (Megatron's *f*: identity forward, sum over the
+  model group backward), ``reduce_from_model_group`` (Megatron's *g*: sum
+  forward, identity backward) and ``gather_streams`` (the model group's
+  stream slices gathered forward; this rank's slice of the gradient
+  backward), the collectives of the ``tensor`` and ``route`` roles.
 
 With that, each rank backpropagates its own loss and ``average_gradients``
-averages the gradients over the whole world: a replicated global term (a
-pos_weight-ed loss, a fairness ratio) and a chunk gather both come out as
-the JAX global-batch gradient.
+averages the gradients over the whole world, but for the model-sharded
+slices, which it averages over the data group: a replicated global term (a
+pos_weight-ed loss, a fairness ratio), a chunk gather and a model-sharded
+layer all come out as the JAX global-batch gradient.
 
 Transport: NCCL carries CUDA tensors, and gloo carries CPU tensors and,
 for the all-reduce and all-gather the port uses, CUDA tensors too (how
@@ -37,7 +57,8 @@ several ranks share one card). A collective the backend refuses raises.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, List, Optional
+import hashlib
+from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -47,11 +68,14 @@ from multimodalrouting_tpu_torch.data.batches import Batch, take_batch
 
 _ACTIVE_MESH: Optional["Mesh"] = None
 
+ROLES = ("chunks", "tensor", "route")
+
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """This rank's place in an n_data x n_model grid of processes, with its
-    groups (None outside a process group: a mesh for slicing only)."""
+    groups (None outside a process group: a mesh for slicing only) and the
+    'model' axis's role (``ROLES``)."""
 
     n_data: int
     n_model: int = 1
@@ -59,6 +83,7 @@ class Mesh:
     world: Any = None
     data: Any = None
     model: Any = None
+    role: str = "chunks"
 
     @property
     def data_index(self) -> int:
@@ -69,24 +94,38 @@ class Mesh:
         return self.rank % self.n_model
 
 
+def mesh_role(cfg) -> str:
+    """The 'model' axis's role a config asks for: ``tensor`` under
+    ``train.tensor_parallel``, ``route`` under ``train.route_parallel``,
+    else ``chunks`` (the JAX package's ``set_tp_mode`` / ``set_ep_mode``,
+    kept on the mesh instead of in module globals)."""
+    t = cfg.train
+    return "tensor" if t.tensor_parallel else "route" if t.route_parallel else "chunks"
+
+
 def chunk_sharding(mesh: Optional[Mesh]) -> bool:
-    """Whether the note chunks are sharded over 'model', the axis's one
-    role so far (tensor, GPipe and route parallelism on a mesh refuse:
-    ``check_mesh_roles``)."""
-    return mesh is not None and mesh.n_model > 1
+    """Whether the note chunks are sharded over 'model': more than one model
+    shard under the ``chunks`` role (the other roles use the axis for
+    weights, and their chunks take 'data' only)."""
+    return mesh is not None and mesh.n_model > 1 and mesh.role == "chunks"
+
+
+def role_mesh(role: str) -> Optional[Mesh]:
+    """The active mesh where its 'model' axis has `role`, else None."""
+    mesh = _ACTIVE_MESH
+    return mesh if mesh is not None and mesh.role == role else None
 
 
 def check_mesh_roles(cfg) -> None:
-    """Refuse what a mesh cannot run yet: the 'model' axis's tensor, GPipe
-    and route-parallel roles (ROADMAP.md §1 items 12b, 12c), and
-    microbatching, whose microbatches are rows of the global batch."""
+    """Refuse what a mesh cannot run yet: the GPipe schedule over the 'model'
+    axis and microbatching, whose microbatches are rows of the global batch
+    (ROADMAP.md §1 item 12c)."""
     t = cfg.train
-    for flag, what in (("tensor_parallel", "tensor parallelism"), ("pipeline_parallel", "the GPipe schedule"),
-                       ("route_parallel", "route parallelism")):
-        if getattr(t, flag):
-            raise NotImplementedError(f"{what} on a mesh (train.{flag}) is not ported yet (ROADMAP.md §1 item 12)")
+    if t.pipeline_parallel:
+        raise NotImplementedError(
+            "the GPipe schedule on a mesh (train.pipeline_parallel) is not ported yet (ROADMAP.md §1 item 12c)")
     if t.microbatch > 1:
-        raise NotImplementedError("train.microbatch > 1 on a mesh is not ported yet (ROADMAP.md §1 item 12)")
+        raise NotImplementedError("train.microbatch > 1 on a mesh is not ported yet (ROADMAP.md §1 item 12c)")
 
 
 def launch_hint(n: int) -> str:
@@ -94,10 +133,14 @@ def launch_hint(n: int) -> str:
             "train ..., or set JAX_COORDINATOR_ADDRESS, JAX_NUM_PROCESSES and JAX_PROCESS_ID in each")
 
 
-def make_mesh(n_data: Optional[int] = None, n_model: int = 1, batch_size: Optional[int] = None) -> Mesh:
+def make_mesh(n_data: Optional[int] = None, n_model: int = 1, batch_size: Optional[int] = None,
+              role: str = "chunks") -> Mesh:
     """The mesh over the world's processes (``init_multihost`` first), with
-    its data and model groups; every rank must call it, in the same order.
-    `batch_size`, where given, must split evenly over the data shards."""
+    its data and model groups and the 'model' axis's `role`; every rank must
+    call it, in the same order. `batch_size`, where given, must split evenly
+    over the data shards."""
+    if role not in ROLES:
+        raise ValueError(f"mesh role {role!r}: one of {ROLES}")
     if batch_size is not None and n_data and batch_size % n_data != 0:
         raise ValueError(f"train.batch_size={batch_size} must be divisible by train.num_data_shards={n_data}")
     if not dist.is_initialized():
@@ -112,7 +155,7 @@ def make_mesh(n_data: Optional[int] = None, n_model: int = 1, batch_size: Option
         [[d * n_model + j for d in range(n_data)] for j in range(n_model)])
     model, _ = dist.new_subgroups_by_enumeration(
         [[d * n_model + j for j in range(n_model)] for d in range(n_data)])
-    return Mesh(n_data, n_model, dist.get_rank(), dist.group.WORLD, data, model)
+    return Mesh(n_data, n_model, dist.get_rank(), dist.group.WORLD, data, model, role)
 
 
 def set_active_mesh(mesh: Optional[Mesh]) -> None:
@@ -127,9 +170,9 @@ def get_active_mesh() -> Optional[Mesh]:
 # --- collectives -------------------------------------------------------------
 
 
-def all_reduce_(x: torch.Tensor, group) -> torch.Tensor:
-    """In-place sum of a contiguous tensor over `group`."""
-    dist.all_reduce(x, group=group)
+def all_reduce_(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """In-place sum (or `op`) of a contiguous tensor over `group`."""
+    dist.all_reduce(x, op=op, group=group)
     return x
 
 
@@ -185,6 +228,38 @@ class _GatherRows(torch.autograd.Function):
         return g[ctx.index * ctx.rows : (ctx.index + 1) * ctx.rows], None, None
 
 
+class _CopyToGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_(g.contiguous().clone(), ctx.group), None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce_(x.contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherSlices(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, index):
+        ctx.index, ctx.rows = index, x.shape[0]
+        return torch.cat(all_gather(x, group), dim=0)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[ctx.index * ctx.rows : (ctx.index + 1) * ctx.rows], None, None
+
+
 def global_sum(x: torch.Tensor) -> torch.Tensor:
     """Sum over the data group (the identity without a mesh); its backward
     sums the gradient over the group."""
@@ -206,24 +281,174 @@ def global_mean(x: torch.Tensor) -> torch.Tensor:
 def gather_chunks(x: torch.Tensor) -> torch.Tensor:
     """Every model-group rank's rows of `x` (equal counts), concatenated in
     rank order; the backward hands each rank its rows of the summed
-    gradient."""
+    gradient. The chunks feed replicated parameters (BERT under the
+    ``chunks`` role): each rank's BERT gradient is then M times its slice's,
+    and the world average in ``average_gradients`` divides the M out."""
     mesh = _ACTIVE_MESH
     return _GatherRows.apply(x, mesh.model, mesh.model_index)
 
 
-def average_gradients(grads: List[torch.Tensor]) -> None:
-    """Average `grads` over the whole world in place: one all-reduce per
-    dtype over a flat buffer."""
+def copy_to_model_group(x: torch.Tensor) -> torch.Tensor:
+    """Megatron's *f* on the active mesh's model group: the identity
+    forward; the backward sums the gradient over the group. `x` is
+    replicated over the group (the same value on every rank) and feeds this
+    rank's slice of a model-sharded computation, so each rank's gradient of
+    `x` covers its slice only; their sum is the whole gradient, the same on
+    every rank, as the replicated parameters upstream need for the world
+    average of ``average_gradients``."""
+    mesh = _ACTIVE_MESH
+    return _CopyToGroup.apply(x, mesh.model)
+
+
+def reduce_from_model_group(x: torch.Tensor) -> torch.Tensor:
+    """Megatron's *g* on the active mesh's model group: the sum of the
+    ranks' partial results forward (a row-parallel product), the identity
+    backward. The sum is replicated and so is the loss downstream: every
+    rank receives the whole gradient of the sum, which is the gradient of
+    its partial result, so this rank's weight slice gets its own gradient
+    (averaged over the data group only by ``average_gradients``)."""
+    mesh = _ACTIVE_MESH
+    return _ReduceFromGroup.apply(x, mesh.model)
+
+
+def gather_streams(x: torch.Tensor) -> torch.Tensor:
+    """Every model-group rank's leading-axis slice of `x` (a stack of MulT
+    streams, equal counts), concatenated in rank order; the backward hands
+    this rank its slice of the gradient, unsummed: the gathered streams feed
+    replicated computation, so every rank holds the same whole gradient and
+    its slice is its streams' own (their parameters are averaged over the
+    data group only by ``average_gradients``)."""
+    mesh = _ACTIVE_MESH
+    return _GatherSlices.apply(x, mesh.model, mesh.model_index)
+
+
+def stream_slice(g: int, mesh: Mesh) -> slice:
+    """Model-group rank's share of `g` stacked streams: a contiguous slice
+    of g / n_model (``parallel/ep.py:validate_ep`` checks the division)."""
+    per = g // mesh.n_model
+    return slice(mesh.model_index * per, (mesh.model_index + 1) * per)
+
+
+def slice_generator(generator: Optional[torch.Generator], index: int) -> Optional[torch.Generator]:
+    """The dropout generator of model-group rank `index`'s slice (its chunks,
+    heads or streams): seeded from the state of the group's shared
+    `generator` and `index`, so that each slice draws its own masks; the
+    shared generator then advances alike on every rank of the group."""
+    if generator is None:
+        return None
+    state = generator.get_state().numpy().tobytes() + index.to_bytes(4, "little")
+    seed = int.from_bytes(hashlib.blake2b(state, digest_size=8).digest(), "little")
+    torch.empty(1, device=generator.device).uniform_(generator=generator)
+    return torch.Generator(device=generator.device).manual_seed(seed)
+
+
+def _average(grads: List[torch.Tensor], group, n: int) -> None:
+    """Sum `grads` over `group` and divide by `n`, in place: one all-reduce
+    per dtype over a flat buffer."""
+    for dtype in sorted({g.dtype for g in grads}, key=str):
+        same = [g for g in grads if g.dtype == dtype]
+        flat = all_reduce_(torch.cat([g.reshape(-1) for g in same]), group)
+        flat.div_(n)
+        for f, g in zip(flat.split([g.numel() for g in same]), same):
+            g.copy_(f.view_as(g))
+
+
+def average_gradients(grads: List[torch.Tensor], model_sharded: Sequence[bool] = ()) -> None:
+    """Average `grads` in place: over the whole world, but for those that
+    `model_sharded` marks (this rank's slices of model-sharded leaves,
+    ``ModelShards``), which are averaged over the data group only: the
+    model group's ranks hold different slices, and a sum over it would add
+    the gradients of different parameters."""
     mesh = _ACTIVE_MESH
     if mesh is None or not grads:
         return
-    world = dist.get_world_size(mesh.world)
-    for dtype in sorted({g.dtype for g in grads}, key=str):
-        same = [g for g in grads if g.dtype == dtype]
-        flat = all_reduce_(torch.cat([g.reshape(-1) for g in same]), mesh.world)
-        flat.div_(world)
-        for f, g in zip(flat.split([g.numel() for g in same]), same):
-            g.copy_(f.view_as(g))
+    flags = list(model_sharded) or [False] * len(grads)
+    replicated = [g for g, s in zip(grads, flags) if not s]
+    if replicated:
+        _average(replicated, mesh.world, dist.get_world_size(mesh.world))
+    sharded = [g for g, s in zip(grads, flags) if s]
+    if sharded:
+        _average(sharded, mesh.data, mesh.n_data)
+
+
+# --- placement of model-sharded parameters --------------------------------------
+
+
+def local_slice(x: torch.Tensor, dim: int, mesh: Mesh) -> torch.Tensor:
+    """Model-group rank's contiguous slice of `x` along `dim`."""
+    per = x.shape[dim] // mesh.n_model
+    return x.narrow(dim, mesh.model_index * per, per)
+
+
+@dataclasses.dataclass
+class ModelShards:
+    """The parameters sharded over the model group (name -> the dimension
+    split), and the mesh. A state that holds one keeps this rank's slice of
+    each such parameter, of its moments and of its EMA."""
+
+    mesh: Mesh
+    dims: Dict[str, int]
+
+    def local(self, name: str, full: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of a full tensor of parameter `name`."""
+        d = self.dims.get(name)
+        return full if d is None else local_slice(full, d, self.mesh).contiguous()
+
+    def full(self, name: str, part: torch.Tensor) -> torch.Tensor:
+        """The full tensor of `name` from the model group's slices; every
+        rank of the group must call it."""
+        d = self.dims.get(name)
+        return part if d is None else torch.cat(all_gather(part, self.mesh.model), dim=d)
+
+    def full_dict(self, tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        return {n: self.full(n, v) for n, v in tensors.items()}
+
+    def sum_squares(self, sq: torch.Tensor, names: Iterable[str]) -> torch.Tensor:
+        """Per-leaf sums of squares `sq` of this rank's slices, each sharded
+        leaf's summed over the model group (its slices counted once each),
+        the replicated ones as they are."""
+        sharded = torch.tensor([n in self.dims for n in names], device=sq.device)
+        return torch.where(sharded, all_reduce_(sq.contiguous().clone(), self.mesh.model), sq)
+
+
+def shard_dims(names: Iterable[str], shapes: Dict[str, Sequence[int]], spec_for_name: Callable,
+               n_model: int) -> Dict[str, int]:
+    """{name: dimension} of the parameters `spec_for_name` shards."""
+    dims = {}
+    for name in names:
+        d = spec_for_name(name)
+        if d is not None:
+            if shapes[name][d] % n_model:
+                raise ValueError(f"{name} {tuple(shapes[name])} does not split over {n_model} model shards "
+                                 f"on dimension {d}")
+            dims[name] = d
+    return dims
+
+
+def local_state_dict(sd: Dict[str, torch.Tensor], mesh: Mesh, spec_for_name: Callable) -> Dict[str, torch.Tensor]:
+    """This rank's slice of a full state_dict `sd`: the keys `spec_for_name`
+    shards sliced, the rest as they are."""
+    shards = ModelShards(mesh, shard_dims(sd, {k: v.shape for k, v in sd.items()}, spec_for_name, mesh.n_model))
+    return {k: shards.local(k, v) for k, v in sd.items()}
+
+
+def place_state(state, mesh: Mesh, spec_for_name: Callable) -> ModelShards:
+    """Keep only this rank's slices of the parameters `spec_for_name` shards
+    (the JAX package's ``param_state_shardings``): the model's parameters,
+    their moments and their EMA, in place, from the full ones (as created or
+    restored); the rest stays replicated. Sets and returns ``state.shards``.
+    ZeRO-1 (``parallel/zero.py``) composes after it, on the local leaves."""
+    named = dict(state.model.named_parameters())
+    shards = ModelShards(mesh, shard_dims(named, {n: p.shape for n, p in named.items()}, spec_for_name,
+                                          mesh.n_model))
+    with torch.no_grad():
+        for n, d in shards.dims.items():
+            named[n].data = shards.local(n, named[n].data)
+            for moments in (state.mu, state.nu, state.ema or {}):
+                if n in moments:
+                    moments[n] = shards.local(n, moments[n])
+    state.shards = shards
+    return shards
 
 
 def data_rows(b: int) -> tuple:

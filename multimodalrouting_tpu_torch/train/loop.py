@@ -51,10 +51,20 @@ dropout draws from the generator shared by the ranks, in-layer dropout from
 one of each data shard's, seeded from (``train.seed``, data shard, epoch):
 the ranks of a model group, which hold the same rows, draw the same masks
 (each BERT chunk slice its own, ``models/clinbert.py``), and a mesh run at
-dropout 0 equals the one-process run. Tensor, pipeline and route
-parallelism on a mesh and microbatching on a mesh raise (ROADMAP.md §1 item
-12), as do background checkpoint saves (``train.ckpt_backend=orbax_async``,
-item 13).
+dropout 0 equals the one-process run.
+
+The 'model' axis takes the role the config names (``parallel/mesh.py:
+mesh_role``): chunk sharding by default, tensor parallelism under
+``train.tensor_parallel`` (``parallel/tp.py``) or route parallelism under
+``train.route_parallel`` (``parallel/ep.py``), after the JAX package's
+validations (``validate_mesh_config``), which run before any mesh is set.
+Under the tensor and route roles the state, created or restored whole, keeps
+this rank's slices of the sharded parameters, moments and EMA
+(``place_state``, before ZeRO-1), and the checkpoints hold the full tensors,
+gathered over the model group by every rank and written by rank 0. The
+GPipe schedule and microbatching on a mesh raise (ROADMAP.md §1 item 12c),
+as do background checkpoint saves (``train.ckpt_backend=orbax_async``, item
+13).
 """
 from __future__ import annotations
 
@@ -74,15 +84,19 @@ from multimodalrouting_tpu_torch.configs import Config, to_dict
 from multimodalrouting_tpu_torch.data.batches import Batch, batch_to, slice_batch, take_batch
 from multimodalrouting_tpu_torch.metrics.calibration import find_best_thresholds, fit_temperature
 from multimodalrouting_tpu_torch.metrics.classification import epoch_metrics
+from multimodalrouting_tpu_torch.parallel.ep import ep_spec_for_name, validate_ep
 from multimodalrouting_tpu_torch.parallel.mesh import (
     check_mesh_roles,
     host_gather,
     make_mesh,
+    mesh_role,
+    place_state,
     set_active_mesh,
     shard_batch,
     warmup_collectives,
 )
 from multimodalrouting_tpu_torch.parallel.pp import validate_pp
+from multimodalrouting_tpu_torch.parallel.tp import local_attention_branch, tp_spec_for_name, validate_tp_divisibility
 from multimodalrouting_tpu_torch.parallel.zero import shard_optimizer_state
 from multimodalrouting_tpu_torch.pretrained import apply_pretrained
 from multimodalrouting_tpu_torch.serve import probs_from_logits
@@ -170,6 +184,26 @@ def predict_probs(eval_step, state: TrainState, cohort: Batch, batch_size: int, 
     return cat(probs), cat(alphas), cat(rms)
 
 
+# the parameters each weight-sharding role of the 'model' axis splits
+ROLE_SPECS = {"tensor": tp_spec_for_name, "route": ep_spec_for_name}
+
+
+def validate_mesh_config(cfg: Config) -> None:
+    """The JAX package's checks and messages before a mesh run (its loop's
+    :169-200), then what a mesh cannot run yet (``check_mesh_roles``)."""
+    t = cfg.train
+    if t.batch_size % t.num_data_shards != 0:
+        raise ValueError(f"train.batch_size={t.batch_size} must be divisible by "
+                         f"train.num_data_shards={t.num_data_shards}")
+    if t.tensor_parallel:
+        validate_tp_divisibility(cfg, t.num_model_shards)
+    if t.pipeline_parallel:
+        validate_pp(cfg, t.num_model_shards)
+    if t.route_parallel:
+        validate_ep(cfg, t.num_model_shards)
+    check_mesh_roles(cfg)
+
+
 def train_model(
     cfg: Config,
     model,
@@ -197,19 +231,14 @@ def train_model(
         if t.num_data_shards * t.num_model_shards > 1:
             # the JAX package's checks and messages first, before any global
             # state is set: a refusal must not leave a mesh behind
-            if t.batch_size % t.num_data_shards != 0:
-                raise ValueError(f"train.batch_size={t.batch_size} must be divisible by "
-                                 f"train.num_data_shards={t.num_data_shards}")
-            if t.pipeline_parallel:
-                validate_pp(cfg, t.num_model_shards)
-            check_mesh_roles(cfg)
-            mesh = make_mesh(t.num_data_shards, t.num_model_shards, batch_size=t.batch_size)
+            validate_mesh_config(cfg)
+            mesh = make_mesh(t.num_data_shards, t.num_model_shards, batch_size=t.batch_size, role=mesh_role(cfg))
             warmup_collectives(mesh, next(model.parameters()).device, log_fn=log_fn)
             set_active_mesh(mesh)
         return _train_model(cfg, model, train_cohort, val_cohort, family=family, stage=stage, state=state,
                             log_fn=log_fn, ckpt_dir=ckpt_dir, mesh=mesh)
     finally:
-        if mesh is not None:
+        if mesh is not None:  # the mesh and with it the 'model' axis's role
             set_active_mesh(None)
 
 
@@ -248,6 +277,17 @@ def _train_model(cfg: Config, model, train_cohort, val_cohort, *, family, stage,
             # a fresh init only, and before the state: its EMA starts from them
             apply_pretrained(cfg, model, log_fn=log_fn)
         state = create_train_state(cfg, model, stage=stage, n_route_loss_ema=n_route_loss_ema_for(cfg, family))
+    if mesh is not None and mesh.role in ROLE_SPECS:
+        # this rank's slices of the whole state, created or restored
+        shards = place_state(state, mesh, ROLE_SPECS[mesh.role])
+        log_fn(f"[mesh] {mesh.role} parallelism on data={mesh.n_data},model={mesh.n_model}: "
+               f"{len(shards.dims)} parameters sharded over the model group")
+        if mesh.role == "tensor":
+            e = cfg.encoder
+            branch = local_attention_branch(e.text_max_len, e.bert_hidden, e.bert_heads, mesh.n_model,
+                                            frozen=not e.finetune_text)
+            log_fn(f"[tp] each rank's BERT attention: {e.bert_heads // mesh.n_model} heads, "
+                   f"d={e.bert_hidden // mesh.n_model}, T={e.text_max_len}: the {branch} branch")
     if mesh is not None and t.zero_sharded_opt:
         shard_optimizer_state(state, mesh)
     if cfg.encoder.text_embedding_cache:
@@ -278,13 +318,14 @@ def _train_model(cfg: Config, model, train_cohort, val_cohort, *, family, stage,
                f"steps/epoch={steps_per_epoch} mesh={shape}")
 
     def save(name: str, **meta) -> None:
-        # under ZeRO every rank takes part in gathering the moments; rank 0
-        # alone writes, and the others wait for it
+        # under ZeRO, tensor or route parallelism every rank takes part in
+        # gathering the full tensors; rank 0 alone writes, and the others wait
         t0 = time.perf_counter()
-        train_state = train_state_dict(state) if writer or state.zero is not None else None
+        gathered = state.zero is not None or state.shards is not None
+        train_state = train_state_dict(state) if writer or gathered else None
+        serving = serving_state_dict(state) if writer or state.shards is not None else None
         if writer:
-            path = save_checkpoint(os.path.join(ckpt_dir, name), serving_state_dict(state), cfg,
-                                   train_state=train_state, **meta)
+            path = save_checkpoint(os.path.join(ckpt_dir, name), serving, cfg, train_state=train_state, **meta)
             size = os.path.getsize(os.path.join(path, TRAIN_STATE))
             log_fn(f"[ckpt] {name}: {TRAIN_STATE} {size} bytes, saved in {time.perf_counter() - t0:.2f}s")
         if mesh is not None:

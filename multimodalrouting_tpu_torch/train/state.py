@@ -28,6 +28,16 @@ the state holds only this rank's row slices of the sharded leaves' moments
 Adam and the decay update this rank's rows of each such parameter, and the
 rows are all-gathered before the EMA, in the same ``torch._foreach_*`` order.
 
+Under the 'model' axis's ``tensor`` or ``route`` role (``shards``,
+``parallel/mesh.py:place_state``) the state holds this rank's slice of each
+model-sharded parameter, of its moments and of its EMA: the global clip norm
+counts each such leaf once (its slice's sum of squares summed over the model
+group), the finite guard agrees over the whole world, and ZeRO-1 composes on
+the local slices. ``train_state_dict`` and ``serving_state_dict`` gather the
+full tensors over the model group (every rank of it must call them), and
+``load_train_state_dict`` takes a full state dict and keeps this rank's
+slices, so a mesh checkpoint resumes in one process and the reverse.
+
 ``train_state_dict`` and ``load_train_state_dict`` are the state's on-disk
 form (``ckpt.py`` writes it as ``train_state.pt``): step, count, the model's
 raw state_dict (trained parameters, not the EMA; BatchNorm statistics), the
@@ -109,6 +119,10 @@ class TrainState:
     # ZeRO-1 (parallel/zero.py): this rank's row slices of the moments of the
     # sharded leaves; None when every rank holds the full moments
     zero: Optional[Any] = None
+    # the 'model' axis's tensor / route role (parallel/mesh.py:ModelShards):
+    # the parameters of which this state holds this rank's slice; None when
+    # every parameter is whole
+    shards: Optional[Any] = None
 
     def params(self) -> List[torch.Tensor]:
         named = dict(self.model.named_parameters())
@@ -153,12 +167,14 @@ def apply_gradients(
     parameter name, broadcastable) multiplies those parameters' updates
     after Adam and weight decay, before the learning rate."""
     state.step += 1
-    z = state.zero
+    z, shards = state.zero, state.shards
     g = [grads[n].float() for n in state.names]
     if z is not None:  # this rank's slices of the sharded leaves
         g = [x[z.slices[n]] if n in z.slices else x for n, x in zip(state.names, g)]
     finite = bool(torch.stack([torch.isfinite(x).all() for x in g]).all()) if g else True
-    if z is not None:
+    if shards is not None:  # the ranks hold different slices: one verdict for the world
+        finite = _world_finite(finite, shards.mesh, next(state.model.parameters()).device)
+    elif z is not None:
         finite = z.all_finite(finite, next(state.model.parameters()).device)
     if not finite:
         return False
@@ -169,6 +185,8 @@ def apply_gradients(
         if z is not None:  # a sharded leaf's norm from every rank's slice
             sharded = torch.tensor([n in z.slices for n in state.names], device=norms.device)
             norms = torch.where(sharded, z.sum(norms * norms).sqrt(), norms)
+        if shards is not None and shards.dims:  # a model-sharded leaf counted once
+            norms = shards.sum_squares(norms * norms, state.names).sqrt()
         g_norm = torch.linalg.vector_norm(norms)
     if g and not bool(g_norm < state.grad_clip):
         g = torch._foreach_mul(torch._foreach_div(g, g_norm), state.grad_clip)
@@ -210,6 +228,14 @@ def apply_gradients(
     return True
 
 
+def _world_finite(finite: bool, mesh, device) -> bool:
+    """Whether every rank of the world saw finite gradients."""
+    from multimodalrouting_tpu_torch.parallel.mesh import all_reduce_
+
+    bad = all_reduce_(torch.tensor([0.0 if finite else 1.0], device=device), mesh.world)
+    return bool(bad.item() == 0.0)
+
+
 @contextlib.contextmanager
 def ema_weights(state: TrainState):
     """The model with its trainable parameters swapped for their EMA (no
@@ -227,10 +253,17 @@ def ema_weights(state: TrainState):
             p.data, state.ema[name] = state.ema[name], p.data
 
 
+def _full(state: TrainState, tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """`tensors` whole: model-sharded ones gathered over the model group."""
+    return tensors if state.shards is None else state.shards.full_dict(tensors)
+
+
 def serving_state_dict(state: TrainState) -> Dict[str, torch.Tensor]:
-    """The weights a checkpoint serves: the EMA where the run keeps one."""
+    """The weights a checkpoint serves: the EMA where the run keeps one,
+    whole (gathered over the model group: every rank of it must call this
+    where the state holds slices)."""
     with ema_weights(state) as model:
-        return {k: v.detach().clone() for k, v in model.state_dict().items()}
+        return {k: v.detach().clone() for k, v in _full(state, model.state_dict()).items()}
 
 
 def train_state_dict(state: TrainState) -> Dict[str, Any]:
@@ -244,9 +277,10 @@ def train_state_dict(state: TrainState) -> Dict[str, Any]:
         from multimodalrouting_tpu_torch.parallel.zero import gather_moments
 
         mu, nu = gather_moments(state)
-    return {
-        "step": state.step, "count": state.count, "model": cpu(state.model.state_dict()),
-        "mu": cpu(mu), "nu": cpu(nu), "ema": None if state.ema is None else cpu(state.ema),
+    return {  # whole tensors, from every rank of the model group where the state holds slices
+        "step": state.step, "count": state.count, "model": cpu(_full(state, state.model.state_dict())),
+        "mu": cpu(_full(state, mu)), "nu": cpu(_full(state, nu)),
+        "ema": None if state.ema is None else cpu(_full(state, state.ema)),
         "route_loss_ema": None if state.route_loss_ema is None else state.route_loss_ema.detach().cpu(),
         "loop": dict(state.loop),
     }
@@ -263,25 +297,27 @@ def load_train_state_dict(state: TrainState, saved: Dict[str, Any], *, params_on
     across stages, as the reference's trainer does). An EMA the checkpoint
     lacks, or lacks for a parameter, starts from the restored parameter; a
     route-loss EMA it lacks (a checkpoint from before the buffer, or of
-    another gate) stays as `state` holds it."""
+    another gate) stays as `state` holds it. A state that holds model-sharded
+    slices (``shards``) takes this rank's slices of the full tensors."""
     if not params_only and sorted(saved["mu"]) != sorted(state.names):
         raise ValueError(
             f"the checkpoint's optimizer covers {len(saved['mu'])} parameters and this run trains "
             f"{len(state.names)}; a full restore needs the same trainable set (warm-start with --init-from)"
         )
-    state.model.load_state_dict(saved["model"])
+    local = (lambda n, v: v) if state.shards is None else state.shards.local  # noqa: E731
+    state.model.load_state_dict({k: local(k, v) for k, v in saved["model"].items()})
     with torch.no_grad():
         if state.ema is not None:
             ema = saved.get("ema") or {}
             for n in state.names:
-                state.ema[n].copy_(ema.get(n, saved["model"][n]))
+                state.ema[n].copy_(local(n, ema.get(n, saved["model"][n])))
         rle = saved.get("route_loss_ema")
         if state.route_loss_ema is not None and rle is not None:
             state.route_loss_ema.copy_(rle)
         if not params_only:
             rows = state.zero.slices if state.zero is not None else {}
             for n in state.names:  # under ZeRO this rank's rows of the full moments
-                mu, nu = saved["mu"][n], saved["nu"][n]
+                mu, nu = local(n, saved["mu"][n]), local(n, saved["nu"][n])
                 if n in rows:
                     mu, nu = mu[rows[n]], nu[rows[n]]
                 state.mu[n].copy_(mu)

@@ -30,8 +30,10 @@ global-batch numbers from each rank's rows: the BatchNorm moments (in
 ``models/cxr.py``), the clamped pos_weight and the fairness penalties (in
 ``losses.py``) and the CheXpert term's ratio are sums over the data group;
 route dropout is drawn for the global batch and sliced; the gradients are
-averaged over the world; the logged losses, the route-loss EMA's per-route
-losses and the alpha and gate means are data-group means.
+averaged over the world, this rank's slices of model-sharded parameters
+(the 'model' axis's tensor and route roles) over the data group; the logged
+losses, the route-loss EMA's per-route losses and the alpha and gate means
+are data-group means.
 """
 from __future__ import annotations
 
@@ -248,8 +250,10 @@ def make_train_step(cfg: Config, model, family: str = "capsule", **apply_kwargs)
         # a parameter the loss does not reach has a zero gradient, as in JAX
         grads = {n: torch.zeros_like(p) if p.grad is None else p.grad for n, p in zip(state.names, params)}
         # on a mesh: each rank's gradient of its own loss, averaged over the
-        # world, is the global batch's (parallel/mesh.py)
-        average_gradients(list(grads.values()))
+        # world (model-sharded slices over the data group), is the global
+        # batch's (parallel/mesh.py)
+        sharded = () if state.shards is None else [n in state.shards.dims for n in grads]
+        average_gradients(list(grads.values()), sharded)
         update_mask = None
         if head_keep is not None:
             # on the gradients (Adam's moments of the frozen slices stay zero)

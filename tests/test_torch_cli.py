@@ -204,22 +204,51 @@ PHENO_ATTEN_MULT = os.path.join(os.path.dirname(__file__), "..", "configs", "phe
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["train", "--mesh", "data=2,model=2", "--set", "train.tensor_parallel=true"], "item 12"),
-    (["train", "--mesh", "model=2", "--set", "train.pipeline_parallel=true", "--set", "encoder.bert_layers=2"],
+    (["train", "--mesh", "data=2,model=2", "--set", "train.tensor_parallel=true", "--set", "train.microbatch=2"],
      "item 12"),
-    (["train", "--mesh", "data=2", "--set", "train.route_parallel=true"], "item 12"),
+    (["train", "--mesh", "model=2", "--set", "train.pipeline_parallel=true", "--set", "encoder.bert_layers=2",
+      "--set", "encoder.dropout=0"], "item 12"),
+    (["train", "--mesh", "model=2", "--set", "train.route_parallel=true", "--set", "train.microbatch=2"],
+     "item 12"),
     (["train", "--set", "train.ckpt_backend=orbax_async"], "item 13"),
     (["eval", "--ckpt", "ORBAX"], "item 13"),
     (["predict", "--ckpt", "ORBAX"], "item 13"),
 ])
 def test_unported_options_raise_naming_their_roadmap_item(argv, item, tmp_path):
+    """What the port does not have raises naming its item: microbatching on a
+    mesh under tensor or route parallelism and the GPipe schedule (12c),
+    background saves and orbax (13). The case's own --set pairs come after
+    the tiny ones, so that the JAX package's checks pass."""
     if argv[0] == "train":
-        argv = [*argv, "--device", "cpu", "--out", str(tmp_path), *_sets()]
+        argv = [argv[0], *_sets(), *argv[1:], "--device", "cpu", "--out", str(tmp_path)]
     if "ORBAX" in argv:  # a JAX orbax checkpoint: reading it needs orbax, which imports JAX
         os.makedirs(tmp_path / "final.orbax")
         argv = [str(tmp_path) if a == "ORBAX" else a for a in argv] + ["--device", "cpu"]
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md §1 {item}"):
         tcli.main(argv)
+
+
+@pytest.mark.parametrize("argv, match", [
+    (["--mesh", "data=2", "--set", "train.route_parallel=true"], "divisible by the model shards \\(1\\)"),
+    (["--mesh", "model=2", "--set", "train.tensor_parallel=true", "--set", "encoder.bert_heads=3",
+      "--set", "encoder.bert_hidden=48", "--set", "encoder.bert_intermediate=96"], "bert_heads=3 divisible"),
+    (["--mesh", "model=2", "--set", "train.tensor_parallel=true", "--set", "train.route_parallel=true"],
+     "mutually exclusive"),
+], ids=["ep_one_model_shard", "tp_heads", "tp_and_ep"])
+def test_mesh_configs_the_jax_package_rejects_raise_its_message(argv, match, tmp_path):
+    """`cli train --mesh` runs the JAX package's tensor- and route-parallel
+    checks, with their messages, before it joins any process group."""
+    with pytest.raises(ValueError, match=match):
+        tcli.main(["train", *_sets(), *argv, "--device", "cpu", "--out", str(tmp_path)])
+
+
+def test_a_valid_tensor_parallel_mesh_asks_for_its_launch(tmp_path):
+    """A tensor-parallel data=2, model=2 config passes the checks and, in one
+    process, refuses with the launch it needs (tests/test_torch_tp_ep.py
+    runs it on two ranks)."""
+    with pytest.raises(SystemExit, match="torchrun --nproc-per-node 4"):
+        tcli.main(["train", "--mesh", "data=2,model=2", "--set", "train.tensor_parallel=true", "--device", "cpu",
+                   "--out", str(tmp_path), *_sets()])
 
 
 @pytest.mark.parametrize("argv", [

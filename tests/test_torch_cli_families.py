@@ -203,8 +203,16 @@ def test_formerly_unported_fame_artifact_serves(fame_chain, tmp_path):
         assert json.load(f)["family"] == "fame"
 
 
+def test_route_parallel_fame_tri_gets_the_jax_package_s_check(tmp_path):
+    """fame tri on `--mesh data=2` under train.route_parallel: the JAX
+    package's validate_ep refuses one model shard, with its message."""
+    with pytest.raises(ValueError, match="divisible by the model shards \\(1\\)"):
+        tcli.main(["train", "--family", "fame", "--stage", "tri", "--mesh", "data=2", "--set",
+                   "train.route_parallel=true", "--device", "cpu", "--out", str(tmp_path), *_sets()])
+
+
 @pytest.mark.parametrize("argv, item", [
-    (["train", "--family", "fame", "--stage", "tri", "--mesh", "data=2", "--set", "train.route_parallel=true"],
+    (["train", "--family", "fame", "--stage", "tri", "--mesh", "data=2", "--set", "train.microbatch=2"],
      "item 12"),
     (["train", "--family", "gated_concat", "--stage", "step1", "--set", "train.ckpt_backend=orbax_async"],
      "item 13"),

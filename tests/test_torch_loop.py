@@ -83,11 +83,13 @@ def test_train_model_runs_the_text_cache():
 
 
 @pytest.mark.parametrize("over", [
-    {"train.num_data_shards": 2, "train.tensor_parallel": True},
-    {"train.num_data_shards": 2, "train.route_parallel": True},
+    {"train.num_data_shards": 2, "train.tensor_parallel": True, "train.microbatch": 2},
+    {"train.num_model_shards": 2, "train.route_parallel": True, "train.microbatch": 2},
     {"train.num_data_shards": 2, "train.microbatch": 2},
 ])
 def test_train_model_refuses_what_is_not_ported(over):
+    """Microbatching on a mesh, under tensor or route parallelism or not,
+    refuses (ROADMAP.md §1 item 12c) after the JAX package's checks pass."""
     cfg = tc.apply_overrides(tc.Config(), {**LOOP, **over})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tloop.train_model(cfg, build_model(cfg, device="cpu", train=True), tiny_batch(4), tiny_batch(4))
