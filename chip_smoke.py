@@ -354,12 +354,24 @@ FWD_KERNELS = {"fwd": "attention_fwd_wgmma_kernel"}
 BWD_KERNELS = {"di": "bwd_di_kernel", "dq": "bwd_dq_wgmma_kernel", "dkdv": "bwd_dkdv_wgmma_kernel"}
 
 
+TRACE_TRIES = 3  # traces of a call's kernels before a short one fails
+
+
 def call_ms(fn, kernels: dict, iters: int = 20) -> tuple:
     """Device time of one call: every CUDA kernel in a profiler trace of
     `iters` calls, summed and divided by `iters`, with its split into
-    `kernels` ({part: name}). Fails if a kernel of the call is missing or
-    another kernel ran. -> (ms, {part: ms})."""
-    spans = device_spans(fn, iters)
+    `kernels` ({part: name}), each launched once a call. A trace that holds
+    fewer than `iters` launches of a part lost events (one such trace gave
+    a fifth of the true time, above the card's peak): it is traced again, up
+    to TRACE_TRIES times. Fails if a kernel of the call is missing or another
+    kernel ran. -> (ms, {part: ms})."""
+    for _ in range(TRACE_TRIES):
+        spans = device_spans(fn, iters)
+        counts = {part: sum(1 for name, _ in spans if key in name) for part, key in kernels.items()}
+        if all(c == iters for c in counts.values()):
+            break
+        log(f"[trace] launches in the trace {counts}, {iters} calls: events lost, tracing again")
+    require(all(c == iters for c in counts.values()), f"the trace holds {counts} launches of {iters} calls")
     split = {part: sum(us for name, us in spans if key in name) / iters / 1e3 for part, key in kernels.items()}
     require(all(ms > 0 for ms in split.values()), f"a kernel of the call is missing from the trace: {split}")
     others = sorted({name for name, _ in spans if not any(key in name for key in kernels.values())})
@@ -567,7 +579,10 @@ def phase_k1(dev) -> dict:
         check_fwd_tiled(TP_K1_TAG, heads4(q2, 6), heads4(k2, 6), heads4(v2, 6), m2, "key_mask", heads4(out2, 6), lse2)
         tp_ms = fwd_ms(lambda: packed_attention(q2, k2, v2, m2, 6))
         tp_plain_ms = device_time_ms(lambda: packed_attention_reference(q2, k2, v2, m2, 6), 5)
-        del out2, lse2
+        qh, kh, vh = (heads4(x, 6).transpose(1, 2) for x in (q2, k2, v2))
+        add_mask = ((1.0 - m2) * -1e30).to(torch.bfloat16)[:, None, None, :]
+        tp_library_ms = device_time_ms(lambda: sdpa(qh, kh, vh, attn_mask=add_mask, scale=1.0), 20)
+        del out2, lse2, qh, kh, vh
         for n2, t2, h2, dh2, m_src in ((32, 512, 6, 128, mask), (8, 1024, 12, 64, None)):
             if m_src is None:  # T = 1024: the cohort's chunks two by two
                 m_src = mask[: 2 * n2].reshape(n2, 1024)
@@ -586,7 +601,7 @@ def phase_k1(dev) -> dict:
     tp_flops = 4 * 96 * 6 * t * t * dh
     tp_bound_ms, _ = bound(4 * 96 * t * 384 * 2 + 96 * t * 4, tp_flops, "bf16")
     log(f"[k1] {TP_K1_TAG}: kernel_ms={tp_ms:.4f} ({fwd_rates(tp_ms, tp_flops, tp_bound_ms)}) "
-        f"plain_ms={tp_plain_ms:.4f} bound_ms={tp_bound_ms:.4f}")
+        f"plain_ms={tp_plain_ms:.4f} library_ms={tp_library_ms:.4f} bound_ms={tp_bound_ms:.4f}")
     return {
         "name": "packed_attention", "route": "cuda",
         "source": "multimodalrouting_tpu_torch/csrc/packed_attention.cu",
@@ -594,8 +609,20 @@ def phase_k1(dev) -> dict:
         "max_abs_err": err, "ms": ms, "ms_with_lse": ms_lse, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": library_ms,
         "tp_rank_shape": {"shape": [96, 512, 384], "heads": 6, "max_abs_err": tp_err, "ms": tp_ms,
-                          "plain_ms": tp_plain_ms, "bound_ms": tp_bound_ms},
+                          "plain_ms": tp_plain_ms, "bound_ms": tp_bound_ms, "library_ms": tp_library_ms},
     }
+
+
+def sdpa_bwd_ms(q, k, v, m, do, heads: int) -> float:
+    """The library's backward: SDPA on the [N, H, T, dh] view of packed
+    [N, T, H*dh] tensors with K1's additive key mask, every kernel of one
+    ``autograd.grad`` call summed (20 calls)."""
+    q4, k4, v4 = (heads4(x, heads).transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    add_mask = ((1.0 - m) * -1e30).to(torch.bfloat16)[:, None, None, :]
+    out4 = torch.nn.functional.scaled_dot_product_attention(q4, k4, v4, attn_mask=add_mask, scale=1.0)
+    do4 = heads4(do, heads).transpose(1, 2)
+    spans = device_spans(lambda: torch.autograd.grad(out4, (q4, k4, v4), do4, retain_graph=True), 20)
+    return sum(us for _, us in spans) / 20 / 1e3
 
 
 def bwd_with_fault(q, k, v, m, do, heads: int) -> tuple:
@@ -663,13 +690,7 @@ def phase_k2(dev) -> dict:
         ms, split = bwd_ms(lambda: packed_attention_bwd(q, k, v, m, out, lse, do, 12))
         plain_ms = device_time_ms(lambda: packed_attention_bwd_reference(q, k, v, m, do, 12), 5)
     # the library's backward: SDPA on the same [N, H, T, dh] view and additive mask
-    q4, k4, v4 = (x.unflatten(2, (12, 64)).transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
-    add_mask = ((1.0 - m) * -1e30).to(torch.bfloat16)[:, None, None, :]
-    out4 = torch.nn.functional.scaled_dot_product_attention(q4, k4, v4, attn_mask=add_mask, scale=1.0)
-    do4 = do.unflatten(2, (12, 64)).transpose(1, 2)
-    spans = device_spans(lambda: torch.autograd.grad(out4, (q4, k4, v4), do4, retain_graph=True), 20)
-    library_ms = sum(us for _, us in spans) / 20 / 1e3
-    del q4, k4, v4, out4, do4
+    library_ms = sdpa_bwd_ms(q, k, v, m, do, 12)
     with torch.no_grad():
         q2, k2, v2, m2, do2 = k2_inputs(16, 512, 12, 64, torch.float32, dev, mask)
         check_k2("fp32 [16,512,768] dh=64", q2, k2, v2, m2, do2, 12)
@@ -681,7 +702,8 @@ def phase_k2(dev) -> dict:
         out2, lse2 = packed_attention_fwd(q2, k2, v2, m2, 6, want_lse=True)
         tp_ms, tp_split = bwd_ms(lambda: packed_attention_bwd(q2, k2, v2, m2, out2, lse2, do2, 6))
         tp_plain_ms = device_time_ms(lambda: packed_attention_bwd_reference(q2, k2, v2, m2, do2, 6), 5)
-        del q2, k2, v2, m2, do2, out2, lse2
+    tp_library_ms = sdpa_bwd_ms(q2, k2, v2, m2, do2, 6)
+    del q2, k2, v2, m2, do2, out2, lse2
     n, t, d, h, dh = 128, 512, 768, 12, 64
     # reads q, k, v, K1's output o, do, the mask and K1's lse once; writes
     # dq, dk, dv once; five T x T x dh products per head
@@ -690,7 +712,7 @@ def phase_k2(dev) -> dict:
         f"bound_ms={bound_ms:.4f} ({bound_by})")
     tp_bound_ms, _ = bound(8 * 96 * t * 384 * 2 + 96 * t * 4 + 96 * 6 * t * 4, 10 * 96 * 6 * t * t * dh, "bf16")
     log(f"[k2] bf16 [96,512,384] dh=64 (a TP rank's 6 heads): kernel_ms={tp_ms:.4f} ({describe_split(tp_split)}) "
-        f"plain_ms={tp_plain_ms:.4f} bound_ms={tp_bound_ms:.4f}")
+        f"plain_ms={tp_plain_ms:.4f} library_ms={tp_library_ms:.4f} bound_ms={tp_bound_ms:.4f}")
     return {
         "name": "packed_attention_bwd", "route": "cuda",
         "source": "multimodalrouting_tpu_torch/csrc/packed_attention_bwd.cu",
@@ -698,7 +720,8 @@ def phase_k2(dev) -> dict:
         "max_abs_err": err, "ms": ms, "split_ms": split, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": library_ms,
         "tp_rank_shape": {"shape": [96, 512, 384], "heads": 6, "max_abs_err": tp_err, "ms": tp_ms,
-                          "split_ms": tp_split, "plain_ms": tp_plain_ms, "bound_ms": tp_bound_ms},
+                          "split_ms": tp_split, "plain_ms": tp_plain_ms, "bound_ms": tp_bound_ms,
+                          "library_ms": tp_library_ms},
     }
 
 
@@ -759,6 +782,9 @@ def check_k4(tag: str, q, k, v, m, do, heads: int, plant_faults: bool = False) -
     return fwd, bwd
 
 
+PP_MICRO_CHUNKS = 48  # a GPipe microbatch of phase_mesh (i): the 96-chunk pack over 2 stages
+
+
 def phase_k4(dev) -> list:
     """K4 (segment attention: K4a flash and K4b splash share the kernel
     pair) at the flagship shape with the serving batch's masks, at head_dim
@@ -801,16 +827,30 @@ def phase_k4(dev) -> list:
                for w in (flash_self_attention, splash_self_attention)}
         plain_ms = device_time_ms(lambda: segment_attention_reference(q4, k4, v4, m), 5)
         plain_bwd_ms = device_time_ms(lambda: segment_attention_bwd_reference(q4, k4, v4, m, out, do4), 3)
+        # K4a at a GPipe microbatch of the pipelined flagship step (parallel/pp.py): half of a 96-chunk pack,
+        # held against the plain versions there, and at the whole pack the one-process reference runs on
+        mb = slice(0, PP_MICRO_CHUNKS)
+        for rows, what in ((PP_MICRO_CHUNKS, "a GPipe microbatch"), (2 * PP_MICRO_CHUNKS, "the pipeline's pack")):
+            check_k4(f"bf16 [{rows},512,768] dh=64 ({what})", q[:rows], k[:rows], v[:rows], m[:rows], do[:rows], h)
+        mb_ms = fwd_ms(lambda: flash_self_attention(q4[mb], k4[mb], v4[mb], m[mb]))
+        mb_bwd_ms, mb_split = bwd_ms(lambda: segment_attention_bwd(q4[mb], k4[mb], v4[mb], m[mb], out[mb], lse[mb],
+                                                                   do4[mb], flash_self_attention))
         # the library: SDPA on the [N, H, T, dh] view with the boolean segment mask [N, 1, T, T]
         same = (m[:, None, :, None] == m[:, None, None, :])
         qh, kh, vh = (x.transpose(1, 2) for x in (q4, k4, v4))
         sdpa = torch.nn.functional.scaled_dot_product_attention
         library_ms = device_time_ms(lambda: sdpa(qh, kh, vh, attn_mask=same, scale=1.0), 20)
-    qh, kh, vh = (x.detach().requires_grad_() for x in (qh, kh, vh))
-    out_h = torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, attn_mask=same, scale=1.0)
-    spans = device_spans(lambda: torch.autograd.grad(out_h, (qh, kh, vh), do4.transpose(1, 2), retain_graph=True), 20)
-    library_bwd_ms = sum(us for _, us in spans) / 20 / 1e3
-    del qh, kh, vh, out_h, same, q, k, v, q4, k4, v4, do4, out, lse
+        mb_library_ms = device_time_ms(lambda: sdpa(qh[mb], kh[mb], vh[mb], attn_mask=same[mb], scale=1.0), 20)
+
+    def sdpa_bwd_ms(rows: slice) -> float:
+        qg, kg, vg = (x[rows].detach().requires_grad_() for x in (qh, kh, vh))
+        out_h = torch.nn.functional.scaled_dot_product_attention(qg, kg, vg, attn_mask=same[rows], scale=1.0)
+        dout = do4[rows].transpose(1, 2)
+        spans = device_spans(lambda: torch.autograd.grad(out_h, (qg, kg, vg), dout, retain_graph=True), 20)
+        return sum(us for _, us in spans) / 20 / 1e3
+
+    library_bwd_ms, mb_library_bwd_ms = sdpa_bwd_ms(slice(None)), sdpa_bwd_ms(mb)
+    del qh, kh, vh, same, q, k, v, q4, k4, v4, do4, out, lse
     torch.cuda.empty_cache()
     with torch.no_grad():
         check_k4("bf16 [32,512,768] dh=128", *k2_inputs(32, 512, 6, 128, torch.bfloat16, dev, mask), 6)
@@ -831,6 +871,15 @@ def phase_k4(dev) -> list:
     for w, (ms, split) in bwd.items():
         log(f"[k4] {w} backward kernel_ms={ms:.4f} ({describe_split(split)}) plain_ms={plain_bwd_ms:.4f} "
             f"library_ms={library_bwd_ms:.4f} bound_ms={bwd_bound_ms:.4f} ({bwd_bound_by})")
+    nm = PP_MICRO_CHUNKS
+    mb_bound_ms, _ = bound(4 * nm * t * d * 2 + nm * t * 4, 4 * nm * h * t * t * dh, "bf16")
+    mb_bwd_bound_ms, _ = bound(8 * nm * t * d * 2 + nm * t * 4 + nm * h * t * 4, 10 * nm * h * t * t * dh, "bf16")
+    pp_shape = {"shape": [nm, t, d], "heads": h, "ms": mb_ms, "bound_ms": mb_bound_ms, "library_ms": mb_library_ms,
+                "bwd_ms": mb_bwd_ms, "bwd_split_ms": mb_split, "bwd_bound_ms": mb_bwd_bound_ms,
+                "bwd_library_ms": mb_library_bwd_ms}
+    log(f"[k4] flash_self_attention at a GPipe microbatch [{nm},{t},{d}]: forward kernel_ms={mb_ms:.4f} "
+        f"library_ms={mb_library_ms:.4f} bound_ms={mb_bound_ms:.4f}, backward kernel_ms={mb_bwd_ms:.4f} "
+        f"({describe_split(mb_split)}) library_ms={mb_library_bwd_ms:.4f} bound_ms={mb_bwd_bound_ms:.4f}")
     rows = []
     for name, wrapper, replaces in (("flash_attention", flash_self_attention, "multimodalrouting_tpu/ops/flash.py:100"),
                                     ("splash_attention", splash_self_attention, "multimodalrouting_tpu/ops/flash.py:48")):
@@ -838,6 +887,7 @@ def phase_k4(dev) -> list:
             "name": name, "route": "cuda", "source": "multimodalrouting_tpu_torch/csrc/flash_attention.cu",
             "replaces": replaces, "max_abs_err": fwd_err, "ms": fwd_times[wrapper.__name__], "ms_with_lse": ms_lse,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+            **({"pipeline_microbatch_shape": pp_shape} if name == "flash_attention" else {}),
         })
         rows.append({
             "name": f"{name}_bwd", "route": "cuda", "source": "multimodalrouting_tpu_torch/csrc/flash_attention_bwd.cu",
@@ -3481,6 +3531,38 @@ def step_spies(norms: list, reduces: list):
     return undo
 
 
+def hop_spies(hops: list):
+    """Wrap the GPipe schedule's point-to-point hop (``pp.exchange``) and its
+    replication of the last stage's output (``pp.reduce_from_model_group``,
+    Megatron's *g*) to record each call's (kind, bytes moved by this rank,
+    ms), synchronised on both sides; -> undo."""
+    from multimodalrouting_tpu_torch.parallel import pp
+
+    real_exchange, real_g = pp.exchange, pp.reduce_from_model_group
+
+    def timed(kind, nbytes, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        hops.append((kind, nbytes, (time.perf_counter() - t0) * 1e3))
+        return out
+
+    def exchange(send, dst, recv, src):
+        nbytes = sum(x.numel() * x.element_size() for x in (send, recv) if x is not None)
+        return timed("hop", nbytes, lambda: real_exchange(send, dst, recv, src))
+
+    def reduce(x):
+        return timed("replicate", x.numel() * x.element_size(), lambda: real_g(x))
+
+    pp.exchange, pp.reduce_from_model_group = exchange, reduce
+
+    def undo():
+        pp.exchange, pp.reduce_from_model_group = real_exchange, real_g
+
+    return undo
+
+
 def record_chunk_rows(model) -> list:
     """The chunks each BERT call of `model`'s note encoder runs on, recorded
     as they come (on a model mesh, this rank's slice)."""
@@ -3524,7 +3606,7 @@ def mesh_step_run(label: str, cfg, dev, mesh=None, steps: int = 1, zero: bool = 
     if zero:
         shard_optimizer_state(state, mesh)
     cohort = full_width_cohort(cfg, MESH_BATCH, SEED)
-    local = cohort if mesh is None or mesh.n_data == 1 else shard_batch(cohort, mesh)
+    local = cohort if mesh is None or mesh.n_data == 1 else shard_batch(cohort, mesh, cfg.train.microbatch)
     cap = note_pack_bucket(cfg, local)
     batch = batch_to(local, dev)
     step = make_train_step(cfg, model)
@@ -3533,10 +3615,12 @@ def mesh_step_run(label: str, cfg, dev, mesh=None, steps: int = 1, zero: bool = 
     undo = step_spies(norms, reduces)
     try:
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         reset_counts()
         first = step(state, batch, gen, cfg.train.lr, cfg.train.lr, note_pack=cap)
         after_first = {n: p.detach().cpu() for n, p in model.named_parameters()} if mesh is not None else None
         torch.cuda.synchronize()
+        first_peak_gb = torch.cuda.max_memory_allocated() / 1e9
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         rest = [step(state, batch, gen, cfg.train.lr, cfg.train.lr, note_pack=cap) for _ in range(steps - 1)]
@@ -3554,13 +3638,14 @@ def mesh_step_run(label: str, cfg, dev, mesh=None, steps: int = 1, zero: bool = 
         "chunk_rows": chunk_rows, "pack_rows": cap if 0 < cap < slots else slots,
         "valid_chunks": int(np.asarray(local.chunk_mask).sum()), "rows": local.batch_size,
         "step_ms": wall / max(steps - 1, 1) * 1e3 if steps > 1 else None,
-        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "first_peak_gb": first_peak_gb,
         "adam_bytes": sum(v.numel() * v.element_size() for d in (state.mu, state.nu) for v in d.values()),
         "reduce_bytes": reduces[-1][0], "reduce_ms": float(np.mean([ms for _, ms in reduces[1:] or reduces])),
         **placed,
     }
     if state.shards is not None:  # every rank of the model group gathers
         out["params_sha"] = params_sha(state.shards.full_dict(params))
+        out["replicated_sha"] = params_sha({n: p for n, p in params.items() if n not in state.shards.dims})
     del state, batch
     return out, model, after_first, params
 
@@ -3581,10 +3666,13 @@ def mesh_rank(rank: int, world: int, port: str, work: str, device: str = "cuda")
     step, (c) a frozen data=1, model=2 step, (f) 3 fine-tuned data=1,
     model=2 steps under tensor parallelism, (g) a frozen data=1, model=2
     step under route parallelism of the flagship and of the per-route MulT
-    family; each rank's results to WORK/rank<r>.json."""
+    family, (i) 3 fine-tuned data=1, model=2 steps of the GPipe schedule,
+    (j) a fine-tuned data=2 step with train.microbatch=2; each rank's results
+    to WORK/rank<r>.json."""
     from multimodalrouting_tpu_torch.parallel import mesh as pmesh
     from multimodalrouting_tpu_torch.parallel.distributed import init_multihost
     from multimodalrouting_tpu_torch.parallel.ep import ep_spec_for_name
+    from multimodalrouting_tpu_torch.parallel.pp import pp_spec_for_name
     from multimodalrouting_tpu_torch.parallel.tp import tp_spec_for_name
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3636,6 +3724,26 @@ def mesh_rank(rank: int, world: int, port: str, work: str, device: str = "cuda")
         results[key] = mesh_step_run(f"data=1,model=2 EP frozen {yaml}", flagship_cfg(yaml, **ep), dev,
                                      pmesh.get_active_mesh(), spec=ep_spec_for_name)[0]
         torch.cuda.empty_cache()
+    pmesh.set_active_mesh(None)
+    # (i) the GPipe schedule: each rank holds one stage, 6 of the 12 BERT layers
+    pmesh.set_active_mesh(pmesh.make_mesh(1, 2, role="pipeline"))
+    pipe = {**ft, "train.num_data_shards": 1, "train.num_model_shards": 2, "train.pipeline_parallel": True}
+    hops = []
+    undo = hop_spies(hops)
+    try:
+        results["mesh_pp"] = mesh_step_run("data=1,model=2 pipeline fine-tuned", flagship_cfg(**pipe), dev,
+                                           pmesh.get_active_mesh(), steps=3, spec=pp_spec_for_name)[0]
+    finally:
+        undo()
+    results["mesh_pp"]["hops"] = {
+        kind: {"calls": sum(1 for k, _, _ in hops if k == kind), "bytes": sum(b for k, b, _ in hops if k == kind),
+               "ms": sum(ms for k, _, ms in hops if k == kind)} for kind in ("hop", "replicate")}
+    pmesh.set_active_mesh(None)
+    torch.cuda.empty_cache()
+    # (j) microbatching on the data mesh: each rank's microbatch i is its half of global microbatch i
+    pmesh.set_active_mesh(data)
+    results["mesh_microbatch"] = mesh_step_run("data=2 microbatch=2 fine-tuned",
+                                               flagship_cfg(**ft, **{"train.microbatch": 2}), dev, data)[0]
     pmesh.set_active_mesh(None)
     with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
         json.dump(results, f)
@@ -3751,9 +3859,23 @@ def phase_mesh(dev, tmp: str) -> dict:
     rank) and the per-route MulT family (K1 = 12, K3 = 0), each loss within
     MESH_TOL of its one-process step; (h) `cli train --mesh data=1,model=2
     --set train.tensor_parallel=true` for one epoch and `cli eval` of its
-    checkpoint in this process (K3 = 1 per forward); (e) NCCL in a world of
-    one. Step times are of two ranks sharing one card: not a scaling
-    figure. -> {path: launches}."""
+    checkpoint in this process (K3 = 1 per forward); (i) 3 fine-tuned
+    data=1, model=2 steps of the GPipe schedule (each rank one stage of 6
+    BERT layers, the pack in 2 microbatches, the bubble ticks skipped):
+    K4a forward / backward / K3 = 12 / 12 / 1 per rank per step, step 1's
+    loss and global gradient norm within MESH_TOL of the one-process
+    pipeline-layout step, each of the 3 losses within MESH_TOL of its 3
+    steps', each rank holding half of the stacked layers' bytes, the replicated parameters bit-identical across ranks, the hops'
+    and the output replication's bytes and ms logged; (j) a fine-tuned
+    data=2 step with train.microbatch=2 (K1/K2/K3 = 24/24/2 per rank), its
+    loss within MESH_TOL of the one-process microbatch=2 step; (k) `cli
+    train --mesh data=1,model=2 --set train.pipeline_parallel=true` for one
+    epoch and `cli eval` of its checkpoint in this process (K3 = 1 per
+    forward); beside the one-process references, one fine-tuned step under
+    model.remat (K1 = 24: the forward recomputed), its loss within MESH_TOL
+    of the step without it, both peaks logged; (e) NCCL in a world of one.
+    Step times are of two ranks sharing one card: not a scaling figure.
+    -> {path: launches}."""
     t0 = time.perf_counter()
     # the one-process references, freed before the ranks start: three
     # processes share the card's memory
@@ -3765,9 +3887,34 @@ def phase_mesh(dev, tmp: str) -> dict:
     one_mult, model, _, _ = mesh_step_run("one process per-route MulT frozen",
                                           flagship_cfg("pheno_atten_mult.yaml", **MESH_DET), dev)
     del model
+    one_pp, model, _, _ = mesh_step_run("one process pipeline layout",
+                                        flagship_cfg(**ft, **{"train.pipeline_parallel": True}), dev, steps=3)
+    del model
+    one_mb, model, _, _ = mesh_step_run("one process microbatch=2", flagship_cfg(**ft, **{"train.microbatch": 2}),
+                                        dev)
+    del model
+    one_remat, model, _, _ = mesh_step_run("one process model.remat", flagship_cfg(**ft, **{"model.remat": True}),
+                                           dev)
+    del model
     torch.cuda.empty_cache()
     log(f"[mesh] one process, 16 stays: fine-tuned loss {one['loss']:.5f} grad_norm {one['grad_norm']:.5f} "
-        f"(pack {one['note_pack']}); frozen loss {one_frozen['loss']:.5f} (pack {one_frozen['note_pack']})")
+        f"(pack {one['note_pack']}); frozen loss {one_frozen['loss']:.5f} (pack {one_frozen['note_pack']}); "
+        f"pipeline layout loss {one_pp['loss']:.5f} grad_norm {one_pp['grad_norm']:.5f}; microbatch=2 loss "
+        f"{one_mb['loss']:.5f}")
+    # model.remat: each BERT layer recomputed in the backward, so K1 runs twice a layer
+    for label, got, want in (("pipeline layout", one_pp, expected(flash_attention=36, flash_attention_bwd=36,
+                                                                   capsule_routing=3)),
+                             ("microbatch=2", one_mb, expected(packed_attention=24, packed_attention_bwd=24,
+                                                               capsule_routing=2)),
+                             ("model.remat", one_remat, expected(packed_attention=24, packed_attention_bwd=12,
+                                                                capsule_routing=1))):
+        require(got["launches"] == want, f"one process {label}: launches {got['launches']}, expected {want}")
+    rel = abs(one_remat["loss"] - one["loss"]) / abs(one["loss"])
+    require(rel <= MESH_TOL, f"model.remat loss {one_remat['loss']} against {one['loss']} without it: rel {rel:.3e}")
+    log(f"[mesh] model.remat, one fine-tuned step: loss {one_remat['loss']:.5f} (rel {rel:.2e} of the step without "
+        f"it), K1/K2 {one_remat['launches']['packed_attention']}/{one_remat['launches']['packed_attention_bwd']} "
+        f"(the forward recomputed); peak_memory_gb={one_remat['first_peak_gb']:.2f} with remat, "
+        f"{one['first_peak_gb']:.2f} without")
     work = os.path.join(tmp, "mesh")
     os.makedirs(work)
     port = str(free_port())
@@ -3868,6 +4015,56 @@ def phase_mesh(dev, tmp: str) -> dict:
             f"sharded, K1 = {g0['launches']['packed_attention']} and K3 = {g0['launches']['capsule_routing']} per "
             f"rank, peak_memory_gb={g0['peak_gb']:.2f}; whole parameters bit-identical across ranks")
 
+    # (i) the GPipe schedule, (j) microbatching on the data mesh
+    per_step_pp = {"flash_attention": 12, "flash_attention_bwd": 12, "capsule_routing": 1}
+    for path, counts in (("mesh_pp", {k: 3 * v for k, v in per_step_pp.items()}),
+                         ("mesh_microbatch", {"packed_attention": 24, "packed_attention_bwd": 24,
+                                              "capsule_routing": 2})):
+        want = expected(**counts)
+        for r, rk in enumerate(ranks):
+            got = rk[path]
+            require(got["launches"] == want, f"{path} rank {r}: launches {got['launches']}, expected {want}")
+            out[f"{path}.rank{r}"] = got["launches"]
+    i0 = ranks[0]["mesh_pp"]
+    rel = {key: abs(i0[key] - one_pp[key]) / abs(one_pp[key]) for key in ("loss", "grad_norm")}
+    for key in rel:
+        require(rel[key] <= MESH_TOL, f"(i) step 1 {key} {i0[key]} against the one-process pipeline layout "
+                f"{one_pp[key]}: rel {rel[key]:.3e}")
+    # every step, not only the first: the flagship's step 2 at this lr on the repeated batch spikes in both
+    steps_rel = [abs(x - y) / abs(y) for x, y in zip(i0["losses"], one_pp["losses"])]
+    require(len(steps_rel) == 3 and max(steps_rel) <= MESH_TOL, f"(i) losses {i0['losses']} against the one-process "
+            f"pipeline layout's {one_pp['losses']}: rel {steps_rel}")
+    require(ranks[0]["mesh_pp"]["params_sha"] == ranks[1]["mesh_pp"]["params_sha"]
+            and ranks[0]["mesh_pp"]["replicated_sha"] == ranks[1]["mesh_pp"]["replicated_sha"],
+            "(i): the ranks' replicated or whole parameters differ")
+    for r, rk in enumerate(ranks):
+        g, hops = rk["mesh_pp"], rk["mesh_pp"]["hops"]
+        require(g["sharded"] == 16 and 2 * g["sharded_bytes"] == g["sharded_bytes_whole"],
+                f"(i) rank {r}: {g['sharded']} stage-sharded leaves of {g['sharded_bytes']} bytes, all the "
+                f"pp_layers' {g['sharded_bytes_whole']}")
+        launches = g["launches"]
+        log(f"[mesh] (i) pipeline rank {r} (stage {r}, BERT layers [{6 * r}, {6 * r + 6})): pack {g['note_pack']} "
+            f"chunks in 2 microbatches; K4a fwd/bwd {launches['flash_attention'] // 3}/"
+            f"{launches['flash_attention_bwd'] // 3} and K3 {launches['capsule_routing'] // 3} per step "
+            f"(3 steps), K1/K2 {launches['packed_attention']}/{launches['packed_attention_bwd']}; pp_layers bytes "
+            f"{g['sharded_bytes']} of {g['sharded_bytes_whole']}; step_ms={g['step_ms']:.1f} (two ranks sharing "
+            f"one card over gloo), peak_memory_gb={g['peak_gb']:.2f}; per step: {hops['hop']['calls'] / 3:.0f} hops, "
+            f"{hops['hop']['bytes'] / 3:.0f} bytes in {hops['hop']['ms'] / 3:.1f} ms, the output's replication "
+            f"{hops['replicate']['bytes'] / 3:.0f} bytes in {hops['replicate']['ms'] / 3:.1f} ms; gradient average "
+            f"reduce_ms={g['reduce_ms']:.1f} for {g['reduce_bytes']} bytes")
+    log(f"[mesh] (i) data=1,model=2 pipeline fine-tuned: step 1 loss {i0['loss']:.5f} grad_norm "
+        f"{i0['grad_norm']:.5f} (rel {rel['loss']:.2e} / {rel['grad_norm']:.2e} of the one-process pipeline "
+        f"layout); losses {[round(x, 5) for x in i0['losses']]}, one process's over the same 3 steps "
+        f"{[round(x, 5) for x in one_pp['losses']]} (rel {max(steps_rel):.2e} at most); whole and replicated "
+        "parameters bit-identical across ranks")
+    j0 = ranks[0]["mesh_microbatch"]
+    rel = abs(j0["loss"] - one_mb["loss"]) / abs(one_mb["loss"])
+    require(rel <= MESH_TOL, f"(j) loss {j0['loss']} against one process microbatch=2 {one_mb['loss']}: rel {rel:.3e}")
+    log(f"[mesh] (j) data=2 microbatch=2 fine-tuned: loss {j0['loss']:.5f} (rel {rel:.2e} of one process), "
+        f"{j0['rows']} stays a rank in 2 microbatches, K1/K2/K3 {j0['launches']['packed_attention']}/"
+        f"{j0['launches']['packed_attention_bwd']}/{j0['launches']['capsule_routing']} per rank, "
+        f"peak_memory_gb={j0['first_peak_gb']:.2f}")
+
     # (d) the CLI on a data mesh, then eval in this process
     run_dir = os.path.join(tmp, "mesh_cli")
     yaml = os.path.join(ROOT, "configs", "trimodal_mort.yaml")
@@ -3913,6 +4110,31 @@ def phase_mesh(dev, tmp: str) -> dict:
     want = expected(capsule_routing=-(-TP_CLI_N // CLI_BATCH))
     require(launches == want, f"cli eval of the TP mesh checkpoint: launches {launches}, expected {want}")
     out["mesh_tp_cli_eval"] = launches
+    shutil.rmtree(run_dir)
+
+    # (k) the CLI under the GPipe schedule on data=1,model=2, then eval in this process
+    run_dir = os.path.join(tmp, "mesh_cli_pp")
+    argv = ["train", "--config", yaml, "--mesh", "data=1,model=2", "--set", "train.pipeline_parallel=true",
+            "--out", run_dir, "--device", "cuda", "--epochs", "1",
+            *set_args(*CLI_ONCE, f"data.synthetic_n={TP_CLI_N}")]
+    port = str(free_port())
+    t1 = time.perf_counter()
+    outs = spawn_ranks(lambda r: ["--cli-rank", json.dumps(argv)],
+                       lambda r: {"JAX_COORDINATOR_ADDRESS": f"127.0.0.1:{port}", "JAX_NUM_PROCESSES": "2",
+                                  "JAX_PROCESS_ID": str(r)})
+    secs = time.perf_counter() - t1
+    for r, text in enumerate(outs):
+        require("[mesh] pipeline parallelism on data=1,model=2" in text
+                and f"[pp] stage {r} of 2: BERT layers [{6 * r}, {6 * r + 6}) of 12" in text,
+                f"cli rank {r} printed no pipeline placement")
+    dirs = sorted(d for d in os.listdir(run_dir) if os.path.isdir(os.path.join(run_dir, d)))
+    require(dirs == ["final"], f"cli train --mesh pipeline wrote {dirs}, expected one checkpoint")
+    log(f"[mesh] (k) cli train --mesh data=1,model=2 pipeline: {secs:.1f}s for both ranks, "
+        f"{json.loads(outs[0].strip().splitlines()[-1])}")
+    lines, launches = run_cli(["eval", "--ckpt", run_dir, "--device", "cuda"])
+    want = expected(capsule_routing=-(-TP_CLI_N // CLI_BATCH))
+    require(launches == want, f"cli eval of the pipeline mesh checkpoint: launches {launches}, expected {want}")
+    out["mesh_pp_cli_eval"] = launches
     shutil.rmtree(run_dir)
 
     phase_nccl(dev)

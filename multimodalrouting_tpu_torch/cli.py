@@ -62,15 +62,17 @@ process per rank, launched by ``torchrun --nproc-per-node N*M`` or with the
 JAX package's ``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES`` /
 ``JAX_PROCESS_ID`` in each; ``parallel/``): data parallelism, the note
 chunks sharded over 'model', or under ``train.tensor_parallel`` the BERT
-layers' weights and under ``train.route_parallel`` the MulT cross streams,
-ZeRO-1 under ``train.zero_sharded_opt``; rank 0 writes the checkpoints
+layers' weights, under ``train.route_parallel`` the MulT cross streams and
+under ``train.pipeline_parallel`` the BERT layers as GPipe stages (with
+``encoder.dropout=0``), ZeRO-1 under ``train.zero_sharded_opt``, and
+``train.microbatch`` under any of them; rank 0 writes the checkpoints
 (full tensors), which ``eval`` and ``predict`` serve in one process. The
 JAX package's mesh checks run first, with its messages; ``--mesh`` without
 such a launch refuses with the command to use.
 
 What the port does not have yet raises ``NotImplementedError`` naming its
-ROADMAP.md item, and never runs another path in its place: the GPipe
-schedule and microbatching on a mesh (item 12c).
+ROADMAP.md item, and never runs another path in its place: background
+checkpoint saves and reading orbax checkpoints (item 13).
 
 Config resolution is the JAX package's: defaults <- --config file <-
 MIMICIV_* env vars <- --set key=value overrides.
@@ -207,7 +209,7 @@ def cmd_train(args) -> int:
             overrides[f"train.{key}"] = n.strip()
     cfg = load_cfg(args.config, overrides)
     ranks = cfg.train.num_data_shards * cfg.train.num_model_shards
-    if ranks > 1:  # before any process group: the JAX package's checks, and what a mesh cannot run yet
+    if ranks > 1:  # before any process group: the JAX package's checks and the port's
         validate_mesh_config(cfg)
     # the process group from the JAX package's or torchrun's variables
     # (parallel/distributed.py); a no-op in one process

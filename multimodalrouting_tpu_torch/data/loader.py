@@ -136,29 +136,22 @@ def load_split(
     return CohortArrays(batch=batch, stay_ids=np.asarray(stay_ids))
 
 
-def prefetch_to_device(
-    batches: Iterator[Batch], size: int = 2, device="cuda", sharding=None
-) -> Iterator[Batch]:
+def prefetch_to_device(batches: Iterator[Batch], size: int = 2, device="cuda") -> Iterator[Batch]:
     """Host->device prefetch pipeline (double-buffering the input stream).
 
     On a CUDA device each batch is copied from pinned host memory on a side
     stream, up to `size` batches ahead of the consumer, and yielded once the
     consumer's stream waits on the copy's event; the values equal
     ``batch_to(b, device)``'s bit for bit. On another device it is
-    ``batch_to`` in the same order. With a mesh as `sharding`
-    (``parallel/mesh.Mesh``) each global batch is first cut to this rank's
-    data shard's rows (``shard_batch``), the JAX package's sharded
-    ``device_put`` on one process's devices."""
+    ``batch_to`` in the same order. On a mesh the caller cuts each global
+    batch to this rank's rows first (``parallel/mesh.shard_batch``, the one
+    place that lays them out), as the training loop does."""
     import collections
 
     import torch
 
     from multimodalrouting_tpu_torch.data.batches import batch_to
 
-    if sharding is not None:
-        from multimodalrouting_tpu_torch.parallel.mesh import shard_batch
-
-        batches = (shard_batch(b, sharding) for b in batches)
     device = torch.device(device)
     if device.type != "cuda":
         for b in batches:

@@ -38,9 +38,21 @@ The attention runs on the rank's heads (its dispatch decided on that local
 shape), with head-local dropout from the rank's ``slice_generator``.
 
 ``pipeline`` (``train.pipeline_parallel``) holds the layers in the stacked
-pipeline-parallel layout of ``parallel/pp.py`` (``bert.pp_layers``), run as a
-sequential loop on one card, with that layout's own attention dispatch (no
-packed branch: K4a where the segment-attention gate holds) and LayerNorm.
+pipeline-parallel layout of ``parallel/pp.py`` (``bert.pp_layers``), with
+that layout's own attention dispatch (no packed branch: K4a where the
+segment-attention gate holds) and LayerNorm: a sequential loop on one card,
+the GPipe schedule over the model group on a mesh under the ``pipeline``
+role (``pp_microbatches`` microbatches per data shard, 0 for the stage
+count), where every rank of the group runs it on all of the data shard's
+chunks.
+
+``remat`` (``model.remat``) recomputes each BERT layer's activations in the
+backward instead of keeping them (``torch.utils.checkpoint``, the JAX
+package's ``nn.remat``). A layer's dropout draws from the explicit
+``generator``, which ``checkpoint``'s RNG preservation does not cover: the
+layer's recompute starts the generator from the state its first run
+started from, and puts back the state it found, so that the recomputed
+masks are the first run's and later draws are unchanged.
 
 ``int8`` (``encoder.int8_text``) runs the six big matmuls of every layer as
 int8 products (``ops/quant.QuantDense``, the same parameters as ``Dense``);
@@ -53,6 +65,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from multimodalrouting_tpu_torch.models.attention import MultiheadAttention
 from multimodalrouting_tpu_torch.models.layers import Dense, Embed, dropout
@@ -113,6 +126,28 @@ class BertLayer(nn.Module):
         return self.ln(x + dropout(h, self.dropout, generator))
 
 
+def remat_layer(layer: nn.Module, x: torch.Tensor, attn_mask: torch.Tensor,
+                generator: Optional[torch.Generator]) -> torch.Tensor:
+    """``layer(x, attn_mask, generator)`` with its activations recomputed in
+    the backward; the recompute draws the first run's dropout masks from
+    `generator` and leaves its state as it found it."""
+    if generator is None:
+        return checkpoint(layer, x, attn_mask, None, use_reentrant=False)
+    start, runs = generator.get_state(), []
+
+    def run(x, attn_mask):
+        found = generator.get_state() if runs else None  # a recompute, after the first run
+        runs.append(1)
+        generator.set_state(start)
+        try:
+            return layer(x, attn_mask, generator)
+        finally:
+            if found is not None:
+                generator.set_state(found)
+
+    return checkpoint(run, x, attn_mask, use_reentrant=False)
+
+
 class BertEncoder(nn.Module):
     """Token ids [N, L] -> hidden states [N, L, H]."""
 
@@ -120,10 +155,11 @@ class BertEncoder(nn.Module):
         self, vocab_size: int = 28996, hidden: int = 768, layers: int = 12, heads: int = 12,
         intermediate: int = 3072, max_position: int = 512, type_vocab: int = 2,
         frozen_fast_path: bool = False, gelu: str = "erf", ln: str = "fp32", dtype=torch.float32,
-        dropout: float = 0.0, pipeline: bool = False, int8: bool = False,
+        dropout: float = 0.0, pipeline: bool = False, int8: bool = False, remat: bool = False,
+        pp_microbatches: int = 0,
     ):
         super().__init__()
-        self.layers, self.dropout, self.pipeline = layers, dropout, pipeline
+        self.layers, self.dropout, self.pipeline, self.remat = layers, dropout, pipeline, remat
         self.word_embeddings = Embed(vocab_size, hidden, dtype)
         self.position_embeddings = Embed(max_position, hidden, dtype)
         self.token_type_embeddings = Embed(type_vocab, hidden, dtype)
@@ -131,7 +167,8 @@ class BertEncoder(nn.Module):
         if pipeline:  # the stacked pipeline-parallel layout (parallel/pp.py)
             if int8:
                 raise ValueError("pipeline BERT does not compose with int8")
-            self.pp_layers = PipelinedBertLayers(layers, hidden, heads, intermediate, gelu, dtype)
+            self.pp_layers = PipelinedBertLayers(layers, hidden, heads, intermediate, gelu, dtype,
+                                                 n_micro=pp_microbatches, remat=remat)
             return
         for i in range(layers):
             self.add_module(
@@ -150,8 +187,10 @@ class BertEncoder(nn.Module):
         x = dropout(self.embed_ln(x), self.dropout, generator)
         if self.pipeline:
             return self.pp_layers(x, attention_mask)
+        remat = self.remat and torch.is_grad_enabled()
         for i in range(self.layers):
-            x = getattr(self, f"layer_{i}")(x, attention_mask, generator)
+            layer = getattr(self, f"layer_{i}")
+            x = remat_layer(layer, x, attention_mask, generator) if remat else layer(x, attention_mask, generator)
         return x
 
 
@@ -165,6 +204,7 @@ class BioClinBERTEncoder(nn.Module):
         vocab_size: int = 28996, hidden: int = 768, layers: int = 12, heads: int = 12,
         intermediate: int = 3072, max_position: int = 512, type_vocab: int = 2,
         dtype=torch.float32, dropout: float = 0.0, pipeline: bool = False, int8: bool = False,
+        remat: bool = False, pp_microbatches: int = 0,
     ):
         super().__init__()
         if int8 and finetune_text:
@@ -174,7 +214,7 @@ class BioClinBERTEncoder(nn.Module):
         self.bert = BertEncoder(
             vocab_size, hidden, layers, heads, intermediate, max_position, type_vocab,
             frozen_fast_path=not finetune_text, gelu=gelu, ln=ln, dtype=dtype, dropout=dropout,
-            pipeline=pipeline, int8=int8,
+            pipeline=pipeline, int8=int8, remat=remat, pp_microbatches=pp_microbatches,
         )
         if d != hidden:
             self.proj_ln = LayerNorm(hidden, 1e-5, dtype)

@@ -107,7 +107,8 @@ class TriEncoder(nn.Module):
             gelu=e.bert_gelu, ln=e.bert_ln, vocab_size=e.bert_vocab_size, hidden=e.bert_hidden,
             layers=e.bert_layers, heads=e.bert_heads, intermediate=e.bert_intermediate,
             max_position=e.bert_max_position, type_vocab=e.bert_type_vocab, dtype=dtype,
-            dropout=e.dropout, pipeline=cfg.train.pipeline_parallel, int8=e.int8_text,
+            dropout=e.dropout, pipeline=cfg.train.pipeline_parallel, int8=e.int8_text, remat=cfg.model.remat,
+            pp_microbatches=cfg.train.pp_microbatches,
         )
         self.imgenc = ImageEncoder(
             d=e.d, vision_backbone=e.vision_backbone, vision_num_classes=e.vision_num_classes,

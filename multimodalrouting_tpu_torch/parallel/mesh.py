@@ -12,7 +12,7 @@ belongs to two groups:
   different rows of the global batch);
 - its **model group**: the M ranks that share its data shard (the same rows).
 
-The 'model' axis has one of three roles (``Mesh.role``, from the config by
+The 'model' axis has one of four roles (``Mesh.role``, from the config by
 ``mesh_role``; each excludes the others, as in the JAX package):
 
 - ``chunks`` (the default): each rank of a model group runs BERT on its
@@ -20,10 +20,13 @@ The 'model' axis has one of three roles (``Mesh.role``, from the config by
 - ``tensor`` (``train.tensor_parallel``, ``parallel/tp.py``): the BERT
   layers' weights are split Megatron-style over the model group;
 - ``route`` (``train.route_parallel``, ``parallel/ep.py``): the stacked
-  6-stream MulT cross programs are split on their stream axis.
+  6-stream MulT cross programs are split on their stream axis;
+- ``pipeline`` (``train.pipeline_parallel``, ``parallel/pp.py``): rank j
+  holds stage j, a contiguous slice of the stacked BERT layers, and the
+  note chunks flow through the stages as GPipe microbatches.
 
-Under ``tensor`` and ``route`` the chunk axis takes 'data' only, and
-``place_state`` (the counterpart of the JAX package's
+Under ``tensor``, ``route`` and ``pipeline`` the chunk axis takes 'data'
+only, and ``place_state`` (the counterpart of the JAX package's
 ``param_state_shardings``) keeps this rank's slice of each parameter a
 role's ``spec_for_name`` shards, and of its moments and EMA
 (``ModelShards``).
@@ -42,7 +45,9 @@ the JAX package's ``constrain`` is a no-op without one):
   model group backward), ``reduce_from_model_group`` (Megatron's *g*: sum
   forward, identity backward) and ``gather_streams`` (the model group's
   stream slices gathered forward; this rank's slice of the gradient
-  backward), the collectives of the ``tensor`` and ``route`` roles.
+  backward), the collectives of the ``tensor`` and ``route`` roles; the
+  ``pipeline`` role's schedule uses *f* and *g* too, and ``exchange``, the
+  point-to-point hop between neighbouring stages.
 
 With that, each rank backpropagates its own loss and ``average_gradients``
 averages the gradients over the whole world, but for the model-sharded
@@ -52,7 +57,10 @@ layer all come out as the JAX global-batch gradient.
 
 Transport: NCCL carries CUDA tensors, and gloo carries CPU tensors and,
 for the all-reduce and all-gather the port uses, CUDA tensors too (how
-several ranks share one card). A collective the backend refuses raises.
+several ranks share one card). Gloo's point-to-point send and receive hand
+a tensor's pointer to its TCP transport, so ``exchange`` stages a CUDA
+tensor through host memory under gloo. A collective the backend refuses
+raises.
 """
 from __future__ import annotations
 
@@ -68,7 +76,7 @@ from multimodalrouting_tpu_torch.data.batches import Batch, take_batch
 
 _ACTIVE_MESH: Optional["Mesh"] = None
 
-ROLES = ("chunks", "tensor", "route")
+ROLES = ("chunks", "tensor", "route", "pipeline")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,10 +105,15 @@ class Mesh:
 def mesh_role(cfg) -> str:
     """The 'model' axis's role a config asks for: ``tensor`` under
     ``train.tensor_parallel``, ``route`` under ``train.route_parallel``,
-    else ``chunks`` (the JAX package's ``set_tp_mode`` / ``set_ep_mode``,
-    kept on the mesh instead of in module globals)."""
+    ``pipeline`` under ``train.pipeline_parallel``, else ``chunks`` (the
+    JAX package's ``set_tp_mode`` / ``set_ep_mode`` / ``set_pp_mode``, kept
+    on the mesh instead of in module globals)."""
     t = cfg.train
-    return "tensor" if t.tensor_parallel else "route" if t.route_parallel else "chunks"
+    if t.tensor_parallel:
+        return "tensor"
+    if t.route_parallel:
+        return "route"
+    return "pipeline" if t.pipeline_parallel else "chunks"
 
 
 def chunk_sharding(mesh: Optional[Mesh]) -> bool:
@@ -114,18 +127,6 @@ def role_mesh(role: str) -> Optional[Mesh]:
     """The active mesh where its 'model' axis has `role`, else None."""
     mesh = _ACTIVE_MESH
     return mesh if mesh is not None and mesh.role == role else None
-
-
-def check_mesh_roles(cfg) -> None:
-    """Refuse what a mesh cannot run yet: the GPipe schedule over the 'model'
-    axis and microbatching, whose microbatches are rows of the global batch
-    (ROADMAP.md §1 item 12c)."""
-    t = cfg.train
-    if t.pipeline_parallel:
-        raise NotImplementedError(
-            "the GPipe schedule on a mesh (train.pipeline_parallel) is not ported yet (ROADMAP.md §1 item 12c)")
-    if t.microbatch > 1:
-        raise NotImplementedError("train.microbatch > 1 on a mesh is not ported yet (ROADMAP.md §1 item 12c)")
 
 
 def launch_hint(n: int) -> str:
@@ -187,6 +188,27 @@ def all_gather(x: torch.Tensor, group) -> List[torch.Tensor]:
 def all_gather_into(out: List[torch.Tensor], x: torch.Tensor, group) -> None:
     """`out[i]` = rank i's `x`: `out` may be views of one tensor (row chunks)."""
     dist.all_gather(out, x.contiguous(), group=group)
+
+
+def exchange(send: Optional[torch.Tensor], dst: Optional[int], recv: Optional[torch.Tensor],
+             src: Optional[int]) -> None:
+    """Point-to-point on the world: `send` to world rank `dst` and `recv`
+    (filled in place) from world rank `src`, either of them None, posted
+    together and both waited on. Under gloo a CUDA tensor goes through a
+    host copy each way (gloo's transport reads host memory); NCCL moves
+    CUDA tensors as they are."""
+    staged = dist.get_backend() == "gloo"
+    ops, host = [], None
+    if recv is not None:
+        host = torch.empty(recv.shape, dtype=recv.dtype) if staged and recv.is_cuda else recv
+        ops.append(dist.P2POp(dist.irecv, host, src))
+    if send is not None:
+        out = send.detach().to("cpu") if staged and send.is_cuda else send.detach().contiguous()
+        ops.append(dist.P2POp(dist.isend, out, dst))
+    for work in dist.batch_isend_irecv(ops) if ops else ():
+        work.wait()
+    if host is not None and host is not recv:
+        recv.copy_(host)
 
 
 def warmup_collectives(mesh: Mesh, device, log_fn: Callable[[str], None] = print) -> None:
@@ -462,15 +484,24 @@ def data_rows(b: int) -> tuple:
 # --- batches ------------------------------------------------------------------
 
 
-def shard_batch(batch: Batch, mesh: Mesh) -> Batch:
-    """This rank's rows of a global host `batch`: the data shard's
-    contiguous block, as the JAX package's batch sharding over 'data' lays
-    rows out."""
-    n = batch.batch_size
-    if n % mesh.n_data:
-        raise ValueError(f"a batch of {n} rows does not split over {mesh.n_data} data shards")
-    per = n // mesh.n_data
-    return take_batch(batch, slice(mesh.data_index * per, (mesh.data_index + 1) * per))
+def shard_batch(batch: Batch, mesh: Mesh, microbatch: int = 1) -> Batch:
+    """This rank's rows of a global host `batch`. The JAX step's microbatch
+    i of ``train.microbatch`` = k is rows [i·mb, (i+1)·mb) of the global
+    batch, mb = n // k (the rows past k·mb unused); the local batch is, for
+    each i in turn, the data shard's slice of the N equal slices of that
+    microbatch, so that the step's local microbatch i (``train/steps.py``)
+    is global microbatch i's d-th slice and the data group's global
+    statistics are its. At k = 1 that is the data shard's contiguous block,
+    as the JAX package's batch sharding over 'data' lays rows out."""
+    n, n_data, d = batch.batch_size, mesh.n_data, mesh.data_index
+    k = max(microbatch, 1)
+    mb = n // k
+    if mb % n_data:
+        raise ValueError(f"microbatches of {mb} rows (a batch of {n} rows in {k}) do not split over "
+                         f"{n_data} data shards")
+    per = mb // n_data
+    rows = (np.arange(k)[:, None] * mb + d * per + np.arange(per)[None, :]).reshape(-1)
+    return take_batch(batch, rows)
 
 
 def host_gather(x: Optional[torch.Tensor], mesh: Optional[Mesh]) -> Optional[np.ndarray]:

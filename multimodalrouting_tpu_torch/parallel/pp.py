@@ -1,16 +1,24 @@
-"""The pipeline-parallel layout of the chunk-BERT layer stack, on one card
-(counterpart of multimodalrouting_tpu/parallel/pp.py:46-192, :278-359 and
-:362-389).
+"""The pipeline-parallel layout of the chunk-BERT layer stack and its GPipe
+schedule over the 'model' axis of the process mesh (counterpart of
+multimodalrouting_tpu/parallel/pp.py).
 
 A checkpoint trained with ``train.pipeline_parallel=true`` holds its BERT
 layers stacked on a leading [n_layers, ...] axis under ``bert.pp_layers``,
 with the flax leaf names and [in, out] kernels (``q_kernel``, ``q_bias``,
 ..., ``ln_bias``). ``PipelinedBertLayers`` declares exactly those
-parameters. Without a device mesh (always, on one card) it runs the layers
-as a sequential loop, as the JAX package runs ``_scan_layers`` without a
-mesh, so a pipeline-layout checkpoint evaluates and serves on a single card
-unchanged. The GPipe schedule over several cards (``pipeline_apply``) is not
-ported and raises.
+parameters. Without a mesh whose 'model' axis has the ``pipeline`` role it
+runs the layers as a sequential loop, as the JAX package runs
+``_scan_layers`` without a mesh, so a pipeline-layout checkpoint evaluates
+and serves on a single card unchanged. On such a mesh (``parallel/mesh.py``,
+``train.pipeline_parallel`` with M > 1 model shards) rank j of a model
+group holds stage j, layers [j·L/M, (j+1)·L/M) of the stack
+(``pp_spec_for_name``, ``mesh.place_state``), and ``pipeline_apply`` runs
+the GPipe schedule: the data shard's chunks, cut into m microbatches, flow
+through the stages, one point-to-point hop (``mesh.exchange``) from stage
+s to s + 1 a microbatch; the backward runs the ticks in reverse with the
+inverse hops. ``model.remat`` recomputes each layer's activations in the
+backward (``torch.utils.checkpoint``), as the JAX package's
+``jax.checkpoint`` does.
 
 Each layer is functional (``bert_layer_fwd``) and differs from the layered
 ``BertLayer`` as the JAX package's does:
@@ -31,15 +39,24 @@ disagree, in either direction.
 """
 from __future__ import annotations
 
-from typing import Dict
+import dataclasses
+from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from multimodalrouting_tpu_torch.ops import flash
 from multimodalrouting_tpu_torch.ops.gelu import apply_gelu
 from multimodalrouting_tpu_torch.ops.masked import NEG_INF
+from multimodalrouting_tpu_torch.parallel.mesh import (
+    Mesh,
+    copy_to_model_group,
+    exchange,
+    reduce_from_model_group,
+    role_mesh,
+)
 
 # stacked leaf -> (key inside one layered BertLayer, whether it is a Linear
 # weight [out, in] that the stacked layout holds as a kernel [in, out])
@@ -149,29 +166,185 @@ def bert_layer_fwd(w, x, kv_mask, *, heads: int, dtype, gelu: str = "erf"):
     return _layer_norm(x + h, w["ln_scale"], w["ln_bias"], dtype)
 
 
-def _scan_layers(w_stacked, x, kv_mask, *, heads: int, dtype, gelu: str = "erf"):
+def _scan_layers(w_stacked, x, kv_mask, *, heads: int, dtype, gelu: str = "erf", remat: bool = False):
+    """The stacked layers in order; with `remat` each layer's activations
+    are recomputed in the backward (the JAX package's ``jax.checkpoint`` of
+    the scan step). The layers draw no random numbers, so the recompute is
+    exact."""
+    remat = remat and torch.is_grad_enabled()
     for i in range(int(w_stacked["q_kernel"].shape[0])):
-        x = bert_layer_fwd({name: w[i] for name, w in w_stacked.items()}, x, kv_mask,
-                           heads=heads, dtype=dtype, gelu=gelu)
+        w = {name: v[i] for name, v in w_stacked.items()}
+        if remat:
+            x = checkpoint(bert_layer_fwd, w, x, kv_mask, heads=heads, dtype=dtype, gelu=gelu, use_reentrant=False)
+        else:
+            x = bert_layer_fwd(w, x, kv_mask, heads=heads, dtype=dtype, gelu=gelu)
     return x
 
 
-def pipeline_apply(*args, **kwargs):
-    """The GPipe schedule over the 'model' axis of a device mesh."""
-    raise NotImplementedError(
-        "the pipelined schedule over several cards is not ported yet (ROADMAP.md, parallel modes)"
-    )
+def micro_count(n_loc: int, n_micro: int) -> int:
+    """Microbatches of a data shard's `n_loc` chunks: `n_micro` at most,
+    lowered until it divides them (the JAX package's rule)."""
+    m = max(1, min(int(n_micro), n_loc))
+    while n_loc % m:
+        m -= 1
+    return m
+
+
+@dataclasses.dataclass(frozen=True)
+class _Schedule:
+    """The static part of one pipelined call."""
+
+    mesh: Mesh
+    m: int  # microbatches
+    heads: int
+    dtype: Any
+    gelu: str
+    remat: bool
+    grad: bool  # whether to keep each tick's graph for the backward
+
+
+def _active(t: int, stage: int, m: int) -> bool:
+    """Whether `stage` holds a microbatch at tick `t` (microbatch t - stage)."""
+    return 0 <= t - stage < m
+
+
+class _GPipe(torch.autograd.Function):
+    """The whole schedule of this rank's stage as one autograd node, so that
+    every rank posts its hops in one fixed order in the forward and in the
+    backward alike (two-sided point-to-point in an order the autograd engine
+    chose per rank could deadlock).
+
+    Tick t (0 <= t < m + S - 1): stage s runs its layers on microbatch
+    t - s where 0 <= t - s < m, and skips its bubble ticks (outside that
+    range), where the JAX package computes on discarded values: those carry
+    neither value nor gradient, so skipping them changes no number, and
+    each stage launches its layers' attention m times a step, not
+    m + S - 1. Stage 0 takes microbatch t from the input; the others receive
+    their input from stage s - 1's output of the tick before; the last
+    stage's outputs are the result (zeros on the other stages). The
+    backward walks the ticks in reverse: the last stage takes the result's
+    gradient, the others receive their output's gradient from stage s + 1,
+    and each tick's ``autograd.grad`` gives the gradient of the tick's input
+    (sent to stage s - 1, or the input's own on stage 0) and of this
+    stage's leaves."""
+
+    @staticmethod
+    def forward(ctx, sched: _Schedule, x, mask, *leaves):
+        mesh, m = sched.mesh, sched.m
+        n_stages, stage = mesh.n_model, mesh.model_index
+        n, length, hidden = x.shape
+        mb = n // m
+        xs, masks = x.reshape(m, mb, length, hidden), mask.reshape(m, mb, length)
+        w = {name: leaf.detach().requires_grad_(sched.grad) for name, leaf in zip(LEAVES, leaves)}
+        out = torch.zeros((m, mb, length, hidden), dtype=sched.dtype, device=x.device)
+        ticks = {}
+        act = res = None
+        for t in range(m + n_stages - 1):
+            j = t - stage
+            if _active(t, stage, m):
+                inp = (xs[j] if stage == 0 else act).detach().requires_grad_(sched.grad)
+                with torch.set_grad_enabled(sched.grad):
+                    res = _scan_layers(w, inp, masks[j], heads=sched.heads, dtype=sched.dtype, gelu=sched.gelu,
+                                       remat=sched.remat)
+                if sched.grad:
+                    ticks[t] = (inp, res)
+                if stage == n_stages - 1:
+                    out[j] = res.detach()
+            if t < m + n_stages - 2:  # the hop: stage s's output of tick t is stage s + 1's input at t + 1
+                send = stage < n_stages - 1 and _active(t, stage, m)
+                recv = stage > 0 and _active(t + 1, stage, m)
+                # a new buffer each time: the last one is the saved input of a tick's graph
+                act = torch.empty((mb, length, hidden), dtype=sched.dtype, device=x.device) if recv else None
+                exchange(res.detach() if send else None, _world_rank(mesh, stage + 1), act,
+                         _world_rank(mesh, stage - 1))
+        ctx.sched, ctx.ticks, ctx.w, ctx.shape = sched, ticks, w, (m, mb, length, hidden)
+        ctx.x_meta = (x.shape, x.dtype, x.device)
+        return out.reshape(n, length, hidden)
+
+    @staticmethod
+    def backward(ctx, g_out):
+        sched, ticks, w = ctx.sched, ctx.ticks, ctx.w
+        mesh, m = sched.mesh, sched.m
+        n_stages, stage = mesh.n_model, mesh.model_index
+        g_out = g_out.reshape(ctx.shape)
+        shape, dtype, device = ctx.x_meta
+        g_x = torch.zeros(shape, dtype=dtype, device=device).reshape(ctx.shape)
+        g_w = {name: torch.zeros_like(v) for name, v in w.items()}
+        g_in = None  # the gradient of this stage's input at the tick after
+        for t in reversed(range(m + n_stages - 1)):
+            j = t - stage
+            g_res = None
+            if t < m + n_stages - 2:  # the inverse hop of tick t's
+                send = stage > 0 and _active(t + 1, stage, m)
+                recv = stage < n_stages - 1 and _active(t, stage, m)
+                if recv:
+                    g_res = torch.empty(ctx.shape[1:], dtype=sched.dtype, device=device)
+                exchange(g_in if send else None, _world_rank(mesh, stage - 1), g_res,
+                         _world_rank(mesh, stage + 1))
+            if _active(t, stage, m):
+                inp, res = ticks.pop(t)
+                g = g_out[j] if stage == n_stages - 1 else g_res
+                grads = torch.autograd.grad(res, [inp, *w.values()], g.to(res.dtype))
+                g_in = grads[0]
+                for acc, gw in zip(g_w.values(), grads[1:]):
+                    acc.add_(gw)
+                if stage == 0:
+                    g_x[j] = g_in
+        return (None, g_x.reshape(shape), None, *g_w.values())
+
+
+def _world_rank(mesh: Mesh, stage: int) -> Optional[int]:
+    """The world rank of `stage` in this rank's model group (None outside
+    the stages)."""
+    return mesh.data_index * mesh.n_model + stage if 0 <= stage < mesh.n_model else None
+
+
+def pipeline_apply(w_local: Dict[str, torch.Tensor], x: torch.Tensor, attn_mask: torch.Tensor, *, mesh: Mesh,
+                   n_micro: int, heads: int, dtype, gelu: str = "erf", remat: bool = False) -> torch.Tensor:
+    """The GPipe schedule over `mesh`'s model group (the JAX package's
+    ``pipeline_apply``, :195-275).
+
+    `x` [n, L, H]: the embedded chunks of this rank's data shard, the same
+    on every rank of the model group; `w_local`: this stage's stacked
+    leaves, [n_layers / M, ...]. The n chunks run as ``micro_count(n,
+    n_micro)`` microbatches. Returns the stack's output [n, L, H],
+    replicated over the model group.
+
+    The input enters through ``copy_to_model_group`` (Megatron's *f*): only
+    stage 0 reads it, and the sum of the stages' gradients over the group
+    hands every rank the whole gradient of the embedded chunks, as the JAX
+    package's ``shard_map`` transpose sums it over 'model'. The last
+    stage's outputs are replicated by ``reduce_from_model_group`` (*g*, the
+    JAX package's ``psum`` of ``out``: a sum forward, the identity
+    backward), so every stage receives the result's whole gradient and the
+    last one uses it."""
+    m = micro_count(x.shape[0], n_micro)
+    grad = torch.is_grad_enabled() and (x.requires_grad or any(v.requires_grad for v in w_local.values()))
+    sched = _Schedule(mesh, m, heads, dtype, gelu, remat, grad)
+    x = copy_to_model_group(x)
+    out = _GPipe.apply(sched, x, attn_mask, *(w_local[name] for name in LEAVES))
+    return reduce_from_model_group(out)
+
+
+def pp_spec_for_name(name: str) -> Optional[int]:
+    """The dimension of parameter `name` split over the model group under
+    the ``pipeline`` role: the leading (layer) axis of every stacked
+    ``pp_layers`` leaf, so that each stage holds its layers; None (replicated)
+    elsewhere (the JAX package's ``pp_spec_for_path``)."""
+    return 0 if "pp_layers" in name.split(".") else None
 
 
 class PipelinedBertLayers(nn.Module):
     """The BERT layer stack with stacked [n_layers, ...] parameters under the
-    flax names; a sequential loop over the layers (there is no mesh on one
-    card)."""
+    flax names: the GPipe schedule on a mesh whose 'model' axis has the
+    ``pipeline`` role and more than one shard (its leaves then this stage's
+    slice), the sequential loop otherwise. `n_micro` microbatches per data
+    shard (0: the stage count), `remat` per-layer recomputation."""
 
     def __init__(self, layers: int, hidden: int, heads: int, intermediate: int, gelu: str = "erf",
-                 dtype=torch.float32):
+                 dtype=torch.float32, n_micro: int = 0, remat: bool = False):
         super().__init__()
-        self.heads, self.gelu, self.dtype = heads, gelu, dtype
+        self.heads, self.gelu, self.dtype, self.n_micro, self.remat = heads, gelu, dtype, n_micro, remat
         h, i, n = hidden, intermediate, layers
         shapes = {
             "q_kernel": (n, h, h), "q_bias": (n, h), "k_kernel": (n, h, h), "k_bias": (n, h),
@@ -192,7 +365,11 @@ class PipelinedBertLayers(nn.Module):
 
     def forward(self, x: torch.Tensor, attn_mask: torch.Tensor) -> torch.Tensor:
         w = {name: getattr(self, name) for name in LEAVES}
-        return _scan_layers(w, x, attn_mask, heads=self.heads, dtype=self.dtype, gelu=self.gelu)
+        mesh = role_mesh("pipeline")
+        if mesh is not None and mesh.n_model > 1:
+            return pipeline_apply(w, x, attn_mask, mesh=mesh, n_micro=self.n_micro or mesh.n_model, heads=self.heads,
+                                  dtype=self.dtype, gelu=self.gelu, remat=self.remat)
+        return _scan_layers(w, x, attn_mask, heads=self.heads, dtype=self.dtype, gelu=self.gelu, remat=self.remat)
 
 
 def validate_pp(cfg, n_model: int) -> None:

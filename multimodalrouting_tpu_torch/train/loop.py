@@ -55,16 +55,20 @@ dropout 0 equals the one-process run.
 
 The 'model' axis takes the role the config names (``parallel/mesh.py:
 mesh_role``): chunk sharding by default, tensor parallelism under
-``train.tensor_parallel`` (``parallel/tp.py``) or route parallelism under
-``train.route_parallel`` (``parallel/ep.py``), after the JAX package's
+``train.tensor_parallel`` (``parallel/tp.py``), route parallelism under
+``train.route_parallel`` (``parallel/ep.py``) or the GPipe schedule under
+``train.pipeline_parallel`` (``parallel/pp.py``), after the JAX package's
 validations (``validate_mesh_config``), which run before any mesh is set.
-Under the tensor and route roles the state, created or restored whole, keeps
-this rank's slices of the sharded parameters, moments and EMA
-(``place_state``, before ZeRO-1), and the checkpoints hold the full tensors,
-gathered over the model group by every rank and written by rank 0. The
-GPipe schedule and microbatching on a mesh raise (ROADMAP.md §1 item 12c),
-as do background checkpoint saves (``train.ckpt_backend=orbax_async``, item
-13).
+Under the tensor, route and pipeline roles the state, created or restored
+whole, keeps this rank's slices of the sharded parameters, moments and EMA
+(``place_state``, before ZeRO-1), and the checkpoints hold the full
+tensors, gathered over the model group by every rank and written by rank 0.
+Under the pipeline role the validation forwards run the schedule too (each
+rank holds its stage's layers only). ``train.microbatch`` > 1 lays each
+global batch's rows out so that the step's local microbatches are the
+data shard's slices of the JAX step's (``mesh.shard_batch``). Background
+checkpoint saves (``train.ckpt_backend=orbax_async``) raise (ROADMAP.md §1
+item 13).
 """
 from __future__ import annotations
 
@@ -86,7 +90,6 @@ from multimodalrouting_tpu_torch.metrics.calibration import find_best_thresholds
 from multimodalrouting_tpu_torch.metrics.classification import epoch_metrics
 from multimodalrouting_tpu_torch.parallel.ep import ep_spec_for_name, validate_ep
 from multimodalrouting_tpu_torch.parallel.mesh import (
-    check_mesh_roles,
     host_gather,
     make_mesh,
     mesh_role,
@@ -95,7 +98,7 @@ from multimodalrouting_tpu_torch.parallel.mesh import (
     shard_batch,
     warmup_collectives,
 )
-from multimodalrouting_tpu_torch.parallel.pp import validate_pp
+from multimodalrouting_tpu_torch.parallel.pp import pp_spec_for_name, validate_pp
 from multimodalrouting_tpu_torch.parallel.tp import local_attention_branch, tp_spec_for_name, validate_tp_divisibility
 from multimodalrouting_tpu_torch.parallel.zero import shard_optimizer_state
 from multimodalrouting_tpu_torch.pretrained import apply_pretrained
@@ -185,12 +188,13 @@ def predict_probs(eval_step, state: TrainState, cohort: Batch, batch_size: int, 
 
 
 # the parameters each weight-sharding role of the 'model' axis splits
-ROLE_SPECS = {"tensor": tp_spec_for_name, "route": ep_spec_for_name}
+ROLE_SPECS = {"tensor": tp_spec_for_name, "route": ep_spec_for_name, "pipeline": pp_spec_for_name}
 
 
 def validate_mesh_config(cfg: Config) -> None:
     """The JAX package's checks and messages before a mesh run (its loop's
-    :169-200), then what a mesh cannot run yet (``check_mesh_roles``)."""
+    :169-200), then the port's own: a microbatch that splits over the data
+    shards, and no text cache under the pipeline role."""
     t = cfg.train
     if t.batch_size % t.num_data_shards != 0:
         raise ValueError(f"train.batch_size={t.batch_size} must be divisible by "
@@ -201,7 +205,17 @@ def validate_mesh_config(cfg: Config) -> None:
         validate_pp(cfg, t.num_model_shards)
     if t.route_parallel:
         validate_ep(cfg, t.num_model_shards)
-    check_mesh_roles(cfg)
+    if t.microbatch > 1 and (t.batch_size // t.microbatch) % t.num_data_shards:
+        # the JAX step reshards such a microbatch; the port's rows stay where shard_batch put them
+        raise ValueError(f"train.microbatch={t.microbatch} cuts train.batch_size={t.batch_size} into microbatches "
+                         f"of {t.batch_size // t.microbatch} rows, which do not split over "
+                         f"train.num_data_shards={t.num_data_shards}")
+    if t.pipeline_parallel and cfg.encoder.text_embedding_cache:
+        # the JAX package's cache encoder is layered and cannot read the
+        # stacked layers (flax raises ScopeParamNotFoundError); here each
+        # stage holds a slice of them
+        raise ValueError("encoder.text_embedding_cache does not run under train.pipeline_parallel on a mesh: "
+                         "each stage holds only its slice of the BERT layers")
 
 
 def train_model(
@@ -282,6 +296,12 @@ def _train_model(cfg: Config, model, train_cohort, val_cohort, *, family, stage,
         shards = place_state(state, mesh, ROLE_SPECS[mesh.role])
         log_fn(f"[mesh] {mesh.role} parallelism on data={mesh.n_data},model={mesh.n_model}: "
                f"{len(shards.dims)} parameters sharded over the model group")
+        if mesh.role == "pipeline":
+            per = cfg.encoder.bert_layers // mesh.n_model
+            first = mesh.model_index * per
+            log_fn(f"[pp] stage {mesh.model_index} of {mesh.n_model}: BERT layers [{first}, {first + per}) of "
+                   f"{cfg.encoder.bert_layers}, GPipe over up to {t.pp_microbatches or mesh.n_model} microbatches "
+                   "of the data shard's chunks")
         if mesh.role == "tensor":
             e = cfg.encoder
             branch = local_attention_branch(e.text_max_len, e.bert_hidden, e.bert_heads, mesh.n_model,
@@ -318,7 +338,7 @@ def _train_model(cfg: Config, model, train_cohort, val_cohort, *, family, stage,
                f"steps/epoch={steps_per_epoch} mesh={shape}")
 
     def save(name: str, **meta) -> None:
-        # under ZeRO, tensor or route parallelism every rank takes part in
+        # under ZeRO, tensor, route or pipeline parallelism every rank takes part in
         # gathering the full tensors; rank 0 alone writes, and the others wait
         t0 = time.perf_counter()
         gathered = state.zero is not None or state.shards is not None
@@ -373,8 +393,8 @@ def _train_model(cfg: Config, model, train_cohort, val_cohort, *, family, stage,
                     break  # the resampled stream ran short of a full epoch
             else:
                 sub = take_batch(train_cohort, order[s * t.batch_size : (s + 1) * t.batch_size])
-            if mesh is not None:  # this rank's rows; each rank packs its own chunks
-                sub = shard_batch(sub, mesh)
+            if mesh is not None:  # this rank's rows (each microbatch's slice); each rank packs its own chunks
+                sub = shard_batch(sub, mesh, t.microbatch)
             metrics = train_step(
                 state, batch_to(sub, dev), generator if mesh is None else rank_generator, t.lr * lr_scale, lr_enc,
                 detach_priors=detach, act_temperature=act_temp, note_pack=note_pack_bucket(cfg, sub),

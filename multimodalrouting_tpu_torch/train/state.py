@@ -28,7 +28,7 @@ the state holds only this rank's row slices of the sharded leaves' moments
 Adam and the decay update this rank's rows of each such parameter, and the
 rows are all-gathered before the EMA, in the same ``torch._foreach_*`` order.
 
-Under the 'model' axis's ``tensor`` or ``route`` role (``shards``,
+Under the 'model' axis's ``tensor``, ``route`` or ``pipeline`` role (``shards``,
 ``parallel/mesh.py:place_state``) the state holds this rank's slice of each
 model-sharded parameter, of its moments and of its EMA: the global clip norm
 counts each such leaf once (its slice's sum of squares summed over the model
@@ -119,7 +119,7 @@ class TrainState:
     # ZeRO-1 (parallel/zero.py): this rank's row slices of the moments of the
     # sharded leaves; None when every rank holds the full moments
     zero: Optional[Any] = None
-    # the 'model' axis's tensor / route role (parallel/mesh.py:ModelShards):
+    # the 'model' axis's tensor / route / pipeline role (parallel/mesh.py:ModelShards):
     # the parameters of which this state holds this rank's slice; None when
     # every parameter is whole
     shards: Optional[Any] = None

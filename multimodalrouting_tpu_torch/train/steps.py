@@ -31,9 +31,14 @@ global-batch numbers from each rank's rows: the BatchNorm moments (in
 ``losses.py``) and the CheXpert term's ratio are sums over the data group;
 route dropout is drawn for the global batch and sliced; the gradients are
 averaged over the world, this rank's slices of model-sharded parameters
-(the 'model' axis's tensor and route roles) over the data group; the logged
-losses, the route-loss EMA's per-route losses and the alpha and gate means
-are data-group means.
+(the 'model' axis's tensor, route and pipeline roles) over the data group;
+the logged losses, the route-loss EMA's per-route losses and the alpha and
+gate means are data-group means. Under ``train.microbatch`` = k > 1 the
+local batch holds each global microbatch's slice of this data shard, in
+order (``parallel/mesh.shard_batch``): local microbatch i is then the
+data shard's share of the JAX step's microbatch i, and the global sums
+above are that microbatch's (its BatchNorm statistics, of which the last
+microbatch's are kept, its pos_weight, its fairness and CheXpert terms).
 """
 from __future__ import annotations
 
@@ -224,6 +229,9 @@ def make_train_step(cfg: Config, model, family: str = "capsule", **apply_kwargs)
             # each microbatch starts from the old BatchNorm statistics and the
             # last one's update is kept; packing is off (the capacity is the
             # full batch's)
+            if get_active_mesh() is not None and batch.batch_size % n_micro:
+                raise ValueError(f"a data shard's {batch.batch_size} rows do not hold train.microbatch="
+                                 f"{n_micro} equal slices: lay them out with parallel/mesh.shard_batch")
             mb = batch.batch_size // n_micro
             loss = task = reg = 0.0
             per_route = None

@@ -53,6 +53,7 @@ def _encoder_from_cfg(cfg: Config, bbert: nn.Module) -> BioClinBERTEncoder:
             vocab_size=e.bert_vocab_size, hidden=e.bert_hidden, layers=e.bert_layers, heads=e.bert_heads,
             intermediate=e.bert_intermediate, max_position=e.bert_max_position, type_vocab=e.bert_type_vocab,
             dtype=compute_dtype(cfg), dropout=e.dropout, pipeline=cfg.train.pipeline_parallel, int8=e.int8_text,
+            remat=cfg.model.remat,
         )
     weights = bbert.state_dict()
     enc.to_empty(device=next(bbert.parameters()).device)

@@ -204,21 +204,14 @@ PHENO_ATTEN_MULT = os.path.join(os.path.dirname(__file__), "..", "configs", "phe
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["train", "--mesh", "data=2,model=2", "--set", "train.tensor_parallel=true", "--set", "train.microbatch=2"],
-     "item 12"),
-    (["train", "--mesh", "model=2", "--set", "train.pipeline_parallel=true", "--set", "encoder.bert_layers=2",
-      "--set", "encoder.dropout=0"], "item 12"),
-    (["train", "--mesh", "model=2", "--set", "train.route_parallel=true", "--set", "train.microbatch=2"],
-     "item 12"),
     (["train", "--set", "train.ckpt_backend=orbax_async"], "item 13"),
     (["eval", "--ckpt", "ORBAX"], "item 13"),
     (["predict", "--ckpt", "ORBAX"], "item 13"),
 ])
 def test_unported_options_raise_naming_their_roadmap_item(argv, item, tmp_path):
-    """What the port does not have raises naming its item: microbatching on a
-    mesh under tensor or route parallelism and the GPipe schedule (12c),
-    background saves and orbax (13). The case's own --set pairs come after
-    the tiny ones, so that the JAX package's checks pass."""
+    """What the port does not have raises naming its item: background saves
+    and orbax (13). The case's own --set pairs come after the tiny ones, so
+    that the JAX package's checks pass."""
     if argv[0] == "train":
         argv = [argv[0], *_sets(), *argv[1:], "--device", "cpu", "--out", str(tmp_path)]
     if "ORBAX" in argv:  # a JAX orbax checkpoint: reading it needs orbax, which imports JAX
@@ -239,6 +232,21 @@ def test_mesh_configs_the_jax_package_rejects_raise_its_message(argv, match, tmp
     """`cli train --mesh` runs the JAX package's tensor- and route-parallel
     checks, with their messages, before it joins any process group."""
     with pytest.raises(ValueError, match=match):
+        tcli.main(["train", *_sets(), *argv, "--device", "cpu", "--out", str(tmp_path)])
+
+
+@pytest.mark.parametrize("argv, ranks", [
+    (["--mesh", "data=2,model=2", "--set", "train.tensor_parallel=true", "--set", "train.microbatch=2"], 4),
+    (["--mesh", "model=2", "--set", "train.pipeline_parallel=true", "--set", "encoder.bert_layers=2",
+      "--set", "encoder.dropout=0"], 2),
+    (["--mesh", "model=2", "--set", "train.route_parallel=true", "--set", "train.microbatch=2"], 2),
+], ids=["tp_microbatch", "pipeline", "ep_microbatch"])
+def test_formerly_refused_mesh_configs_ask_for_their_launch(argv, ranks, tmp_path):
+    """The GPipe schedule and microbatching on a mesh, which the port
+    refused before they were ported, pass the checks and, in one process,
+    ask for their launch (tests/test_torch_pp_mesh.py trains each on its
+    ranks). The case's own --set pairs come after the tiny ones."""
+    with pytest.raises(SystemExit, match=f"torchrun --nproc-per-node {ranks}"):
         tcli.main(["train", *_sets(), *argv, "--device", "cpu", "--out", str(tmp_path)])
 
 

@@ -211,9 +211,16 @@ def test_route_parallel_fame_tri_gets_the_jax_package_s_check(tmp_path):
                    "train.route_parallel=true", "--device", "cpu", "--out", str(tmp_path), *_sets()])
 
 
+def test_fame_tri_microbatched_on_a_data_mesh_asks_for_its_launch(tmp_path):
+    """fame tri on `--mesh data=2` with train.microbatch=2, which the port
+    refused before microbatching on a mesh was ported, passes the checks
+    and, in one process, asks for its two ranks' launch."""
+    with pytest.raises(SystemExit, match="torchrun --nproc-per-node 2"):
+        tcli.main(["train", "--family", "fame", "--stage", "tri", "--mesh", "data=2", "--set", "train.microbatch=2",
+                   "--device", "cpu", "--out", str(tmp_path), *_sets()])
+
+
 @pytest.mark.parametrize("argv, item", [
-    (["train", "--family", "fame", "--stage", "tri", "--mesh", "data=2", "--set", "train.microbatch=2"],
-     "item 12"),
     (["train", "--family", "gated_concat", "--stage", "step1", "--set", "train.ckpt_backend=orbax_async"],
      "item 13"),
 ])

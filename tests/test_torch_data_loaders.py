@@ -17,8 +17,8 @@ package's on the same inputs, bit for bit:
   statistics;
 - ``load_impressions_dataset`` with both tokenizers (the Batches field by
   field);
-- ``prefetch_to_device`` off the card (``batch_to`` in order) and its
-  rows of a mesh's data shard.
+- ``prefetch_to_device`` off the card (``batch_to`` in order), also of a
+  mesh's data shard's rows (``shard_batch``).
 """
 import os
 
@@ -42,7 +42,7 @@ from multimodalrouting_tpu_torch.data import native_tokenizer as tnative_tokeniz
 from multimodalrouting_tpu_torch.data import streaming as tstreaming
 from multimodalrouting_tpu_torch.data import tokenization as ttok
 from multimodalrouting_tpu_torch.data.batches import batch_to
-from multimodalrouting_tpu_torch.parallel.mesh import Mesh
+from multimodalrouting_tpu_torch.parallel.mesh import Mesh, shard_batch
 from tests.test_etl import raw_dir  # noqa: F401 (the shared raw-dump fixture)
 from tests.test_streaming_loader import _write_export
 from tests.test_tokenizer_golden import WORDS
@@ -270,9 +270,10 @@ def test_prefetch_to_device_off_the_card_is_batch_to():
             assert (g is None) == (r is None)
             if r is not None:
                 assert g.dtype == r.dtype and torch.equal(g, r)
-    # with a mesh: this rank's data shard's rows of each global batch
+    # with a mesh: the caller's shard_batch cuts this rank's data shard's rows of each global batch
     mesh = Mesh(n_data=3, n_model=2, rank=5)
-    for got, b in zip(tloader.prefetch_to_device(iter(batches), device="cpu", sharding=mesh), batches):
+    local = (shard_batch(b, mesh) for b in batches)
+    for got, b in zip(tloader.prefetch_to_device(local, device="cpu"), batches):
         for g, r in zip(got, batch_to(b, "cpu")):
             assert (g is None) == (r is None)
             if r is not None:

@@ -14,6 +14,7 @@ from multimodalrouting_tpu_torch import configs as tc
 from multimodalrouting_tpu_torch.ckpt import load_meta
 from multimodalrouting_tpu_torch.data.batches import Batch
 from multimodalrouting_tpu_torch.models.full import build_model
+from multimodalrouting_tpu_torch.parallel.mesh import get_active_mesh
 from multimodalrouting_tpu_torch.serve import Predictor
 from multimodalrouting_tpu_torch.train import loop as tloop
 from tests.helpers import TINY, tiny_batch
@@ -82,17 +83,20 @@ def test_train_model_runs_the_text_cache():
     assert any(line.startswith("[text-cache]") for line in logs) and np.isfinite(result.history[0]["train_loss"])
 
 
-@pytest.mark.parametrize("over", [
-    {"train.num_data_shards": 2, "train.tensor_parallel": True, "train.microbatch": 2},
-    {"train.num_model_shards": 2, "train.route_parallel": True, "train.microbatch": 2},
-    {"train.num_data_shards": 2, "train.microbatch": 2},
+@pytest.mark.parametrize("over, ranks", [
+    ({"train.num_data_shards": 2, "train.tensor_parallel": True, "train.microbatch": 2}, 2),
+    ({"train.num_model_shards": 2, "train.route_parallel": True, "train.microbatch": 2}, 2),
+    ({"train.num_data_shards": 2, "train.microbatch": 2}, 2),
 ])
-def test_train_model_refuses_what_is_not_ported(over):
+def test_train_model_on_a_microbatched_mesh_asks_for_its_process_group(over, ranks):
     """Microbatching on a mesh, under tensor or route parallelism or not,
-    refuses (ROADMAP.md §1 item 12c) after the JAX package's checks pass."""
+    which the port refused before it was ported, passes the checks and, in
+    one process, asks for the ranks' launch before it sets a mesh
+    (tests/test_torch_pp_mesh.py trains it on its ranks)."""
     cfg = tc.apply_overrides(tc.Config(), {**LOOP, **over})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(RuntimeError, match=f"needs a process group: launch {ranks} processes"):
         tloop.train_model(cfg, build_model(cfg, device="cpu", train=True), tiny_batch(4), tiny_batch(4))
+    assert get_active_mesh() is None
 
 
 STREAM = {**LOOP, "encoder.structured_seq_len": 4, "encoder.structured_n_feats": 2, "encoder.notes_max_chunks": 1,

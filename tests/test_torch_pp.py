@@ -245,11 +245,16 @@ def test_train_model_raises_as_validate_pp(over):
     assert str(got.value) == str(want.value)
 
 
-def test_train_model_pipeline_mesh_not_ported():
+def test_train_model_on_a_pipeline_mesh_asks_for_its_process_group():
+    """A valid pipeline config, which the port refused before the GPipe
+    schedule was ported, passes the checks and, in one process, asks for
+    its two ranks' launch before it sets a mesh (tests/test_torch_pp_mesh.py
+    trains it on them)."""
+    from multimodalrouting_tpu_torch.parallel.mesh import get_active_mesh
+
     over = {**TINY, "train.pipeline_parallel": True, "train.num_model_shards": 2, "encoder.bert_layers": 2}
     cfg = tconfigs.apply_overrides(tconfigs.Config(), over)
-    tpp.validate_pp(cfg, 2)  # a valid pipeline config: the mesh itself is what is missing
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    tpp.validate_pp(cfg, 2)  # a valid pipeline config: the process group is what is missing
+    with pytest.raises(RuntimeError, match="needs a process group: launch 2 processes"):
         train_model(cfg, None, None, None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpp.pipeline_apply()
+    assert get_active_mesh() is None
