@@ -16,7 +16,14 @@
 ``train/loop.py:train_model`` writes one such directory, train state
 included, per checkpoint name under its ``ckpt_dir`` (``best``, ``best_f1``,
 ``last``, ``final``); ``final`` carries the fitted temperature and
-thresholds, and ``serve.Predictor`` loads any of them. A checkpoint
+thresholds, and ``serve.Predictor`` loads any of them. Under
+``train.ckpt_backend=orbax_async`` the loop saves in the background
+(``save_checkpoint(..., background=True)``): the tensors are copied to host
+memory, one writer thread writes the directory, and ``wait_for_saves``
+blocks until every write has landed (the loop calls it at its end).
+``resolve``, which every reader calls first, waits for a write in flight
+to the checkpoint it resolves, and for no other. A write that failed
+re-raises from ``wait_for_saves`` and from the next save. A checkpoint
 written before train states existed serves, but cannot resume or
 warm-start a run (``restore_train_state`` raises).
 
@@ -28,8 +35,11 @@ format on disk, as the JAX ``restore_checkpoint`` does:
   package's: its flax-msgpack train state is read by
   ``utils/flax_msgpack.py`` (no JAX needed) and mapped by ``bridge.py``; the
   config, step, temperature and thresholds come from the meta;
-- ``<dir>/<name>.orbax/`` raises ``NotImplementedError``: reading it needs
-  orbax, which imports JAX (ROADMAP.md §1 item 13);
+- ``<dir>/<name>.orbax/`` with ``<dir>/<name>.meta.json`` is the JAX
+  package's orbax checkpoint: ``utils/orbax_reader.py`` reads it (numpy and
+  pyarrow, no orbax or JAX) into the tree ``read_msgpack`` gives, and the
+  rest is as for msgpack; a directory without its ``manifest.ocdbt`` raises
+  ``FileNotFoundError``;
 - anything else raises ``FileNotFoundError``.
 
 Every reader takes ``(dir, name)``, or, with no name, the path
@@ -48,17 +58,82 @@ layered checkpoint serves from a pipeline-layout config, and the reverse;
 """
 from __future__ import annotations
 
+import copy
 import json
 import os
-from typing import Any, Dict, Iterable, List, Mapping, Optional, Sequence, Tuple
+import threading
+import time
+from concurrent.futures import Future, ThreadPoolExecutor
+from typing import Any, Callable, Dict, Iterable, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
 from multimodalrouting_tpu_torch.configs import Config, from_dict, to_dict
 from multimodalrouting_tpu_torch.utils.flax_msgpack import read_msgpack
+from multimodalrouting_tpu_torch.utils.orbax_reader import MANIFEST, read_orbax
 
 TRAIN_STATE = "train_state.pt"
-PORT, JAX = "port", "jax"
+PORT, JAX, ORBAX = "port", "jax", "orbax"
+
+_WRITER: Optional[ThreadPoolExecutor] = None  # the one background writer (train.ckpt_backend=orbax_async)
+_IN_FLIGHT: Dict[str, Future] = {}  # checkpoint directory -> its background write
+_LOCK = threading.Lock()  # guards _IN_FLIGHT: readers may resolve from several threads
+
+
+def host_copy(tree):
+    """`tree` with every tensor copied to host memory (a tensor already on
+    the host is copied too): what a background write may read while later
+    steps change the state."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    if isinstance(tree, dict):
+        return {k: host_copy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(host_copy(v) for v in tree)
+    return copy.deepcopy(tree)
+
+
+def _raise_failed_writes() -> None:
+    """Re-raise the error of a background write that has ended in one."""
+    with _LOCK:
+        ended = [_IN_FLIGHT.pop(key) for key, fut in list(_IN_FLIGHT.items()) if fut.done()]
+    for fut in ended:
+        fut.result()
+
+
+def wait_for_saves() -> None:
+    """Block until every background write has landed (the JAX package's
+    ``ckpt.wait_for_saves``), then re-raise the first that failed."""
+    with _LOCK:
+        futures = list(_IN_FLIGHT.values())
+        _IN_FLIGHT.clear()
+    error = None
+    for fut in futures:
+        try:
+            fut.result()
+        except BaseException as e:  # every write is waited for before the first error surfaces
+            error = error or e
+    if error is not None:
+        raise error
+
+
+def _write(ckpt_dir, state_dict, cfg, temperature, thresholds, train_state) -> None:
+    os.makedirs(ckpt_dir, exist_ok=True)
+    with open(os.path.join(ckpt_dir, "config.json"), "w") as f:
+        json.dump(to_dict(cfg), f, indent=2)
+    meta = {
+        "step": 0 if train_state is None else int(train_state["step"]),
+        "temperature": float(temperature),
+        "thresholds": thresholds,
+    }
+    rle = None if train_state is None else train_state.get("route_loss_ema")
+    if rle is not None:
+        meta["route_loss_ema"] = [float(v) for v in rle]
+    with open(os.path.join(ckpt_dir, "meta.json"), "w") as f:
+        json.dump(meta, f, indent=2)
+    torch.save({k: v.detach().cpu() for k, v in state_dict.items()}, os.path.join(ckpt_dir, "weights.pt"))
+    if train_state is not None:
+        torch.save(train_state, os.path.join(ckpt_dir, TRAIN_STATE))
 
 
 def save_checkpoint(
@@ -69,35 +144,54 @@ def save_checkpoint(
     temperature: float = 1.0,
     thresholds: Optional[Sequence[float]] = None,
     train_state: Optional[Dict[str, Any]] = None,
+    background: bool = False,
+    on_written: Optional[Callable[[str, float], None]] = None,
 ) -> str:
     """Write the checkpoint directory; `train_state` (``train_state_dict``'s
-    form) goes to ``train_state.pt``."""
-    os.makedirs(ckpt_dir, exist_ok=True)
-    with open(os.path.join(ckpt_dir, "config.json"), "w") as f:
-        json.dump(to_dict(cfg), f, indent=2)
-    meta = {
-        "step": 0 if train_state is None else int(train_state["step"]),
-        "temperature": float(temperature),
-        "thresholds": None if thresholds is None else [float(t) for t in thresholds],
-    }
-    rle = None if train_state is None else train_state.get("route_loss_ema")
-    if rle is not None:
-        meta["route_loss_ema"] = [float(v) for v in rle]
-    with open(os.path.join(ckpt_dir, "meta.json"), "w") as f:
-        json.dump(meta, f, indent=2)
-    torch.save({k: v.detach().cpu() for k, v in state_dict.items()}, os.path.join(ckpt_dir, "weights.pt"))
-    if train_state is not None:
-        torch.save(train_state, os.path.join(ckpt_dir, TRAIN_STATE))
+    form) goes to ``train_state.pt``. A write still in flight to the same
+    directory lands first, and a background write that failed re-raises
+    here. With `background`, the tensors are copied to host memory
+    (``host_copy``) and one background thread writes them: this returns
+    once the copy is made. ``on_written(dir, seconds)`` runs when the write
+    has landed (in that thread, for a background write)."""
+    key = os.path.abspath(ckpt_dir)
+    _raise_failed_writes()
+    with _LOCK:
+        earlier = _IN_FLIGHT.pop(key, None)
+    if earlier is not None:
+        earlier.result()
+    thresholds = None if thresholds is None else [float(t) for t in thresholds]
+    if background:
+        state_dict, train_state = host_copy(state_dict), host_copy(train_state)
+
+    def write() -> str:
+        t0 = time.perf_counter()
+        _write(ckpt_dir, state_dict, cfg, temperature, thresholds, train_state)
+        if on_written is not None:
+            on_written(ckpt_dir, time.perf_counter() - t0)
+        return ckpt_dir
+
+    if not background:
+        return write()
+    global _WRITER
+    if _WRITER is None:
+        _WRITER = ThreadPoolExecutor(max_workers=1, thread_name_prefix="ckpt-writer")
+    with _LOCK:
+        _IN_FLIGHT[key] = _WRITER.submit(write)
     return ckpt_dir
 
 
 def resolve(ckpt_dir: str, name: Optional[str] = None) -> Tuple[str, str]:
     """(format, path) of checkpoint `name` in `ckpt_dir` (without a name,
-    `ckpt_dir` is the path ``<dir>/<name>``): (PORT, the directory) or
-    (JAX, the ``.msgpack`` file)."""
+    `ckpt_dir` is the path ``<dir>/<name>``): (PORT, the directory), (JAX,
+    the ``.msgpack`` file) or (ORBAX, the ``.orbax`` directory)."""
     if name is None:
         ckpt_dir, name = os.path.split(os.path.normpath(ckpt_dir))
     base = os.path.join(ckpt_dir, name)
+    with _LOCK:  # every reader resolves first: a background write of this checkpoint may be in flight
+        in_flight = _IN_FLIGHT.get(os.path.abspath(base))
+    if in_flight is not None:
+        in_flight.result()  # its error raises here too, and again from wait_for_saves or the next save
     if os.path.isdir(base):
         return PORT, base
     if os.path.isfile(base + ".msgpack"):
@@ -105,11 +199,11 @@ def resolve(ckpt_dir: str, name: Optional[str] = None) -> Tuple[str, str]:
             raise FileNotFoundError(f"{base}.msgpack has no {name}.meta.json beside it (the config is there)")
         return JAX, base + ".msgpack"
     if os.path.isdir(base + ".orbax"):
-        raise NotImplementedError(
-            f"{base}.orbax is an orbax checkpoint: reading it needs orbax, which imports JAX, "
-            "so the port cannot read it yet (ROADMAP.md §1 item 13); write msgpack "
-            "(train.ckpt_backend=msgpack) to carry a JAX run into the port"
-        )
+        if not os.path.isfile(os.path.join(base + ".orbax", MANIFEST)):
+            raise FileNotFoundError(f"{base}.orbax holds no {MANIFEST}: not a finished orbax checkpoint")
+        if not os.path.isfile(base + ".meta.json"):
+            raise FileNotFoundError(f"{base}.orbax has no {name}.meta.json beside it (the config is there)")
+        return ORBAX, base + ".orbax"
     raise FileNotFoundError(f"no checkpoint {name!r} (a port directory, .msgpack or .orbax) in {ckpt_dir}")
 
 
@@ -117,17 +211,23 @@ def load_meta(ckpt_dir: str, name: Optional[str] = None) -> Dict[str, Any]:
     """The checkpoint's meta: step, temperature, thresholds (and, in the
     port's, the route-loss EMA; in the JAX package's, the config)."""
     fmt, path = resolve(ckpt_dir, name)
-    meta = os.path.join(path, "meta.json") if fmt == PORT else path[: -len(".msgpack")] + ".meta.json"
+    meta = os.path.join(path, "meta.json") if fmt == PORT else os.path.splitext(path)[0] + ".meta.json"
     with open(meta) as f:
         return json.load(f)
 
 
 def load_config(ckpt_dir: str, name: Optional[str] = None) -> Config:
     fmt, path = resolve(ckpt_dir, name)
-    if fmt == JAX:
+    if fmt != PORT:
         return from_dict(load_meta(ckpt_dir, name)["config"])
     with open(os.path.join(path, "config.json")) as f:
         return from_dict(json.load(f))
+
+
+def read_jax_state(fmt: str, path: str) -> Dict[str, Any]:
+    """The JAX package's train state at `path` as nested dicts of arrays:
+    its flax-msgpack file (JAX) or its orbax directory (ORBAX)."""
+    return read_msgpack(path) if fmt == JAX else read_orbax(path)
 
 
 _PP_KEY = "pp_layers.q_kernel"
@@ -187,7 +287,7 @@ def load_serving(
     else:
         if not isinstance(like, Mapping):
             raise ValueError("a JAX checkpoint maps onto a model's parameters: pass like=model.state_dict()")
-        tree = read_msgpack(path)
+        tree = read_jax_state(fmt, path)
         weights = state_dict_from_jax(tree, _in_jax_layout(tree["params"], like))
         weights = {k: v.to(device) for k, v in weights.items()}
         rle = tree.get("route_loss_ema")
@@ -215,8 +315,8 @@ def restore_train_state(ckpt_dir: str, state, *, name: Optional[str] = None, par
 
     fmt, path = resolve(ckpt_dir, name)
     target = state.model.state_dict()
-    if fmt == JAX:
-        tree = read_msgpack(path)
+    if fmt != PORT:
+        tree = read_jax_state(fmt, path)
         saved = train_state_dict_from_jax(tree, _in_jax_layout(tree["params"], target))
     else:
         ts = os.path.join(path, TRAIN_STATE)

@@ -36,11 +36,13 @@ Without a card, ``--device cuda`` raises; nothing falls back to the CPU.
 
 Checkpoints: the port writes the directory ``<dir>/<name>/`` (``config.json``,
 ``meta.json``, ``weights.pt``, ``train_state.pt``; ``ckpt.py``); the JAX
-package writes ``<dir>/<name>.msgpack`` with ``<dir>/<name>.meta.json``.
+package writes ``<dir>/<name>.msgpack`` (or, under its orbax backends, the
+directory ``<dir>/<name>.orbax/``) with ``<dir>/<name>.meta.json``.
 ``--ckpt DIR --name NAME``, ``--resume DIR`` (name ``last``) and
-``--init-from DIR --init-name NAME`` read either (``ckpt.resolve``), so a
-run trained with the JAX package serves, evaluates and resumes here; an
-orbax checkpoint (``<dir>/<name>.orbax/``) raises.
+``--init-from DIR --init-name NAME`` read any of them (``ckpt.resolve``), so
+a run trained with the JAX package serves, evaluates and resumes here.
+``train.ckpt_backend=orbax_async`` writes the port's directories in the
+background (``train/loop.py``).
 
 ``predict --export-artifact DIR`` writes a checkpoint's serving artifact (a
 ``torch.export`` program with the kernels as custom ops, ``artifact.py``)
@@ -69,10 +71,6 @@ under ``train.pipeline_parallel`` the BERT layers as GPipe stages (with
 (full tensors), which ``eval`` and ``predict`` serve in one process. The
 JAX package's mesh checks run first, with its messages; ``--mesh`` without
 such a launch refuses with the command to use.
-
-What the port does not have yet raises ``NotImplementedError`` naming its
-ROADMAP.md item, and never runs another path in its place: background
-checkpoint saves and reading orbax checkpoints (item 13).
 
 Config resolution is the JAX package's: defaults <- --config file <-
 MIMICIV_* env vars <- --set key=value overrides.

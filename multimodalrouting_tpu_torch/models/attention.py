@@ -22,15 +22,24 @@ eager path: fp32 logits, the key mask applied with where(..., -1e9), fp32
 softmax, weights cast to the compute dtype, then dropout on the weights in
 training.
 
+Under ``MMR_FUSED_QKV=1`` (read at each call; default off) self-attention
+(q, k and v one tensor object) that is not int8 projects k and v as one
+product over the concatenated weights and q as its own (``fused_qkv``):
+two products where the JAX package makes one (attention.py:140-153), so
+that the k and v the attention keeps hold no q beside them. The parameters
+keep their names and shapes.
+
 Dropout runs where a ``generator`` is passed (training) and its rate is
 above 0, as flax's runs with a dropout key and ``deterministic=False``.
 """
 from __future__ import annotations
 
-from typing import Optional
+import os
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from multimodalrouting_tpu_torch.models.layers import Dense, dropout
@@ -134,12 +143,33 @@ def attention(
     return torch.einsum("bhqk,bkhd->bqhd", weights, v4).reshape(n, tq, d)
 
 
+def use_fused_qkv() -> bool:
+    """``MMR_FUSED_QKV=1``: fuse self-attention's q/k/v projections."""
+    return os.environ.get("MMR_FUSED_QKV", "0") == "1"
+
+
+def fused_qkv(q_proj, k_proj, v_proj, x: torch.Tensor, scaling: float) -> Tuple[torch.Tensor, ...]:
+    """(q * scaling, k, v) of `x`: k and v from one product over the two
+    Dense layers' weights and biases concatenated along the output features
+    and cast to the compute dtype (views of one [..., 2 * d_out] result), q
+    from its own. Each output column is its own dot product, as in the
+    separate products. The attention keeps k and v for its backward, and
+    with them their whole product: q is scaled into a new tensor, so a q
+    third in that product would only hold memory."""
+    dt = k_proj.dtype
+    w = torch.cat([k_proj.weight, v_proj.weight]).to(dt)
+    b = torch.cat([k_proj.bias, v_proj.bias]).to(dt)
+    kh, vh = F.linear(x.to(dt), w, b).chunk(2, dim=-1)
+    return q_proj(x) * scaling, kh, vh
+
+
 class MultiheadAttention(nn.Module):
     """Batch-first MHA: q [B,Tq,D], k/v [B,Tk,D], kv_mask [B,Tk] (1 = keep),
     optional additive attn_bias [Tq,Tk]. q is scaled by head_dim**-0.5.
     `int8` runs the four projections as int8 products (``ops/quant.py``;
     frozen, inference-only paths), each its own product as in the JAX
-    package, which fuses no QKV under int8."""
+    package, which fuses no QKV under int8. Self-attention fuses its k and v
+    projections under ``MMR_FUSED_QKV=1`` (``fused_qkv``)."""
 
     def __init__(self, d: int, num_heads: int, frozen_fast_path: bool = False, dropout: float = 0.0,
                  dtype=torch.float32, int8: bool = False):
@@ -149,14 +179,18 @@ class MultiheadAttention(nn.Module):
         self.d, self.num_heads, self.dtype = d, num_heads, dtype
         self.frozen_fast_path, self.dropout = frozen_fast_path, dropout
         dense = QuantDense if int8 else Dense
+        self.int8 = int8
         for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
             setattr(self, name, dense(d, d, dtype=dtype))
 
     def forward(self, q, k, v, kv_mask=None, attn_bias=None, generator=None) -> torch.Tensor:
         scaling = (self.d // self.num_heads) ** -0.5
+        if q is k and k is v and not self.int8 and use_fused_qkv():
+            qh, kh, vh = fused_qkv(self.q_proj, self.k_proj, self.v_proj, q, scaling)
+        else:
+            qh, kh, vh = self.q_proj(q) * scaling, self.k_proj(k), self.v_proj(v)
         out = attention(
-            self.q_proj(q) * scaling, self.k_proj(k), self.v_proj(v), kv_mask, attn_bias,
-            self.num_heads, frozen_fast_path=self.frozen_fast_path, dtype=self.dtype,
-            dropout_rate=self.dropout, generator=generator,
+            qh, kh, vh, kv_mask, attn_bias, self.num_heads, frozen_fast_path=self.frozen_fast_path,
+            dtype=self.dtype, dropout_rate=self.dropout, generator=generator,
         )
         return self.out_proj(out)

@@ -14,7 +14,10 @@ under the query mask zeroed after every block, ReLU FFN of width 4d, final
 LayerNorm. In training (a ``generator`` passed) the MulT dropouts run at
 the JAX package's sites: embed_dropout on the embedded inputs,
 attn_dropout on the attention weights, res_dropout on each block's output
-before the residual add, relu_dropout after the FFN's ReLU.
+before the residual add, relu_dropout after the FFN's ReLU. Under
+``MMR_FUSED_QKV=1`` the self-attention streams project k and v as one
+batched product and q as its own (``fused_stacked_qkv``), where the JAX
+package's MultiheadAttention fuses all three (q, k and v one array).
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from multimodalrouting_tpu_torch.models.attention import attention, future_mask, sinusoidal_positions
+from multimodalrouting_tpu_torch.models.attention import attention, future_mask, sinusoidal_positions, use_fused_qkv
 from multimodalrouting_tpu_torch.models.layers import StackedDense, dropout
 from multimodalrouting_tpu_torch.ops.layernorm import layer_norm
 
@@ -43,6 +46,19 @@ class StackedLayerNorm(nn.Module):
         return layer_norm(x, self.scale.view(shape), self.bias.view(shape), self.eps, self.dtype)
 
 
+def fused_stacked_qkv(q_proj, k_proj, v_proj, x: torch.Tensor, scaling: float):
+    """``attention.fused_qkv`` for G streams: (q * scaling, k, v) of x
+    [G, ..., d], k and v from one batched product over the [G, d, 2 d_out]
+    kernels and [G, 2 d_out] biases cast to the compute dtype, q from its
+    own."""
+    dt = k_proj.dtype
+    w = torch.cat([k_proj.kernel, v_proj.kernel], dim=-1).to(dt)
+    b = torch.cat([k_proj.bias, v_proj.bias], dim=-1).to(dt)
+    flat = x.to(dt).reshape(x.shape[0], -1, x.shape[-1])
+    kh, vh = torch.baddbmm(b[:, None, :], flat, w).reshape(*x.shape[:-1], -1).chunk(2, dim=-1)
+    return q_proj(x) * scaling, kh, vh
+
+
 class StackedMultiheadAttention(nn.Module):
     def __init__(self, g: int, d: int, num_heads: int, dtype, attn_dropout: float = 0.0):
         super().__init__()
@@ -57,11 +73,15 @@ class StackedMultiheadAttention(nn.Module):
         tk = k.shape[2]
         if attn_bias is not None and attn_bias.dim() == 3:  # per stream -> per row of the [G*B] batch
             attn_bias = attn_bias[:, None].expand(g, b, tq, tk).reshape(g * b, tq, tk)
-        qh = self.q_proj(q) * (d // self.num_heads) ** -0.5
+        scaling = (d // self.num_heads) ** -0.5
+        if q is k and k is v and use_fused_qkv():  # self-attention streams (k = v = h)
+            qh, kh, vh = fused_stacked_qkv(self.q_proj, self.k_proj, self.v_proj, q, scaling)
+        else:
+            qh, kh, vh = self.q_proj(q) * scaling, self.k_proj(k), self.v_proj(v)
         out = attention(
             qh.reshape(g * b, tq, d),
-            self.k_proj(k).reshape(g * b, tk, d),
-            self.v_proj(v).reshape(g * b, tk, d),
+            kh.reshape(g * b, tk, d),
+            vh.reshape(g * b, tk, d),
             None if kv_mask is None else kv_mask.reshape(g * b, tk),
             attn_bias, self.num_heads, frozen_fast_path=False, dtype=self.dtype,
             dropout_rate=self.attn_dropout, generator=generator,

@@ -22,13 +22,19 @@ row's rowsum(dp * p) as di = rowsum(o * do) from the saved output, with the
 di kernel both attention backwards launch first (``attention_bwd_di``,
 plain version ``attention_bwd_di_reference``); the saved output is the
 tensor the out-projection keeps for its own backward, so saving it costs no
-memory.
+memory. ``MMR_PACKED_BWD=xla`` (read at each backward) is the JAX
+package's way around its Pallas backward: on CPU tensors the backward is
+then autograd's VJP of the plain version (``packed_attention_vjp_reference``),
+recomputed from the saved q, k, v as the JAX package's takes the VJP of its
+XLA attention; on CUDA tensors it raises, because the port's backward there
+is K2.
 ``supports_packed_bwd`` is the JAX package's gate for the backward: a caller
 whose shape fails it under a gradient takes the eager attention instead
 (models/attention.py), as the JAX package takes the XLA VJP.
 """
 from __future__ import annotations
 
+import os
 from typing import Optional, Tuple
 
 import torch
@@ -213,10 +219,36 @@ def packed_attention_bwd(q, k, v, kv_mask, out, lse, do, num_heads: int) -> Tupl
     return dq, dk, dv
 
 
+def packed_bwd_impl(device: torch.device) -> str:
+    """``MMR_PACKED_BWD`` for a backward on `device`, read at each backward
+    as the JAX package reads it (flash_packed.py:_packed_bwd): ``xla`` takes
+    the plain attention's VJP on the CPU and raises on the card, anything
+    else (``pallas``, the default) K2."""
+    impl = os.environ.get("MMR_PACKED_BWD", "pallas")
+    if impl == "xla" and device.type != "cpu":
+        raise ValueError(
+            "MMR_PACKED_BWD=xla selects the JAX package's XLA backward in place of its Pallas kernel; "
+            "on the card the port's packed backward is K2 (ops/flash_packed.py): unset MMR_PACKED_BWD"
+        )
+    return impl
+
+
+def packed_attention_vjp_reference(q, k, v, kv_mask, do, num_heads: int) -> Tuple[torch.Tensor, ...]:
+    """(dq, dk, dv): autograd's VJP of ``packed_attention_reference`` at
+    the saved q, k, v, recomputed here, so that no [N, H, T, T] tensor lives
+    from the forward to the backward (the JAX package's ``jax.vjp`` of its
+    XLA attention inside the backward, under ``MMR_PACKED_BWD=xla``)."""
+    with torch.enable_grad():
+        q, k, v = (x.detach().requires_grad_() for x in (q, k, v))
+        out = packed_attention_reference(q, k, v, kv_mask, num_heads)
+        return torch.autograd.grad(out, (q, k, v), do)
+
+
 class PackedAttention(torch.autograd.Function):
     """K1 forward (keeping its output and, on CUDA, its log-sum-exp), K2
-    backward. The mask takes no gradient; the scale of q belongs to the
-    caller's graph."""
+    backward (on CPU tensors under ``MMR_PACKED_BWD=xla``, the plain VJP;
+    on CUDA tensors that switch raises). The mask takes
+    no gradient; the scale of q belongs to the caller's graph."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_mask, num_heads: int):
@@ -231,7 +263,10 @@ class PackedAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, kv_mask, out, lse = ctx.saved_tensors
-        dq, dk, dv = packed_attention_bwd(q, k, v, kv_mask, out, lse, do.contiguous(), ctx.num_heads)
+        if packed_bwd_impl(q.device) == "xla":
+            dq, dk, dv = packed_attention_vjp_reference(q, k, v, kv_mask, do, ctx.num_heads)
+        else:
+            dq, dk, dv = packed_attention_bwd(q, k, v, kv_mask, out, lse, do.contiguous(), ctx.num_heads)
         return dq, dk, dv, None, None
 
 

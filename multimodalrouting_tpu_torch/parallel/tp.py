@@ -43,7 +43,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from multimodalrouting_tpu_torch.models.attention import attention, attention_branch
+from multimodalrouting_tpu_torch.models.attention import attention, attention_branch, fused_qkv, use_fused_qkv
 from multimodalrouting_tpu_torch.ops.quant import QuantDense, int8_matmul, int8_scale, quantize_with_scale
 from multimodalrouting_tpu_torch.parallel.mesh import (
     Mesh,
@@ -132,13 +132,19 @@ def _quant_row_parallel(dense: QuantDense, x: torch.Tensor, mesh: Mesh) -> torch
 
 def tp_self_attention(attn, x: torch.Tensor, kv_mask, generator, mesh: Mesh) -> torch.Tensor:
     """A BERT ``MultiheadAttention`` on a tensor-parallel rank, before the
-    residual: q/k/v column-parallel on this rank's heads, the attention core
-    on them, the out-projection row-parallel."""
+    residual: q/k/v column-parallel on this rank's heads (k and v one
+    product over their column slices under ``MMR_FUSED_QKV=1``, as GSPMD
+    shards the JAX package's fused kernel), the attention core on them, the
+    out-projection row-parallel."""
     x = copy_to_model_group(x)
     gen = slice_generator(generator, mesh.model_index) if generator is not None and attn.dropout > 0 else generator
+    scaling = (attn.d // attn.num_heads) ** -0.5
+    if not attn.int8 and use_fused_qkv():
+        qh, kh, vh = fused_qkv(attn.q_proj, attn.k_proj, attn.v_proj, x, scaling)
+    else:
+        qh, kh, vh = attn.q_proj(x) * scaling, attn.k_proj(x), attn.v_proj(x)
     out = attention(
-        attn.q_proj(x) * (attn.d // attn.num_heads) ** -0.5, attn.k_proj(x), attn.v_proj(x), kv_mask, None,
-        attn.num_heads // mesh.n_model, frozen_fast_path=attn.frozen_fast_path, dtype=attn.dtype,
-        dropout_rate=attn.dropout, generator=gen,
+        qh, kh, vh, kv_mask, None, attn.num_heads // mesh.n_model, frozen_fast_path=attn.frozen_fast_path,
+        dtype=attn.dtype, dropout_rate=attn.dropout, generator=gen,
     )
     return row_parallel(attn.out_proj, out, mesh)

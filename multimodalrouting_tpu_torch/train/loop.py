@@ -66,9 +66,15 @@ tensors, gathered over the model group by every rank and written by rank 0.
 Under the pipeline role the validation forwards run the schedule too (each
 rank holds its stage's layers only). ``train.microbatch`` > 1 lays each
 global batch's rows out so that the step's local microbatches are the
-data shard's slices of the JAX step's (``mesh.shard_batch``). Background
-checkpoint saves (``train.ckpt_backend=orbax_async``) raise (ROADMAP.md §1
-item 13).
+data shard's slices of the JAX step's (``mesh.shard_batch``).
+
+Under ``train.ckpt_backend=orbax_async`` a save gathers and copies the
+state to host memory on the loop's thread (on a mesh every rank takes part
+in the gather, as for any save), then rank 0 hands the copy to the one
+background writer (``ckpt.save_checkpoint(..., background=True)``) and the
+loop goes on; the run's end waits for every write on rank 0 before the
+ranks' last barrier (``ckpt.wait_for_saves``), as the JAX loop does.
+The other backends write before the save returns.
 """
 from __future__ import annotations
 
@@ -83,7 +89,7 @@ import torch
 import torch.distributed as dist
 
 from multimodalrouting_tpu_torch.audit.exports import save_reliability_diagram
-from multimodalrouting_tpu_torch.ckpt import TRAIN_STATE, save_checkpoint
+from multimodalrouting_tpu_torch.ckpt import TRAIN_STATE, save_checkpoint, wait_for_saves
 from multimodalrouting_tpu_torch.configs import Config, to_dict
 from multimodalrouting_tpu_torch.data.batches import Batch, batch_to, slice_batch, take_batch
 from multimodalrouting_tpu_torch.metrics.calibration import find_best_thresholds, fit_temperature
@@ -280,8 +286,6 @@ def _train_model(cfg: Config, model, train_cohort, val_cohort, *, family, stage,
         if t.chunk_bucketing:
             raise ValueError("train.chunk_bucketing needs random access; "
                              "disable it for streaming splits")
-    if ckpt_dir and t.ckpt_backend == "orbax_async":
-        raise NotImplementedError("background checkpoint saves are not ported yet (ROADMAP.md §1 item 13)")
     rng = np.random.default_rng(t.seed)
     dev = next(model.parameters()).device
     generator = torch.Generator(device=dev).manual_seed(t.seed)
@@ -337,6 +341,8 @@ def _train_model(cfg: Config, model, train_cohort, val_cohort, *, family, stage,
         log_fn(f"[train] family={family} stage={stage or '-'} n_train={n_train} "
                f"steps/epoch={steps_per_epoch} mesh={shape}")
 
+    background = t.ckpt_backend == "orbax_async"
+
     def save(name: str, **meta) -> None:
         # under ZeRO, tensor, route or pipeline parallelism every rank takes part in
         # gathering the full tensors; rank 0 alone writes, and the others wait
@@ -345,9 +351,14 @@ def _train_model(cfg: Config, model, train_cohort, val_cohort, *, family, stage,
         train_state = train_state_dict(state) if writer or gathered else None
         serving = serving_state_dict(state) if writer or state.shards is not None else None
         if writer:
-            path = save_checkpoint(os.path.join(ckpt_dir, name), serving, cfg, train_state=train_state, **meta)
-            size = os.path.getsize(os.path.join(path, TRAIN_STATE))
-            log_fn(f"[ckpt] {name}: {TRAIN_STATE} {size} bytes, saved in {time.perf_counter() - t0:.2f}s")
+            def written(path: str, seconds: float) -> None:
+                size = os.path.getsize(os.path.join(path, TRAIN_STATE))
+                where = " in the background" if background else ""
+                log_fn(f"[ckpt] {name}: {TRAIN_STATE} {size} bytes, written in {seconds:.2f}s{where}")
+
+            save_checkpoint(os.path.join(ckpt_dir, name), serving, cfg, train_state=train_state,
+                            background=background, on_written=written, **meta)
+            log_fn(f"[ckpt] {name}: the loop blocked {time.perf_counter() - t0:.2f}s")
         if mesh is not None:
             dist.barrier()
 
@@ -468,5 +479,10 @@ def _train_model(cfg: Config, model, train_cohort, val_cohort, *, family, stage,
         ths, _ = find_best_thresholds(y_val, probs, beta=2.0 if m.task == "pheno" else 1.0)
     if ckpt_dir:
         save("final", temperature=float(temperature), thresholds=ths.ravel())
+        if background:  # no rank returns while a write is in flight
+            if writer:
+                wait_for_saves()
+            if mesh is not None:
+                dist.barrier()
     return TrainResult(state=state, history=history, best_metric=float(best_metric), thresholds=ths,
                        temperature=float(temperature))

@@ -7,6 +7,7 @@ import argparse
 import contextlib
 import csv
 import glob
+import hashlib
 import io
 import json
 import os
@@ -203,22 +204,62 @@ def test_resume_from_a_serving_checkpoint_raises(two_epochs, tmp_path):
 PHENO_ATTEN_MULT = os.path.join(os.path.dirname(__file__), "..", "configs", "pheno_atten_mult.yaml")
 
 
+@pytest.fixture(scope="module")
+def jax_orbax_pair(tmp_path_factory):
+    """One seeded JAX train state at the tiny widths, written by the JAX
+    package's save_checkpoint as msgpack and as orbax: (msgpack dir, orbax
+    dir), each holding the checkpoint ``final``."""
+    jcfg = jc.apply_overrides(jc.Config(), TINY_SETS)
+    model = jbuild_model(jcfg, "capsule")
+    example = make_synthetic_cohort(8, t=12, f=16, s=2, l=16, image_size=32, vocab_size=1024, seed=0)
+    variables = _random_variables(model, example, seed=3)
+    state = jcreate_train_state(jcfg, model, jax.tree_util.tree_map(jax.numpy.asarray, variables))
+    root = tmp_path_factory.mktemp("cli_orbax")
+    dirs = str(root / "msgpack"), str(root / "orbax")
+    for path, backend in zip(dirs, ("msgpack", "orbax")):
+        jsave_checkpoint(path, state, jcfg, name="final", thresholds=[0.35], extra={"temperature": 1.7},
+                         backend=backend)
+    yield dirs
+    shutil.rmtree(root)  # ~0.4 GB of JAX train states: keep the suite's disk small
+
+
 @pytest.mark.parametrize("argv, item", [
     (["train", "--set", "train.ckpt_backend=orbax_async"], "item 13"),
     (["eval", "--ckpt", "ORBAX"], "item 13"),
     (["predict", "--ckpt", "ORBAX"], "item 13"),
 ])
-def test_unported_options_raise_naming_their_roadmap_item(argv, item, tmp_path):
-    """What the port does not have raises naming its item: background saves
-    and orbax (13). The case's own --set pairs come after the tiny ones, so
-    that the JAX package's checks pass."""
+def test_unported_options_raise_naming_their_roadmap_item(argv, item, jax_orbax_pair, tmp_path):
+    """What raised until ROADMAP.md §1 item 13 was ported runs: `train` under
+    train.ckpt_backend=orbax_async (background saves) writes, byte for byte,
+    the checkpoints a msgpack run writes (config.json aside, which names the
+    backend); `eval` and `predict` on a JAX orbax checkpoint print and write
+    what they do on the msgpack file of the same state. The case's own --set
+    pairs come after the tiny ones, so that the JAX package's checks pass."""
     if argv[0] == "train":
-        argv = [argv[0], *_sets(), *argv[1:], "--device", "cpu", "--out", str(tmp_path)]
-    if "ORBAX" in argv:  # a JAX orbax checkpoint: reading it needs orbax, which imports JAX
-        os.makedirs(tmp_path / "final.orbax")
-        argv = [str(tmp_path) if a == "ORBAX" else a for a in argv] + ["--device", "cpu"]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md §1 {item}"):
-        tcli.main(argv)
+        outs = {}
+        for backend in ("msgpack", "orbax_async"):
+            out = tmp_path / backend
+            rc, text = run(tcli.main, ["train", *_sets(), "--set", f"train.ckpt_backend={backend}", "--epochs", "1",
+                                       "--device", "cpu", "--out", str(out)])
+            assert rc == 0, item
+            outs[backend] = {}
+            for p in glob.glob(str(out / "*" / "*.pt")) + glob.glob(str(out / "*" / "meta.json")):
+                with open(p, "rb") as f:
+                    outs[backend][os.path.relpath(p, out)] = hashlib.sha256(f.read()).hexdigest()
+            shutil.rmtree(out)  # ~0.2 GB a checkpoint
+        assert "in the background" in text and "final/train_state.pt" in outs["msgpack"]
+        assert outs["orbax_async"] == outs["msgpack"], item
+        return
+    outputs = []
+    for path in jax_orbax_pair:
+        extra = ["--out", str(tmp_path / (os.path.basename(path) + ".jsonl"))] if argv[0] == "predict" else []
+        rc, text = run(tcli.main, [path if a == "ORBAX" else a for a in argv] + ["--device", "cpu", *extra])
+        assert rc == 0, item
+        if extra:
+            with open(extra[1]) as f:
+                text += f.read()
+        outputs.append(text.replace(path, "CKPT").replace(str(tmp_path), "OUT").replace("orbax.jsonl", "msgpack.jsonl"))
+    assert outputs[0] == outputs[1] and outputs[0].count("\n") > 5
 
 
 @pytest.mark.parametrize("argv, match", [

@@ -18,8 +18,16 @@ moments), written by the JAX package's own ``save_checkpoint`` as
 - ``--init-from`` a pipeline-layout checkpoint into the layered model, and
   the full restore across layouts refused with the JAX package's error;
 - a loss-based FAME++ state keeps its route-loss EMA;
-- ``.orbax`` and missing names raise; the CLI's ``eval --ckpt DIR --name``
-  and ``train --resume DIR`` read a JAX pair;
+- the same states written by the JAX ``save_checkpoint(..., backend="orbax")``
+  (the fp32 one with its largest kernel sharded over four host devices, so
+  that it is written as four zarr chunks): ``utils/orbax_reader.py`` gives
+  ``read_msgpack``'s tree and orbax's own restore bit for bit, serves and
+  resumes as the msgpack pair does, reads with ``jax``, ``flax``,
+  ``orbax``, ``tensorstore`` and ``ml_dtypes`` unimportable, and refuses a
+  node whose checksum fails; a None and an empty dict come back as orbax
+  stores them (not at all); tensorstore's multi-level B-trees read too;
+- an empty ``.orbax`` directory and missing names raise; the CLI's ``eval
+  --ckpt DIR --name`` and ``train --resume DIR`` read a JAX pair;
 - chip_smoke.py's flax-layout writer (the card's JAX checkpoints) writes
   what the JAX package's ``restore_checkpoint`` restores.
 """
@@ -55,6 +63,7 @@ from multimodalrouting_tpu_torch.serve import Predictor
 from multimodalrouting_tpu_torch.train.state import create_train_state, n_route_loss_ema_for
 from multimodalrouting_tpu_torch.train.steps import make_train_step
 from multimodalrouting_tpu_torch.utils.flax_msgpack import msgpack_restore, read_msgpack
+from multimodalrouting_tpu_torch.utils.orbax_reader import OcdbtStore, read_orbax, zstd_decompress
 from tests.helpers import TINY, tiny_batch
 from tests.torch_parity import (  # noqa: F401 (one_torch_thread: a fixture)
     O0,
@@ -85,6 +94,19 @@ def _lrs():
     return jnp.asarray(STEP_LR), jnp.asarray(STEP_LR / 2)
 
 
+def _shard_largest_kernel(state):
+    """`state` with its largest parameter sharded over a 2 x 2 mesh of host
+    devices along its last two axes (orbax writes each shard as a chunk)."""
+    from jax.sharding import Mesh, NamedSharding, PartitionSpec
+
+    mesh = Mesh(np.array(jax.devices()[:4]).reshape(2, 2), ("a", "b"))
+    path, leaf = max(jax.tree_util.tree_leaves_with_path(state.params), key=lambda pl: pl[1].size)
+    spec = PartitionSpec(*([None] * (leaf.ndim - 2)), "a", "b")
+    sharded = jax.device_put(leaf, NamedSharding(mesh, spec))
+    return state.replace(params=jax.tree_util.tree_map_with_path(lambda p, x: sharded if p == path else x,
+                                                                 state.params))
+
+
 def _write(tmp, key: str, chunk_size=None):
     """Build, step and save one JAX state; keep what the tests compare as
     numpy: the state after the step, the eval forward of its EMA weights
@@ -111,7 +133,11 @@ def _write(tmp, key: str, chunk_size=None):
         jsave_checkpoint(ckpt_dir, state, jcfg, name="final", thresholds=[0.4], extra={"temperature": 1.25})
     finally:
         mp.undo()
-    out = types.SimpleNamespace(key=key, family=family, jcfg=jcfg, dir=ckpt_dir, batch=batch, saved=to_numpy({
+    orbax_dir = ckpt_dir + "_orbax"  # the same state through the orbax backend
+    jsave_checkpoint(orbax_dir, _shard_largest_kernel(state) if key == "fp32" else state, jcfg, name="final",
+                     thresholds=[0.4], extra={"temperature": 1.25}, backend="orbax")
+    out = types.SimpleNamespace(key=key, family=family, jcfg=jcfg, dir=ckpt_dir, orbax_dir=orbax_dir, batch=batch,
+                                saved=to_numpy({
         "params": state.params, "batch_stats": state.batch_stats, "ema_params": state.ema_params,
         "step": state.step, "route_loss_ema": state.route_loss_ema}))
     if key != "bf16_pp":  # the serving forward (under the loss-based gate, of the state's route-loss EMA)
@@ -136,14 +162,21 @@ def _tcfg(run):
     return tc.apply_overrides(tc.Config(), {**BASE, **PATHS[run.key][1]})
 
 
-def _leaves_equal(got, ref, path="") -> int:
-    """Same tree, every leaf bit for bit; -> the number of array leaves."""
+def _leaves_equal(got, ref, path="", ordered=True) -> int:
+    """Same tree, every leaf bit for bit; -> the number of array leaves.
+    `ordered`: each dict's keys in the same order too (orbax keeps no order:
+    its tree comes back with sorted keys)."""
     if isinstance(ref, dict):
-        assert isinstance(got, dict) and list(got) == list(ref), path
-        return sum(_leaves_equal(got[k], ref[k], f"{path}/{k}") for k in ref)
+        assert isinstance(got, dict), path
+        assert list(got) == list(ref) if ordered else sorted(got) == sorted(ref), path
+        return sum(_leaves_equal(got[k], ref[k], f"{path}/{k}", ordered) for k in ref)
     if isinstance(ref, (list, tuple)):
         assert isinstance(got, list) and len(got) == len(ref), path
-        return sum(_leaves_equal(g, r, f"{path}[{i}]") for i, (g, r) in enumerate(zip(got, ref)))
+        return sum(_leaves_equal(g, r, f"{path}[{i}]", ordered) for i, (g, r) in enumerate(zip(got, ref)))
+    if isinstance(ref, torch.Tensor):  # a bf16 leaf of the port's own reader
+        assert isinstance(got, torch.Tensor) and got.dtype == ref.dtype and got.shape == ref.shape, path
+        assert torch.equal(got.view(torch.int16), ref.view(torch.int16)), path
+        return 1
     if isinstance(ref, (np.ndarray, np.generic)):
         r = np.asarray(ref)
         if r.dtype.name == "bfloat16":
@@ -302,11 +335,15 @@ def test_loss_based_fame_keeps_its_route_loss_ema(runs):
 
 
 def test_orbax_and_missing_names_raise(runs, tmp_path):
+    """An orbax directory without its manifest (an unfinished save) and
+    missing names raise FileNotFoundError; a whole orbax checkpoint
+    resolves."""
     os.makedirs(tmp_path / "x.orbax")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 13"):
+    with pytest.raises(FileNotFoundError, match="x.orbax holds no manifest.ocdbt"):
         resolve(str(tmp_path), "x")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 13"):
+    with pytest.raises(FileNotFoundError, match="x.orbax holds no manifest.ocdbt"):
         Predictor(str(tmp_path), name="x", device="cpu")
+    assert resolve(runs["fp32"].orbax_dir, "final") == ("orbax", os.path.join(runs["fp32"].orbax_dir, "final.orbax"))
     with pytest.raises(FileNotFoundError, match="no checkpoint 'missing'"):
         load_config(str(tmp_path), "missing")
     with open(tmp_path / "lone.msgpack", "wb") as f:
@@ -315,6 +352,146 @@ def test_orbax_and_missing_names_raise(runs, tmp_path):
         load_meta(str(tmp_path), "lone")
     assert resolve(runs["fp32"].dir, "final")[0] == "jax"
     assert load_meta(runs["fp32"].dir, "final")["step"] == 1
+
+
+# --- the orbax backend (utils/orbax_reader.py) --------------------------------
+
+
+def _orbax(run) -> str:
+    return os.path.join(run.orbax_dir, "final.orbax")
+
+
+@pytest.mark.parametrize("key", list(PATHS))
+def test_orbax_reader_gives_the_msgpack_tree_bit_for_bit(runs, key):
+    """The orbax checkpoint of a state reads as its msgpack file does, and
+    as orbax's own restore gives it, leaf for leaf and bit for bit (fp32,
+    the bf16 BERT body, the 0-d step, empty optimizer states); the fp32
+    state's largest kernel (several MB) comes back from its four chunks."""
+    import orbax.checkpoint as ocp
+
+    run = runs[key]
+    got = read_orbax(_orbax(run))
+    assert _leaves_equal(got, read_msgpack(os.path.join(run.dir, "final.msgpack")), ordered=False) > 100
+    restored = ocp.StandardCheckpointer().restore(os.path.abspath(_orbax(run)))
+    assert _leaves_equal(got, jax.tree_util.tree_map(np.asarray, restored), ordered=False) > 100
+    assert got["step"].shape == () and int(got["step"]) == 1
+    if key == "fp32":
+        chunks = {}
+        for k in OcdbtStore(_orbax(run)).keys():
+            if not k.endswith("/.zarray"):
+                chunks.setdefault(k.split("/")[0], []).append(k.split("/")[1])
+        (sharded,) = [k for k, v in chunks.items() if len(v) > 1]
+        assert sorted(chunks[sharded]) == ["0.0.0.0", "0.0.0.1", "0.0.1.0", "0.0.1.1"]
+        leaf = got
+        for part in sharded.split("."):
+            leaf = leaf[part]
+        assert leaf.nbytes > 2**21 and leaf.flags.writeable
+
+
+def test_orbax_checkpoint_serves_and_resumes(runs):
+    """Predictor on the orbax fp32 checkpoint serves the msgpack pair's
+    weights bit for bit; a full restore and one more step equal JAX
+    ``make_train_step``'s second step (as from the msgpack pair); the
+    loss-based FAME++ state keeps its route-loss EMA."""
+    run = runs["fp32"]
+    pred = Predictor(run.orbax_dir, name="final", device="cpu")
+    ref = Predictor(run.dir, name="final", device="cpu")
+    assert (pred.temperature, pred.thresholds.tolist()) == (1.25, [0.4])
+    assert all(torch.equal(v, ref.model.state_dict()[k]) for k, v in pred.model.state_dict().items())
+    tcfg = load_config(run.orbax_dir, "final")
+    assert tcfg == _tcfg(run)
+    model = build_model(tcfg, device="cpu", train=True)
+    state = restore_train_state(run.orbax_dir, create_train_state(tcfg, model), name="final")
+    assert (state.step, state.count) == (1, 1)
+    metrics = make_train_step(tcfg, model)(state, torch_batch(run.batch), None, STEP_LR, STEP_LR / 2)
+    np.testing.assert_allclose(float(metrics.loss), run.next_loss, rtol=RTOL_STEPS)
+    assert_same_weights(model, state, run.next_state)
+    fame = runs["fame"]
+    pred = Predictor(fame.orbax_dir, "fame", name="final", device="cpu")
+    assert torch.equal(pred.route_loss_ema, torch.from_numpy(fame.saved["route_loss_ema"]))
+
+
+def test_orbax_reads_with_jax_and_orbax_unimportable(runs):
+    """A fresh process with jax, flax, orbax, tensorstore, msgpack,
+    ml_dtypes, zstandard and the JAX package unimportable reads the orbax
+    checkpoint and serves it: the same logits as JAX ``apply``."""
+    run = runs["fp32"]
+    code = f"""
+import json, sys
+for m in ("jax", "jaxlib", "flax", "msgpack", "ml_dtypes", "orbax", "tensorstore", "zstandard",
+          "multimodalrouting_tpu"):
+    sys.modules[m] = None
+import torch
+from multimodalrouting_tpu_torch.data.batches import batch_to
+from multimodalrouting_tpu_torch.data.synthetic import make_synthetic_cohort
+from multimodalrouting_tpu_torch.serve import Predictor
+torch.set_num_threads(1)
+batch = make_synthetic_cohort(4, t=12, f=16, s=2, l=16, image_size=32, vocab_size=1024, seed=1, missing_rate=0.25)
+pred = Predictor({run.orbax_dir!r}, name="final", device="cpu")
+print(json.dumps(pred.forward(batch_to(batch, "cpu")).logits.tolist()))
+"""
+    env = {**os.environ, "PYTHONPATH": ROOT}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=ROOT, env=env,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert_close(torch.tensor(json.loads(out.stdout.splitlines()[-1])), run.forward.logits)
+
+
+def test_orbax_node_with_a_bad_checksum_is_refused(runs, tmp_path):
+    """One flipped byte in the root B-tree node (a copy; the data files are
+    linked) fails its crc32c."""
+    src, dst = _orbax(runs["fp32"]), str(tmp_path / "final.orbax")
+    shutil.copytree(src, dst, copy_function=os.link)
+    (node,) = os.listdir(os.path.join(dst, "d"))
+    path = os.path.join(dst, "d", node)
+    with open(path, "rb") as f:
+        data = bytearray(f.read())
+    os.remove(path)  # a new file, not the linked one
+    data[len(data) // 2] ^= 0x40
+    with open(path, "wb") as f:
+        f.write(data)
+    with pytest.raises(ValueError, match="crc32c checksum mismatch"):
+        read_orbax(dst)
+
+
+def test_orbax_reader_on_the_unstored_leaves(tmp_path):
+    """A state without an EMA (None) and an empty optimizer state ({}):
+    orbax stores neither, and the reader gives both back as orbax's restore
+    and read_msgpack do; a leaf of another unstored type is refused."""
+    import orbax.checkpoint as ocp
+
+    tree = {"params": {"w": np.arange(6, dtype=np.float32).reshape(2, 3)}, "ema_params": None, "opt_state": {}}
+    ckptr = ocp.StandardCheckpointer()
+    ckptr.save(str(tmp_path / "a.orbax"), tree)
+    ckptr.save(str(tmp_path / "b.orbax"), {**tree, "t": ()})
+    ckptr.wait_until_finished()
+    got = read_orbax(str(tmp_path / "a.orbax"))
+    assert got["ema_params"] is None and got["opt_state"] == {}
+    assert _leaves_equal(got, msgpack_restore(bytearray(serialization.msgpack_serialize(tree))), ordered=False) == 1
+    with pytest.raises(ValueError, match="'Tuple' is not stored"):
+        read_orbax(str(tmp_path / "b.orbax"))
+
+
+def test_ocdbt_reader_on_a_multi_level_tree_and_zstd(tmp_path):
+    """tensorstore's OCDBT store with small nodes (a B-tree several levels
+    deep, keys stored under their subtree's prefix), values inline and in
+    data files: every key and value as tensorstore reads them. pyarrow's
+    zstd round-trips a frame whose size the header states."""
+    import pyarrow as pa
+    import tensorstore as ts
+
+    kv = ts.KvStore.open({"driver": "ocdbt", "base": f"file://{tmp_path}/",
+                          "config": {"max_decoded_node_bytes": 300, "max_inline_value_bytes": 16,
+                                     "compression": {"id": "zstd", "level": 5}}}).result()
+    want = {f"key{i:04d}/x": (b"v%d" % i) * (1 + i % 20) for i in range(200)}
+    for k, v in want.items():
+        kv.write(k, v).result()
+    store = OcdbtStore(str(tmp_path))
+    assert store.keys() == sorted(want)
+    assert all(store[k] == v for k, v in want.items())
+    payload = np.random.default_rng(0).standard_normal(5000).astype(np.float32).tobytes()
+    frame = pa.Codec("zstd").compress(payload, asbytes=True)
+    assert zstd_decompress(frame) == payload
 
 
 def test_chip_smoke_writer_is_the_jax_layout(tmp_path):

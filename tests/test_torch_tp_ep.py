@@ -257,6 +257,25 @@ def test_tensor_parallel_zero_matches_the_replicated_layout(runs):
     assert len({runs[f"tensor_zero_step.w4.rank{r}"]["model_sha"] for r in range(4)}) == 1
 
 
+def test_fused_qkv_on_a_tensor_parallel_rank_is_the_unfused_step(runs):
+    """MMR_FUSED_QKV=1 on data=1, model=2 under tensor parallelism: each
+    rank projects its heads' q/k/v column slices as one product in every
+    BERT layer (forward), and the step is the unfused one: the loss bit for
+    bit, Adam's first moment (the clipped gradient) per leaf within
+    LOOP_TOL in relative norm, summation order only (the fused product's
+    backward runs one GEMM over the three projections: 7.5e-6 at worst
+    here, in a q_proj weight; the key biases' gradients are rounding noise
+    and left out, as in every mesh test), the ranks' parameters
+    bit-identical to each other."""
+    for r in range(2):
+        got, ref = runs[f"tensor_fused_qkv_step.w2.rank{r}"], runs[f"tensor_step.w2.rank{r}"]
+        assert got["fused_calls"] == ranks.TP_EP["encoder.bert_layers"], r
+        assert got["finite"] and got["placed_ok"] and got["loss"] == ref["loss"], r
+    assert runs["tensor_fused_qkv_step.w2.rank0"]["model_sha"] == runs["tensor_fused_qkv_step.w2.rank1"]["model_sha"]
+    got, ref = runs["tensor_fused_qkv_step.w2.rank0"], runs["tensor_step.w2.rank0"]
+    assert_leaves(got["mu"], ref["mu"], LOOP_TOL, "fused QKV: Adam's first moment")
+
+
 def test_a_row_parallel_int8_product_is_quant_dense_s(runs):
     for r in range(2):
         got = runs[f"int8_row.w2.rank{r}"]

@@ -122,6 +122,24 @@ def role_step(variables, mesh, role: str, base: dict, batch, *, zero: bool = Fal
     }
 
 
+def fused_qkv_step(variables, mesh) -> dict:
+    """``role_step`` under tensor parallelism with ``MMR_FUSED_QKV=1``: each
+    rank's BERT attention projects its q/k/v column slices as one product
+    (the calls counted)."""
+    from multimodalrouting_tpu_torch.parallel import tp
+
+    calls, real = [], tp.fused_qkv
+    tp.fused_qkv = lambda *a: calls.append(1) or real(*a)
+    os.environ["MMR_FUSED_QKV"] = "1"
+    try:
+        out = role_step(variables, mesh, "tensor", TP_EP, mr.step_batch())
+    finally:
+        del os.environ["MMR_FUSED_QKV"]
+        tp.fused_qkv = real
+    out["fused_calls"] = len(calls)
+    return out
+
+
 def int8_row_parallel(mesh) -> dict:
     """A row-parallel QuantDense from this rank's input columns against the
     whole QuantDense on the whole input."""
@@ -241,6 +259,7 @@ def main(rank: int, world: int, port: str, work: str) -> None:
                 for fault in ("world_average", "local_norm"):
                     save(f"fault_{fault}", role_step(variables, mesh, role, TP_EP, mr.step_batch(), fault=fault))
                 save("int8_row", int8_row_parallel(mesh))
+                save("tensor_fused_qkv_step", fused_qkv_step(variables, mesh))
                 save("jax_state", jax_state_onto_mesh(work, mesh))
             if world == 4 and role == "tensor":
                 save("tensor_zero_step", role_step(variables, mesh, role, TP_EP, mr.step_batch(), zero=True))
