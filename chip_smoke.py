@@ -52,7 +52,14 @@ toolkit. It
    the loss within 2**-8 and every gradient norm within 1e-2 of the
    default step's, fewer GEMMs in the forward, no more peak memory), each
    after a warm-up step; MMR_PACKED_BWD=xla raises in the packed backward
-   of CUDA tensors; one step under the frozen-text default;
+   of CUDA tensors; one step under the frozen-text default; then the
+   repo's measuring entry points briefly (phase_bench): bench.py's two legs
+   through scripts/torch_bench.py (1 + 2 steps each, K1/K2/K3 = 12/0/1 and
+   12/12/1 a step, their JSON lines), each phase of
+   scripts/torch_bench_phases.py once, one frozen step traced by
+   scripts/torch_trace_report.py with its attention forward and K3
+   launches equal to the counters, and Predictor.warmup on the checkpoint
+   of 6 (K1 = 12, K3 = 1), then a request launching the same;
 8. serves the same weights from a train.pipeline_parallel=true config (the
    layers converted to the stacked pp_layers layout on load) at 1 and 16
    records through K4a, against the layered Predictor, and takes two
@@ -252,6 +259,11 @@ from multimodalrouting_tpu_torch.train.state import (
     train_state_dict,
 )
 from multimodalrouting_tpu_torch.train.steps import loss_family, make_train_step
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts"))
+import torch_bench  # noqa: E402
+import torch_bench_phases  # noqa: E402
+import torch_trace_report  # noqa: E402
 
 SEED = 0
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1624,6 +1636,78 @@ def phase_train_frozen(dev) -> dict:
     del model, state, batch
     torch.cuda.empty_cache()
     return launches
+
+
+def phase_bench(dev, tmp: str) -> dict:
+    """The repo's measuring scripts on the card, briefly: bench.py's two
+    legs through scripts/torch_bench.py (1 warm-up and 2 timed steps each),
+    each phase of scripts/torch_bench_phases.py once, the trace report of one
+    frozen step, and Predictor.warmup on phase_serving's checkpoint."""
+    by_path = {}
+    e = flagship_cfg().encoder
+    for finetune in (False, True):
+        label = "bench_finetune" if finetune else "bench_frozen"
+        k = torch_bench.Knobs(steps=2, warmup=1, finetune=finetune)
+        reset_counts()
+        res = torch_bench.run_bench(k, dev)
+        torch.cuda.synchronize()
+        by_path[label] = read_counts()
+        log(f"[bench] {label}: {json.dumps(res['line'])}")
+        per_step = {"K1": e.bert_layers, "K2": e.bert_layers if finetune else 0, "K3": 1, "K4": 0}
+        require(res["launches"] == {n: c * k.steps for n, c in per_step.items()},
+                f"{label}: launches {res['launches']} over {k.steps} steps, expected {per_step} a step")
+        runs = k.warmup + k.steps
+        require(by_path[label] == expected(**{name: c * runs for name, c in (
+            ("packed_attention", per_step["K1"]), ("packed_attention_bwd", per_step["K2"]),
+            ("capsule_routing", 1))}), f"{label}: launches {by_path[label]} over {runs} steps")
+        require(all(np.isfinite(res["losses"])) and res["line"]["value"] > 0, f"{label}: {res['losses']}")
+        if not finetune:  # the trace report of one frozen step, held to the counters
+            w = res["workload"]
+            reset_counts()
+            window = torch_trace_report.trace_window(lambda: w.force(w.step_once()), 1, dev)
+            by_path["bench_trace"] = read_counts()
+            report = torch_trace_report.report("step", window, 1, dev, top=8)
+            log(f"[bench] trace of one frozen step: {json.dumps({key: v for key, v in report.items() if key != 'top_ops'})}")
+            for row in report["top_ops"]:
+                log(f"[bench] {row['ms']:9.3f} ms x{row['calls']:<5d} {row['cat']:24s} {row['op'][:90]}")
+            held = {"attention_fwd_wgmma_kernel": e.bert_layers, "capsule_routing_kernel": 1}
+            require(window["traced"] == window["counted"] == held,
+                    f"trace launches {window['traced']}, counted {window['counted']}, expected {held}")
+            del w
+        del res
+        torch.cuda.empty_cache()
+
+    k = torch_bench.Knobs()
+    w = torch_bench.build_workload(torch_bench.phase_overrides(k.batch, {}), k, dev)
+    reset_counts()
+    table = torch_bench_phases.run_phases(w, steps=1, warmup=0, device=dev)
+    by_path["bench_phases"] = read_counts()
+    log(f"[bench] phases, one call each: {json.dumps(table)}")
+    times = [v for key, v in table.items() if key.endswith("_ms")]
+    require(all(np.isfinite(times)) and min(times) > 0, f"a phase took no time: {table}")
+    require(by_path["bench_phases"] == expected(packed_attention=3 * e.bert_layers, capsule_routing=2),
+            f"phases: launches {by_path['bench_phases']}, expected K1 = 12 in each of bert_fwd, model_fwd "
+            "and train_step and K3 = 1 in each of the last two")
+    del w
+    torch.cuda.empty_cache()
+
+    cfg = load_config(os.path.join(tmp, "flagship"))
+    predictor = Predictor(os.path.join(tmp, "flagship"), device="cuda")
+    reset_counts()
+    t0 = time.perf_counter()
+    predictor.warmup()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    by_path["serving_warmup"] = read_counts()
+    reset_counts()
+    t0 = time.perf_counter()
+    check_rows("after warm-up", predictor.predict_records(serving_records(cfg)[:1]), 1)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    log(f"[bench] Predictor.warmup {warm_s:.2f}s launched {by_path['serving_warmup']}; the first request "
+        f"{first_ms:.2f} ms launched {read_counts()}")
+    one = expected(packed_attention=cfg.encoder.bert_layers, capsule_routing=1)
+    require(by_path["serving_warmup"] == one == read_counts(), "the warm-up's launches are not a request's")
+    return by_path
 
 
 def phase_entry_point(dev, tmp: str) -> None:
@@ -4410,6 +4494,7 @@ def main() -> int:
         by_path["train_finetune"] = timed("train_finetune", phase_train_finetune, dev)
         by_path.update(timed("switches", phase_switches, dev))
         by_path["train_frozen"] = timed("train_frozen", phase_train_frozen, dev)
+        by_path.update(timed("bench", phase_bench, dev, tmp))
         by_path["serving_pp"] = timed("serving_pp", phase_serving_pp, dev, tmp)
         by_path["train_pp_finetune"] = timed(
             "train_pp_finetune", phase_train_finetune,

@@ -377,6 +377,7 @@ def cmd_predict(args) -> int:
         return 0
 
     if args.port is not None:
+        pred.warmup()
         server = make_http_server(pred, port=args.port)
         host, port = server.server_address[:2]
         print(f"[serve] http://{host}:{port}  POST /predict  GET /health", flush=True)

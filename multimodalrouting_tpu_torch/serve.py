@@ -15,7 +15,8 @@ contract).
   only (their routes are the 7). Under the loss-based sMRO gate the forward
   takes the route-loss EMA the checkpoint carries (zeros where it carries
   none). Requests are scored in slices of at most ``batch_size``
-  rows; eager PyTorch needs no padding to a static batch.
+  rows; eager PyTorch needs no padding to a static batch. ``warmup`` runs
+  one forward before the first request (``cli predict --port`` calls it).
 - ``make_http_server``: POST /predict, GET /health.
 """
 from __future__ import annotations
@@ -211,6 +212,16 @@ class Predictor:
         if n_ema:
             self.route_loss_ema = torch.tensor(rle or [0.0] * n_ema, device=self.device)
         self._lock = threading.Lock()  # one request at a time on the device
+
+    def warmup(self) -> None:
+        """Pay what a first request would before the first request: one
+        serving forward of an empty record, as the JAX package warms up.
+        Eager PyTorch compiles nothing per shape; on the card that forward
+        builds and loads the kernels it launches (``ops/hopper.py``) and lets
+        cuBLAS and cuDNN set up. An empty record still runs every encoder:
+        BERT over its all-pad chunks takes its attention branch by shape, so
+        it launches K1 in every layer and the head K3, as a real record does."""
+        self.predict(batch_from_records(self.cfg, [{}]))
 
     def forward(self, batch: Batch):
         """The serving forward of a host Batch -> the model's ModelOutput."""
