@@ -59,7 +59,14 @@ toolkit. It
    scripts/torch_bench_phases.py once, one frozen step traced by
    scripts/torch_trace_report.py with its attention forward and K3
    launches equal to the counters, and Predictor.warmup on the checkpoint
-   of 6 (K1 = 12, K3 = 1), then a request launching the same;
+   of 6 (K1 = 12, K3 = 1), then a request launching the same; then the
+   JAX repo's last four scripts briefly (phase_scripts):
+   scripts/torch_bench_text_cache.py at 1 warm-up and 1 timed step a leg
+   (the cache pass K1 = 12, a direct step K1/K2/K3 = 12/0/1, a cached one
+   0/0/1), scripts/torch_bench_bert.py at 16 chunks in bf16 and in int8
+   (K1 = 12 per forward), scripts/torch_bench_int8.py at m = 4096 (every
+   time and error finite) and scripts/torch_demo_families.py --only
+   capsule-mort-7 --epochs 1 at full width (rc 0, K3 = 1 per forward);
 8. serves the same weights from a train.pipeline_parallel=true config (the
    layers converted to the stacked pp_layers layout on load) at 1 and 16
    records through K4a, against the layered Predictor, and takes two
@@ -262,7 +269,11 @@ from multimodalrouting_tpu_torch.train.steps import loss_family, make_train_step
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts"))
 import torch_bench  # noqa: E402
+import torch_bench_bert  # noqa: E402
+import torch_bench_int8  # noqa: E402
 import torch_bench_phases  # noqa: E402
+import torch_bench_text_cache  # noqa: E402
+import torch_demo_families  # noqa: E402
 import torch_trace_report  # noqa: E402
 
 SEED = 0
@@ -1707,6 +1718,88 @@ def phase_bench(dev, tmp: str) -> dict:
         f"{first_ms:.2f} ms launched {read_counts()}")
     one = expected(packed_attention=cfg.encoder.bert_layers, capsule_routing=1)
     require(by_path["serving_warmup"] == one == read_counts(), "the warm-up's launches are not a request's")
+    return by_path
+
+
+SCRIPTS_BERT_N = 16  # phase_scripts: chunks of torch_bench_bert.py's forward
+SCRIPTS_INT8_M = 4096  # phase_scripts: rows of torch_bench_int8.py's product
+
+
+def phase_scripts(dev, tmp: str) -> dict:
+    """The JAX repo's last four scripts through their port copies, briefly:
+    the text-cache bench at 1 warm-up and 1 timed step a leg, the BERT
+    forward at SCRIPTS_BERT_N chunks in bf16 and int8, the int8 product at
+    SCRIPTS_INT8_M rows, and one full-width family run of the families
+    sweep (capsule-mort-7, one epoch over CLI_N stays a split)."""
+    by_path = {}
+    layers = flagship_cfg().encoder.bert_layers
+    none = {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+
+    k = torch_bench.Knobs(steps=1, warmup=1)
+    reset_counts()
+    res = torch_bench_text_cache.run_text_cache(k, dev)
+    torch.cuda.synchronize()
+    by_path["text_cache_bench"] = read_counts()
+    log(f"[scripts] text cache: {json.dumps(res['line'])}; launches {json.dumps(res['launches'])}")
+    held = {"cache_build": {**none, "K1": layers}, "direct": {**none, "K1": layers * k.steps, "K3": k.steps},
+            "cached": {**none, "K3": k.steps}}
+    require(res["launches"] == held, f"text cache: launches {res['launches']}, expected {held}")
+    runs = k.warmup + k.steps
+    require(by_path["text_cache_bench"] == expected(packed_attention=layers * (1 + runs), capsule_routing=2 * runs),
+            f"text cache: launches {by_path['text_cache_bench']} over the pass and {runs} steps a leg")
+    line = res["line"]
+    require(all(np.isfinite(list(res["losses"].values()))) and min(
+        line["direct_stays_per_sec"], line["cached_stays_per_sec"]) > 0, f"text cache: {line}, {res['losses']}")
+    del res
+    torch.cuda.empty_cache()
+
+    steps = 2
+    for int8 in (False, True):
+        label = f"bench_bert_{'int8' if int8 else 'bf16'}"
+        reset_counts()
+        r = torch_bench_bert.run_bert(SCRIPTS_BERT_N, steps, int8, "poly", dev)
+        torch.cuda.synchronize()
+        by_path[label] = read_counts()
+        log(f"[scripts] {label}: n={SCRIPTS_BERT_N} {r['ms']:.3f} ms/fwd {r['tflops']:.2f} TFLOP/s "
+            f"MFU={r['mfu_pct']:.2f}%; launches of one forward {json.dumps(r['launches'])}")
+        require(r["launches"] == {**none, "K1": layers}, f"{label}: launches {r['launches']} in one forward")
+        require(by_path[label] == expected(packed_attention=layers * (1 + steps)),
+                f"{label}: launches {by_path[label]} over {1 + steps} forwards")
+        require(bool(torch.isfinite(r["cls"]).all()) and r["ms"] > 0, f"{label}: non-finite CLS rows")
+    torch.cuda.empty_cache()
+
+    r = torch_bench_int8.run_int8(SCRIPTS_INT8_M, torch_bench_int8.K, torch_bench_int8.N, dev, steps=3)
+    log(f"[scripts] bench_int8 at [{SCRIPTS_INT8_M}, {torch_bench_int8.K}] x [{torch_bench_int8.K}, "
+        f"{torch_bench_int8.N}]: ms {json.dumps({n: t * 1e3 for n, t in r['seconds'].items()})}, "
+        f"dynamic dense rel err mean={r['rel_mean']:.4f} p99={r['rel_p99']:.4f}")
+    values = [*r["seconds"].values(), r["rel_mean"], r["rel_p99"]]
+    require(all(np.isfinite(values)) and min(r["seconds"].values()) > 0, f"bench_int8: {r}")
+    x32, w32, _, _ = torch_bench_int8.operands(SCRIPTS_INT8_M, torch_bench_int8.K, torch_bench_int8.N)
+    x, w = torch.from_numpy(x32), torch.from_numpy(w32)
+    ref = torch_bench_int8.quant_dense(x, w).float()  # the same prototype on the CPU
+    diff = float((torch_bench_int8.quant_dense(x.to(dev), w.to(dev)).float().cpu() - ref).abs().max())
+    log(f"[scripts] bench_int8: the dynamic dense on the card against the CPU: max |diff| {diff:.3e} "
+        f"of max |ref| {float(ref.abs().max()):.3e}")
+    require(diff <= 2.0**-7 * float(ref.abs().max()), f"bench_int8: the card's dynamic dense is {diff} off the CPU's")
+
+    out = os.path.join(tmp, "families")
+    buf = io.StringIO()
+    reset_counts()
+    with contextlib.redirect_stdout(buf):
+        rc = torch_demo_families.main(["--only", "capsule-mort-7", "--epochs", "1", "--n", str(CLI_N),
+                                       "--out", out])
+    torch.cuda.synchronize()
+    by_path["families_capsule_mort_7"] = read_counts()
+    with open(os.path.join(out, "summary.json")) as f:
+        row = json.load(f)[0]
+    log(f"[scripts] torch_demo_families.py capsule-mort-7: rc={rc} {json.dumps(row)}")
+    forwards = CLI_N // CLI_BATCH + 2 * -(-CLI_N // CLI_BATCH)  # the steps, validation and test
+    require(rc == 0 and row["rc"] == 0 and row["epochs"] == 1 and np.isfinite(row["val_auroc_best"]),
+            f"families run: rc {rc}, {row}")
+    require(by_path["families_capsule_mort_7"] == expected(capsule_routing=forwards),
+            f"families run: launches {by_path['families_capsule_mort_7']}, expected K3 = {forwards}")
+    shutil.rmtree(out)
+    torch.cuda.empty_cache()
     return by_path
 
 
@@ -4495,6 +4588,7 @@ def main() -> int:
         by_path.update(timed("switches", phase_switches, dev))
         by_path["train_frozen"] = timed("train_frozen", phase_train_frozen, dev)
         by_path.update(timed("bench", phase_bench, dev, tmp))
+        by_path.update(timed("scripts", phase_scripts, dev, tmp))
         by_path["serving_pp"] = timed("serving_pp", phase_serving_pp, dev, tmp)
         by_path["train_pp_finetune"] = timed(
             "train_pp_finetune", phase_train_finetune,

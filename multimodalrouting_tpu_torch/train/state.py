@@ -294,18 +294,26 @@ def load_train_state_dict(state: TrainState, saved: Dict[str, Any], *, params_on
     route-loss EMA and the loop's schedule. ``params_only`` takes the
     weights, buffers, EMA and route-loss EMA and keeps the fresh moments,
     count, step and schedule (stage chaining carries the route-loss EMA
-    across stages, as the reference's trainer does). An EMA the checkpoint
-    lacks, or lacks for a parameter, starts from the restored parameter; a
-    route-loss EMA it lacks (a checkpoint from before the buffer, or of
-    another gate) stays as `state` holds it. A state that holds model-sharded
-    slices (``shards``) takes this rank's slices of the full tensors."""
+    across stages, as the reference's trainer does). Under ``params_only``
+    the checkpoint's weights that the model lacks are left out (a loss-based
+    stage warm-started from a learned gate's), as flax's ``from_state_dict``
+    leaves them; a weight the checkpoint lacks raises either way. An EMA the
+    checkpoint lacks, or lacks for a parameter, starts from the restored
+    parameter; a route-loss EMA it lacks (a checkpoint from before the
+    buffer, or of another gate) stays as `state` holds it. A state that holds
+    model-sharded slices (``shards``) takes this rank's slices of the full
+    tensors."""
     if not params_only and sorted(saved["mu"]) != sorted(state.names):
         raise ValueError(
             f"the checkpoint's optimizer covers {len(saved['mu'])} parameters and this run trains "
             f"{len(state.names)}; a full restore needs the same trainable set (warm-start with --init-from)"
         )
     local = (lambda n, v: v) if state.shards is None else state.shards.local  # noqa: E731
-    state.model.load_state_dict({k: local(k, v) for k, v in saved["model"].items()})
+    weights = saved["model"]
+    if params_only:  # flax's from_state_dict walks the model's keys: a stage's extra weights are left out
+        own = state.model.state_dict()
+        weights = {k: v for k, v in weights.items() if k in own}
+    state.model.load_state_dict({k: local(k, v) for k, v in weights.items()})
     with torch.no_grad():
         if state.ema is not None:
             ema = saved.get("ema") or {}

@@ -10,7 +10,11 @@
 #   - torch_bench.py, the frozen and the fine-tuned leg in turns, 3 times
 #     each;
 #   - torch_bench_phases.py, both legs;
-#   - torch_trace_report.py: step in both legs, step_cached, bert and cxr.
+#   - torch_trace_report.py: step in both legs, step_cached, bert and cxr;
+#   - torch_bench_text_cache.py once;
+#   - torch_bench_bert.py with the poly GELU (its default), with
+#     BENCH_GELU=erf and with BENCH_BERT_INT8=1;
+#   - torch_bench_int8.py once.
 # Each run's output goes to OUT_DIR/<name>.log; the card's name and power
 # limit to OUT_DIR/card.txt.
 #
@@ -48,3 +52,8 @@ run trace_step_finetune env BENCH_FINETUNE=1 python3 scripts/torch_trace_report.
 run trace_step_cached env BENCH_FINETUNE=0 python3 scripts/torch_trace_report.py step_cached
 run trace_bert python3 scripts/torch_trace_report.py bert
 run trace_cxr python3 scripts/torch_trace_report.py cxr
+run text_cache python3 scripts/torch_bench_text_cache.py
+run bert_poly python3 scripts/torch_bench_bert.py
+run bert_erf env BENCH_GELU=erf python3 scripts/torch_bench_bert.py
+run bert_int8 env BENCH_BERT_INT8=1 python3 scripts/torch_bench_bert.py
+run int8 python3 scripts/torch_bench_int8.py
