@@ -52,7 +52,11 @@ toolkit. It
    the loss within 2**-8 and every gradient norm within 1e-2 of the
    default step's, fewer GEMMs in the forward, no more peak memory), each
    after a warm-up step; MMR_PACKED_BWD=xla raises in the packed backward
-   of CUDA tensors; one step under the frozen-text default; then the
+   of CUDA tensors; one step under the frozen-text default, its fresh
+   model's every parameter first held to the rule models/init.py drew it by
+   (each random leaf's std within 3% of the rule's at its real shape, the
+   10-route projector's [10, d_in, pc+1] among them; constant leaves
+   equal to their values); then the
    repo's measuring entry points briefly (phase_bench): bench.py's two legs
    through scripts/torch_bench.py (1 + 2 steps each, K1/K2/K3 = 12/0/1 and
    12/12/1 a step, their JSON lines), each phase of
@@ -85,8 +89,8 @@ toolkit. It
    capsule head at M = 2 and M = 25, LateFusion, TriMF): each a seeded
    checkpoint served by Predictor(family=..., device="cuda") at 1 and 16
    records (K1 = 12 per forward, K3 = 1 on the capsule paths, nothing
-   else) against fp32 on the CPU (probabilities, gates, block weights,
-   alpha), its batch-16 profile and peak memory, and one frozen step; then
+   else) against fp32 on the CPU over the first record (probabilities,
+   gates, block weights, alpha), its batch-16 profile and peak memory, and one frozen step; then
    one step per curriculum stage, gated step1 (fine-tuned notes: K2 = 12)
    -> step2 -> step3 and FAME++ uni -> bi -> tri under the loss-based
    gate, warm-started as --init-from does, with the frozen parameters (and
@@ -225,6 +229,7 @@ from multimodalrouting_tpu_torch.ckpt import host_copy, load_config, load_meta, 
 from multimodalrouting_tpu_torch.configs import apply_overrides, load_cfg, to_dict
 from multimodalrouting_tpu_torch.data.batches import batch_to
 from multimodalrouting_tpu_torch.data.synthetic import make_synthetic_cohort
+from multimodalrouting_tpu_torch.models import init as model_init
 from multimodalrouting_tpu_torch.models.cxr import BatchNorm
 from multimodalrouting_tpu_torch.models.full import build_model
 from multimodalrouting_tpu_torch.ops import hopper
@@ -1625,12 +1630,57 @@ def phase_splash(dev, tmp: str) -> dict:
     return out
 
 
+INIT_STD_TOL = 0.03  # a random leaf's std against its rule's
+INIT_MIN_VALUES = 2**14  # 3% is 5.4 standard errors of a normal sample's std here
+
+
+def check_fresh_init(model, label: str) -> None:
+    """Every parameter of a fresh `model` against the rule ``models/init.py``
+    drew it by, at its real shape: each random leaf of at least
+    INIT_MIN_VALUES values its std within INIT_STD_TOL of the rule's; the
+    smaller ones pooled, each divided by its rule's std, the pool's std
+    within INIT_STD_TOL or five standard errors of a normal sample of the
+    pool's size, whichever is wider; each constant leaf equal to its
+    rule's values."""
+    rules = model_init.rules(model)
+    params = dict(model.named_parameters())
+    require(set(rules) == set(params), f"[init] parameters without a rule: {sorted(set(params) - set(rules))[:8]}")
+    ratios, pooled, n_const = {}, [], 0
+    for name, (rule, shape) in rules.items():
+        w = params[name].detach().float().flatten()
+        std = rule.std(shape)
+        if std == 0.0:
+            want = rule(shape).flatten().to(w.device)
+            require(torch.equal(w.sort().values, want.sort().values), f"[init] {name}: constant leaf differs")
+            n_const += 1
+        elif w.numel() >= INIT_MIN_VALUES:
+            ratios[name] = w.std().item() / std
+        else:
+            pooled.append(w / std)
+    pool = torch.cat(pooled)
+    pool_ratio, pool_tol = pool.std().item(), max(INIT_STD_TOL, 5.0 / math.sqrt(2 * pool.numel()))
+    worst = max(ratios, key=lambda k: abs(ratios[k] - 1.0))
+    proj, (proj_rule, proj_shape) = "projector.kernel", rules["projector.kernel"]
+    proj_ratio = params[proj].detach().float().std().item() / proj_rule.std(proj_shape)
+    log(f"[init] {label}: {len(params)} parameters, {n_const} constant (equal); {len(ratios)} random leaves of "
+        f">= {INIT_MIN_VALUES} values, std / rule {min(ratios.values()):.4f}-{max(ratios.values()):.4f} (worst "
+        f"{worst}); {len(pooled)} smaller ones pooled ({pool.numel()} values): {pool_ratio:.4f} (band "
+        f"{pool_tol:.4f}); {proj} {list(proj_shape)}: {proj_ratio:.4f} (rule std {proj_rule.std(proj_shape):.5f})")
+    require(all(abs(r - 1.0) <= INIT_STD_TOL for r in ratios.values()),
+            f"[init] {worst}: std / rule {ratios[worst]:.4f} beyond {INIT_STD_TOL}")
+    require(abs(proj_ratio - 1.0) <= INIT_STD_TOL, f"[init] {proj}: std / rule {proj_ratio:.4f}")
+    require(abs(pool_ratio - 1.0) <= pool_tol,
+            f"[init] the pooled small leaves: std / rule {pool_ratio:.4f} over {pool.numel()} values")
+
+
 def phase_train_frozen(dev) -> dict:
     """One step under the frozen-text default: K1 runs without a gradient,
-    K2 never, K3 under autograd."""
+    K2 never, K3 under autograd. First the fresh model's parameters
+    against their initializers' rules (``check_fresh_init``)."""
     cfg = flagship_cfg()
     torch.manual_seed(SEED)
     model = build_model(cfg, device="cuda", train=True)
+    check_fresh_init(model, "fresh full-width flagship")
     state = create_train_state(cfg, model)
     cohort = full_width_cohort(cfg, cfg.train.batch_size, SEED)
     step = make_train_step(cfg, model)
@@ -1921,7 +1971,8 @@ def max_diff(a, b) -> float:
 def serve_family(label: str, family: str, cfg, tmp: str) -> dict:
     """A seeded checkpoint of the path served by Predictor(family=...,
     device="cuda") at 1 and 16 records (launches read around exactly those
-    two forwards), against the same weights in fp32 on the CPU (2 records):
+    two forwards), against the same weights in fp32 on the CPU (the first
+    record: the CPU forward is most of the path's time):
     probabilities of every label, and gates, block weights and alpha where
     the family has them. Then the batch-16 forward's profile and peak memory."""
     ckpt = os.path.join(tmp, label)
@@ -1948,15 +1999,15 @@ def serve_family(label: str, family: str, cfg, tmp: str) -> dict:
 
     ref_dir = checkpoint_variant(ckpt, os.path.join(tmp, label + "_fp32"), "model", "dtype", "float32")
     ref = Predictor(ref_dir, family, device="cpu")
-    two = batch_from_records(cfg, records[:2])
-    out, ref_out = predictor.forward(two), ref.forward(two)
+    first = batch_from_records(cfg, records[:1])
+    out, ref_out = predictor.forward(first), ref.forward(first)
     ref_probs = calibrate_probs(probs_from_logits(ref_out.logits.numpy(), cfg.model.task), ref.temperature)
-    diffs = {"prob": float(np.abs(np.asarray([r["probs"] for r in rows[:2]], np.float64).reshape(2, -1)
-                                  - np.asarray(ref_probs, np.float64).reshape(2, -1)).max())}
+    diffs = {"prob": float(np.abs(np.asarray([r["probs"] for r in rows[:1]], np.float64).reshape(1, -1)
+                                  - np.asarray(ref_probs, np.float64).reshape(1, -1)).max())}
     for name in ("gates", "block_w", "alpha"):
         if getattr(ref_out, name) is not None:
             diffs[name] = max_diff(getattr(out, name), getattr(ref_out, name))
-    log(f"[families] {label}: card bf16 vs CPU fp32 over 2 records: "
+    log(f"[families] {label}: card bf16 vs CPU fp32 over 1 record: "
         + ", ".join(f"max|d{k}|={v:.3e}" for k, v in diffs.items()) + f" (tol {E2E_TOL}); "
         f"checkpoint and references in {time.perf_counter() - t0:.1f}s")
     require(all(v <= E2E_TOL for v in diffs.values()), f"{label}: serving disagrees with the fp32 CPU reference")
@@ -3883,7 +3934,7 @@ MESH_TOL = 2e-2  # a two-rank bf16 step against the one-process bf16 step (E2E_T
 # (b)'s and (f)'s steps: their checks read step 1 and the ranks' bits, the
 # step time step 2
 ZERO_STEPS, TP_STEPS = 2, 2
-TP_CLI_N = 32  # (h)'s synthetic stays per split: 2 steps an epoch
+TP_CLI_N = 32  # (d)'s, (h)'s and (k)'s synthetic stays per split: 2 steps an epoch
 # ZeRO against replicated moments after one step, fp32 masters: only the
 # clip norm's sum runs in another order, and Adam's update is invariant to
 # that scale but for eps; an element moves by lr * O(1) at most
@@ -4459,7 +4510,7 @@ def phase_mesh(dev, tmp: str) -> dict:
     run_dir = os.path.join(tmp, "mesh_cli")
     yaml = os.path.join(ROOT, "configs", "trimodal_mort.yaml")
     argv = ["train", "--config", yaml, "--mesh", "data=2", "--out", run_dir, "--device", "cuda", "--epochs", "1",
-            *set_args(*CLI_ONCE)]
+            *set_args(*CLI_ONCE, f"data.synthetic_n={TP_CLI_N}")]
     port = str(free_port())
     t1 = time.perf_counter()
     outs = spawn_ranks(lambda r: ["--cli-rank", json.dumps(argv)],
@@ -4473,7 +4524,7 @@ def phase_mesh(dev, tmp: str) -> dict:
     summary = json.loads(outs[0].strip().splitlines()[-1])
     log(f"[mesh] (d) cli train --mesh data=2: {secs:.1f}s for both ranks, {summary}")
     lines, launches = run_cli(["eval", "--ckpt", run_dir, "--device", "cuda"])
-    want = expected(capsule_routing=-(-CLI_N // CLI_BATCH))
+    want = expected(capsule_routing=-(-TP_CLI_N // CLI_BATCH))
     require(launches == want, f"cli eval of the mesh checkpoint: launches {launches}, expected {want}")
     out["mesh_cli_eval"] = launches
     shutil.rmtree(run_dir)

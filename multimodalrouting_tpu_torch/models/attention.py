@@ -42,6 +42,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from multimodalrouting_tpu_torch.models import init
 from multimodalrouting_tpu_torch.models.layers import Dense, dropout
 from multimodalrouting_tpu_torch.ops import flash, flash_packed
 from multimodalrouting_tpu_torch.ops.masked import NEG_INF
@@ -181,7 +182,7 @@ class MultiheadAttention(nn.Module):
         dense = QuantDense if int8 else Dense
         self.int8 = int8
         for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
-            setattr(self, name, dense(d, d, dtype=dtype))
+            setattr(self, name, dense(d, d, dtype=dtype, kernel_init=init.xavier_uniform))
 
     def forward(self, q, k, v, kv_mask=None, attn_bias=None, generator=None) -> torch.Tensor:
         scaling = (self.d // self.num_heads) ** -0.5

@@ -13,6 +13,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from multimodalrouting_tpu_torch.models import init
 from multimodalrouting_tpu_torch.models.attention import MultiheadAttention
 from multimodalrouting_tpu_torch.models.layers import Dense, dropout
 from multimodalrouting_tpu_torch.ops.layernorm import LayerNorm
@@ -51,10 +52,10 @@ class BEHRTLabEncoder(nn.Module):
     ):
         super().__init__()
         self.d, self.seq_len, self.pool, self.dtype = d, seq_len, pool, dtype
-        self.pos = nn.Parameter(torch.randn(1, seq_len, d) * 0.02)
+        init.param(self, "pos", init.normal(0.02), (1, seq_len, d))
         self.input_proj = Dense(n_feats, d, dtype=dtype)
         if pool == "cls":
-            self.cls_token = nn.Parameter(torch.randn(1, 1, d) * 0.02)
+            init.param(self, "cls_token", init.normal(0.02), (1, 1, d))
         self.n_layers = n_layers
         for i in range(n_layers):
             self.add_module(f"layer_{i}", PostLNEncoderLayer(d, n_heads, dtype, dropout))

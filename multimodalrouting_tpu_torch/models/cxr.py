@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from multimodalrouting_tpu_torch.models import init
 from multimodalrouting_tpu_torch.models.layers import Dense
 from multimodalrouting_tpu_torch.parallel.mesh import get_active_mesh, global_mean
 
@@ -59,8 +60,7 @@ class Conv(nn.Module):
 
     def __init__(self, c_in: int, c_out: int, k: int, stride: int, dtype):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty(c_out, c_in, k, k))
-        nn.init.kaiming_normal_(self.weight)
+        init.param(self, "weight", init.lecun_normal, (k, k, c_in, c_out), (c_out, c_in, k, k))
         self.stride, self.pad, self.dtype = stride, k // 2, dtype
 
     def forward(self, x):
@@ -76,8 +76,8 @@ class BatchNorm(nn.Module):
 
     def __init__(self, c: int, dtype, eps: float = 1e-5):
         super().__init__()
-        self.weight = nn.Parameter(torch.ones(c))
-        self.bias = nn.Parameter(torch.zeros(c))
+        init.param(self, "weight", init.ones, (c,))
+        init.param(self, "bias", init.zeros, (c,))
         self.register_buffer("running_mean", torch.zeros(c))
         self.register_buffer("running_var", torch.ones(c))
         self.eps, self.dtype = eps, dtype
@@ -108,8 +108,8 @@ class GroupNorm(nn.Module):
 
     def __init__(self, c: int, dtype, groups: int = 32, eps: float = 1e-6):
         super().__init__()
-        self.weight = nn.Parameter(torch.ones(c))
-        self.bias = nn.Parameter(torch.zeros(c))
+        init.param(self, "weight", init.ones, (c,))
+        init.param(self, "bias", init.zeros, (c,))
         self.groups, self.eps, self.dtype = groups, eps, dtype
 
     def forward(self, x, train: bool = False):

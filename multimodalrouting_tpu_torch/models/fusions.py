@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from multimodalrouting_tpu_torch.models import init
 from multimodalrouting_tpu_torch.models.attention import MultiheadAttention
 from multimodalrouting_tpu_torch.models.layers import Dense, dropout
 from multimodalrouting_tpu_torch.ops.layernorm import LayerNorm
@@ -66,7 +67,7 @@ class PairwiseFusion(nn.Module):
         super().__init__()
         self.feature_mode = feature_mode
         self.mlp = MLPBlock((2 if feature_mode == "concat" else 4) * d, d, p_drop=p_drop, dtype=dtype)
-        self.res_scale = nn.Parameter(torch.tensor(0.5))
+        init.param(self, "res_scale", init.constant(0.5), ())
 
     def forward(self, za, zb, generator=None):
         if self.feature_mode == "concat":
@@ -82,7 +83,7 @@ class TrimodalFusion(nn.Module):
         super().__init__()
         self.feature_mode = feature_mode
         self.mlp = MLPBlock((3 if feature_mode == "concat" else 7) * d, d, p_drop=p_drop, dtype=dtype)
-        self.res_scale = nn.Parameter(torch.tensor(0.5))
+        init.param(self, "res_scale", init.constant(0.5), ())
 
     def forward(self, zl, zn, zi, generator=None):
         if self.feature_mode == "concat":
@@ -167,7 +168,7 @@ class TrimodalCrossEncoder(nn.Module):
         self.pool_ln0 = LayerNorm(3 * d, EPS, dtype)
         self.pool_fc0 = Dense(3 * d, 4 * d, dtype=dtype)
         self.pool_fc1 = Dense(4 * d, d, dtype=dtype)
-        self.res_scale = nn.Parameter(torch.tensor(0.5))
+        init.param(self, "res_scale", init.constant(0.5), ())
 
     def forward(self, zl, zn, zi, generator=None):
         xl, xn, xi = zl[:, None, :], zn[:, None, :], zi[:, None, :]
@@ -217,7 +218,7 @@ class TriTokenAttentionFusion(nn.Module):
     def __init__(self, d: int, n_heads: int = 4, p_drop: float = 0.1, dtype=torch.float32):
         super().__init__()
         self.d = d
-        self.query = nn.Parameter(torch.randn(1, 1, d) * 0.02)
+        init.param(self, "query", init.normal(0.02), (1, 1, d))
         self.ln_kv = LayerNorm(d, EPS, dtype)
         self.attn = MultiheadAttention(d, n_heads, dropout=p_drop, dtype=dtype)
         self.out_proj_ln = LayerNorm(d, EPS, dtype)

@@ -7,6 +7,14 @@ stored in the compute dtype already (the frozen BERT body) is used as is.
 ``StackedDense`` holds G independent Dense layers as one [G, in, out] weight
 in the JAX layout, applied to a leading stream axis with one batched matmul.
 ``dropout`` is flax's nn.Dropout, drawing from an explicit generator.
+
+Fresh weights come from ``models/init.py``, as flax draws them: ``Dense``'s
+kernel from ``kernel_init`` on its JAX shape [in, out] (flax's default,
+``lecun_normal``, unless the caller passes another, as the attention
+projections pass ``xavier_uniform``), biases zeros, ``Embed`` flax's
+default embedding init (a normal of std features^-1/2), and
+``StackedDense`` ``kernel_init`` on each [in, out] slice (``nn.vmap``'s
+per-slice init). ``tests/test_torch_init.py`` holds them against flax.
 """
 from __future__ import annotations
 
@@ -16,14 +24,19 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from multimodalrouting_tpu_torch.models import init
+
 
 class Dense(nn.Module):
-    def __init__(self, d_in: int, d_out: int, bias: bool = True, dtype: torch.dtype = torch.float32):
+    def __init__(self, d_in: int, d_out: int, bias: bool = True, dtype: torch.dtype = torch.float32,
+                 kernel_init=init.lecun_normal):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty(d_out, d_in))
-        self.bias = nn.Parameter(torch.zeros(d_out)) if bias else None
+        init.param(self, "weight", kernel_init, (d_in, d_out), (d_out, d_in))
+        if bias:
+            init.param(self, "bias", init.zeros, (d_out,))
+        else:
+            self.bias = None
         self.dtype = dtype
-        nn.init.xavier_uniform_(self.weight)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
@@ -34,7 +47,7 @@ class Dense(nn.Module):
 class Embed(nn.Module):
     def __init__(self, num: int, features: int, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.weight = nn.Parameter(torch.randn(num, features) * features**-0.5)
+        init.param(self, "weight", init.embed_normal, (num, features))
         self.dtype = dtype
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
@@ -44,13 +57,12 @@ class Embed(nn.Module):
 class StackedDense(nn.Module):
     """G Dense layers: x [G, ..., in] -> [G, ..., out]."""
 
-    def __init__(self, g: int, d_in: int, d_out: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, g: int, d_in: int, d_out: int, dtype: torch.dtype = torch.float32,
+                 kernel_init=init.lecun_normal):
         super().__init__()
-        self.kernel = nn.Parameter(torch.empty(g, d_in, d_out))
-        self.bias = nn.Parameter(torch.zeros(g, d_out))
+        init.param(self, "kernel", init.stacked(kernel_init), (g, d_in, d_out))
+        init.param(self, "bias", init.zeros, (g, d_out))
         self.dtype = dtype
-        for w in self.kernel.data:
-            nn.init.xavier_uniform_(w)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype

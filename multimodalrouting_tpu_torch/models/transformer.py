@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from multimodalrouting_tpu_torch.models.attention import attention, future_mask, sinusoidal_positions, use_fused_qkv
+from multimodalrouting_tpu_torch.models import init
 from multimodalrouting_tpu_torch.models.layers import StackedDense, dropout
 from multimodalrouting_tpu_torch.ops.layernorm import layer_norm
 
@@ -37,8 +38,8 @@ class StackedLayerNorm(nn.Module):
 
     def __init__(self, g: int, d: int, dtype, eps: float = 1e-5):
         super().__init__()
-        self.scale = nn.Parameter(torch.ones(g, d))
-        self.bias = nn.Parameter(torch.zeros(g, d))
+        init.param(self, "scale", init.ones, (g, d))
+        init.param(self, "bias", init.zeros, (g, d))
         self.eps, self.dtype = eps, dtype
 
     def forward(self, x):
@@ -64,7 +65,7 @@ class StackedMultiheadAttention(nn.Module):
         super().__init__()
         self.d, self.num_heads, self.dtype, self.attn_dropout = d, num_heads, dtype, attn_dropout
         for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
-            setattr(self, name, StackedDense(g, d, d, dtype))
+            setattr(self, name, StackedDense(g, d, d, dtype, kernel_init=init.xavier_uniform))
 
     def forward(self, q, k, v, kv_mask=None, attn_bias=None, generator=None):
         """q [G,B,Tq,d], k/v [G,B,Tk,d], kv_mask [G,B,Tk]; attn_bias
@@ -97,8 +98,8 @@ class StackedMulTEncoderLayer(nn.Module):
         self.ln0 = StackedLayerNorm(g, d, dtype)
         self.ln1 = StackedLayerNorm(g, d, dtype)
         self.attn = StackedMultiheadAttention(g, d, num_heads, dtype, attn_dropout)
-        self.fc1 = StackedDense(g, d, 4 * d, dtype)
-        self.fc2 = StackedDense(g, 4 * d, d, dtype)
+        self.fc1 = StackedDense(g, d, 4 * d, dtype, kernel_init=init.xavier_uniform)
+        self.fc2 = StackedDense(g, 4 * d, d, dtype, kernel_init=init.xavier_uniform)
 
     def forward(self, x, x_k=None, x_v=None, q_mask=None, kv_mask=None, generator=None, attn_bias=None):
         q_keep = None if q_mask is None else q_mask.to(x.dtype)[..., None]

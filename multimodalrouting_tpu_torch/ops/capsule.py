@@ -28,9 +28,14 @@ class CapsuleOut(NamedTuple):
     coef: torch.Tensor  # [B, N, M] routing coefficients
 
 
+def capsule_weight_std(n_in: int, a: int, m: int) -> float:
+    """The capsule weights' std, sqrt(M / (A * N)), as the JAX package draws them."""
+    return math.sqrt(m / (a * n_in))
+
+
 def capsule_weight_init(n_in: int, a: int, m: int, d: int, generator: Optional[torch.Generator] = None):
     """sqrt(M / (A * N)) * randn, as the JAX package initialises it."""
-    return math.sqrt(m / (a * n_in)) * torch.randn((n_in, a, m, d), generator=generator)
+    return capsule_weight_std(n_in, a, m) * torch.randn((n_in, a, m, d), generator=generator)
 
 
 def _gate_temp_and_clamp(act, temp: float, gmin: float, gmax: float, eps: float = 1e-6):

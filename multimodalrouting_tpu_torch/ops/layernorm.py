@@ -11,6 +11,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from multimodalrouting_tpu_torch.models import init
+
 
 def _stats(x: torch.Tensor, eps: float):
     xf = x.float()
@@ -38,8 +40,8 @@ class LayerNorm(nn.Module):
 
     def __init__(self, features: int, eps: float, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.weight = nn.Parameter(torch.ones(features))
-        self.bias = nn.Parameter(torch.zeros(features))
+        init.param(self, "weight", init.ones, (features,))
+        init.param(self, "bias", init.zeros, (features,))
         self.eps = eps
         self.dtype = dtype
 

@@ -29,6 +29,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from multimodalrouting_tpu_torch.models import init
+
 
 def int8_scale(amax: torch.Tensor) -> torch.Tensor:
     """The symmetric int8 scale of fp32 maxima |x|."""
@@ -67,14 +69,19 @@ def int8_matmul(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
 class QuantDense(nn.Module):
     """``layers.Dense`` with its matmul in int8: the same parameters
     (``weight`` [out, in], ``bias`` [out]), so a state_dict loads into
-    either. Inference only."""
+    either, drawn fresh as ``Dense`` draws them (``models/init.py``:
+    ``kernel_init``, flax's default ``lecun_normal`` on [in, out], as JAX
+    ``QuantDense`` draws its kernel; biases zeros). Inference only."""
 
-    def __init__(self, d_in: int, d_out: int, bias: bool = True, dtype: torch.dtype = torch.float32):
+    def __init__(self, d_in: int, d_out: int, bias: bool = True, dtype: torch.dtype = torch.float32,
+                 kernel_init=init.lecun_normal):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty(d_out, d_in))
-        self.bias = nn.Parameter(torch.zeros(d_out)) if bias else None
+        init.param(self, "weight", kernel_init, (d_in, d_out), (d_out, d_in))
+        if bias:
+            init.param(self, "bias", init.zeros, (d_out,))
+        else:
+            self.bias = None
         self.dtype = dtype
-        nn.init.xavier_uniform_(self.weight)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         wq, s_w = quantize_per_channel(self.weight, axis=1)  # [out, in], s_w [out, 1]

@@ -47,6 +47,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from multimodalrouting_tpu_torch.models import init
 from multimodalrouting_tpu_torch.ops import flash
 from multimodalrouting_tpu_torch.ops.gelu import apply_gelu
 from multimodalrouting_tpu_torch.ops.masked import NEG_INF
@@ -346,22 +347,21 @@ class PipelinedBertLayers(nn.Module):
         super().__init__()
         self.heads, self.gelu, self.dtype, self.n_micro, self.remat = heads, gelu, dtype, n_micro, remat
         h, i, n = hidden, intermediate, layers
-        shapes = {
-            "q_kernel": (n, h, h), "q_bias": (n, h), "k_kernel": (n, h, h), "k_bias": (n, h),
-            "v_kernel": (n, h, h), "v_bias": (n, h), "o_kernel": (n, h, h), "o_bias": (n, h),
-            "attn_ln_scale": (n, h), "attn_ln_bias": (n, h), "i_kernel": (n, h, i), "i_bias": (n, i),
-            "f_kernel": (n, i, h), "f_bias": (n, h), "ln_scale": (n, h), "ln_bias": (n, h),
+        # per-slice kernels, as the layered BERT draws them: the attention
+        # projections xavier_uniform, the FFN flax's default lecun_normal
+        xavier, lecun = init.stacked(init.xavier_uniform), init.stacked(init.lecun_normal)
+        spec = {
+            "q_kernel": ((n, h, h), xavier), "q_bias": ((n, h), init.zeros),
+            "k_kernel": ((n, h, h), xavier), "k_bias": ((n, h), init.zeros),
+            "v_kernel": ((n, h, h), xavier), "v_bias": ((n, h), init.zeros),
+            "o_kernel": ((n, h, h), xavier), "o_bias": ((n, h), init.zeros),
+            "attn_ln_scale": ((n, h), init.ones), "attn_ln_bias": ((n, h), init.zeros),
+            "i_kernel": ((n, h, i), lecun), "i_bias": ((n, i), init.zeros),
+            "f_kernel": ((n, i, h), lecun), "f_bias": ((n, h), init.zeros),
+            "ln_scale": ((n, h), init.ones), "ln_bias": ((n, h), init.zeros),
         }
-        for name, shape in shapes.items():
-            if name.endswith("_kernel"):
-                w = torch.empty(shape)
-                for layer in w:  # per-slice init, as the layered Dense
-                    nn.init.xavier_uniform_(layer)
-            elif name.endswith("_scale"):
-                w = torch.ones(shape)
-            else:
-                w = torch.zeros(shape)
-            self.register_parameter(name, nn.Parameter(w))
+        for name, (shape, initializer) in spec.items():
+            init.param(self, name, initializer, shape)
 
     def forward(self, x: torch.Tensor, attn_mask: torch.Tensor) -> torch.Tensor:
         w = {name: getattr(self, name) for name in LEAVES}

@@ -1,5 +1,6 @@
-"""Capsule routing heads: route projector, prior composition and the decision
-head (counterpart of multimodalrouting_tpu/routing/capsule_head.py).
+"""Capsule routing heads: route projector, route-width adapter, prior
+composition and the decision head (counterpart of
+multimodalrouting_tpu/routing/capsule_head.py).
 
 Head styles: "rmatrix" (routing sees all-ones masked acts; logits from the
 R-matrix aggregation of the primary poses), "class_linear" and "class_embed"
@@ -12,8 +13,9 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
+from multimodalrouting_tpu_torch.models import init
 from multimodalrouting_tpu_torch.models.layers import Dense
-from multimodalrouting_tpu_torch.ops.capsule import capsule_routing, capsule_weight_init, route_given_label
+from multimodalrouting_tpu_torch.ops.capsule import capsule_routing, capsule_weight_std, route_given_label
 
 INTERACTION_ROUTES = ("LN", "NL", "LI", "IL", "NI", "IN", "LNI")
 
@@ -28,14 +30,14 @@ class RoutePrimaryProjector(nn.Module):
         super().__init__()
         self.routes, self.pc_dim, self.prior_floor, self.dtype = tuple(routes), pc_dim, prior_floor, dtype
         r = len(routes)
-        self.kernel = nn.Parameter(torch.randn(r, d_in, pc_dim + 1) * d_in**-0.5)
-        self.bias = nn.Parameter(torch.zeros(r, pc_dim + 1))
-        self.route_logit_bias = None
+        # lecun_normal on the whole [R, d_in, pc+1]: the route axis counts into the fan
+        init.param(self, "kernel", init.lecun_normal, (r, d_in, pc_dim + 1))
+        init.param(self, "bias", init.zeros, (r, pc_dim + 1))
         if use_route_logit_bias:
-            init = torch.tensor(
-                [[interaction_bias_init if name in INTERACTION_ROUTES else 0.0] for name in routes]
-            )
-            self.route_logit_bias = nn.Parameter(init)
+            values = tuple((interaction_bias_init if name in INTERACTION_ROUTES else 0.0,) for name in routes)
+            init.param(self, "route_logit_bias", init.constant(values), (r, 1))
+        else:
+            self.route_logit_bias = None
 
     def forward(self, route_embs: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
         missing = set(self.routes) - set(route_embs)
@@ -52,6 +54,27 @@ class RoutePrimaryProjector(nn.Module):
         if self.prior_floor > 0.0:
             acts = torch.clamp(acts, min=self.prior_floor)
         return poses, acts
+
+
+class RouteDimAdapter(nn.Module):
+    """Per-route Linear(d_src -> d_in, no bias) as one stacked einsum; the
+    identity (no parameter) when d_src == d_in."""
+
+    def __init__(self, routes: Tuple[str, ...], d_in: int, d_src: int, dtype=torch.float32):
+        super().__init__()
+        self.routes, self.dtype = tuple(routes), dtype
+        self.identity = d_src == d_in
+        if not self.identity:
+            # lecun_normal on the whole [R, d_src, d_in]: the route axis counts into the fan
+            init.param(self, "kernel", init.lecun_normal, (len(self.routes), d_src, d_in))
+
+    def forward(self, route_embs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        if self.identity:
+            return dict(route_embs)
+        dt = self.dtype
+        x = torch.stack([route_embs[k] for k in self.routes], dim=1).to(dt)  # [B,R,src]
+        y = torch.einsum("brs,rsd->brd", x, self.kernel.to(dt))
+        return {k: y[:, i] for i, k in enumerate(self.routes)}
 
 
 def compose_priors(
@@ -112,15 +135,16 @@ class CapsuleHead(nn.Module):
         self.num_routes, self.num_routing, self.head_style = num_routes, num_routing, head_style
         self.routing_mode, self.act_type, self.uniform_routing = routing_mode, act_type, uniform_routing
         self.gate_temp, self.gate_min, self.gate_max, self.dtype = gate_temp, gate_min, gate_max, dtype
-        self.w = nn.Parameter(capsule_weight_init(num_routes, pc_dim, num_classes, mc_caps_dim))
+        init.param(self, "w", init.normal(capsule_weight_std(num_routes, pc_dim, num_classes)),
+                   (num_routes, pc_dim, num_classes, mc_caps_dim))
         if head_style == "rmatrix":
             self.pose_to_mc = Dense(pc_dim, mc_caps_dim, bias=False, dtype=dtype)
         if head_style == "class_linear":
-            self.cls_kernel = nn.Parameter(torch.randn(num_classes, mc_caps_dim) * 0.02)
-            self.cls_bias = nn.Parameter(torch.zeros(num_classes))
+            init.param(self, "cls_kernel", init.normal(0.02), (num_classes, mc_caps_dim))
+            init.param(self, "cls_bias", init.zeros, (num_classes,))
         else:
-            self.embedding = nn.Parameter(torch.zeros(num_classes, mc_caps_dim))
-            self.bias = nn.Parameter(torch.zeros(num_classes))
+            init.param(self, "embedding", init.zeros, (num_classes, mc_caps_dim))
+            init.param(self, "bias", init.zeros, (num_classes,))
 
     def forward(self, poses, priors, route_mask=None, generator=None) -> CapsuleHeadOut:
         b, r, _ = poses.shape

@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from multimodalrouting_tpu_torch.models import init
 from multimodalrouting_tpu_torch.models.fusions import EPS, MLPBlock
 from multimodalrouting_tpu_torch.models.layers import Dense, dropout
 from multimodalrouting_tpu_torch.ops.layernorm import LayerNorm
@@ -103,12 +104,13 @@ class StackedRouteHeads(nn.Module):
         super().__init__()
         self.num_routes, self.p_drop, self.dtype = num_routes, p_drop, dtype
         r = num_routes
-        self.ln_scale = nn.Parameter(torch.ones(r, d))
-        self.ln_bias = nn.Parameter(torch.zeros(r, d))
-        self.w1 = nn.Parameter(torch.randn(r, d, 2 * d) * d**-0.5)
-        self.b1 = nn.Parameter(torch.zeros(r, 2 * d))
-        self.w2 = nn.Parameter(torch.randn(r, 2 * d, n_tasks) * (2 * d) ** -0.5)
-        self.b2 = nn.Parameter(torch.zeros(r, n_tasks))
+        init.param(self, "ln_scale", init.ones, (r, d))
+        init.param(self, "ln_bias", init.zeros, (r, d))
+        # lecun_normal on the whole [R, in, out]: the route axis counts into the fan
+        init.param(self, "w1", init.lecun_normal, (r, d, 2 * d))
+        init.param(self, "b1", init.zeros, (r, 2 * d))
+        init.param(self, "w2", init.lecun_normal, (r, 2 * d, n_tasks))
+        init.param(self, "b2", init.zeros, (r, n_tasks))
 
     def forward(self, z: torch.Tensor, generator=None) -> torch.Tensor:
         if z.shape[1] != self.num_routes:

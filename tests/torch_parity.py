@@ -367,3 +367,64 @@ def port_etl_export(raw_dir, d, max_len: int = 32, max_chunks: int = 2):
             assert tcli.main(["etl", *argv]) == 0, argv
     assert write_cxr_jpegs(str(d / "export"), str(d / "images")) > 0
     return str(d / "export"), str(d / "images")
+
+
+# --- fresh weights against flax's own init (tests/test_torch_init*.py) -------
+
+# widths at which a fresh model's square kernels hold 128 x 128 = 16384
+# values: enough for the KS test to tell xavier_uniform from lecun_normal,
+# whose draws have the same std there (a KS distance of 0.043)
+INIT_WIDTHS = {"encoder.d": 128, "model.d": 128, "encoder.bert_hidden": 128, "encoder.bert_intermediate": 256}
+
+
+def jax_init(module, *args, **kwargs):
+    """flax's ``module.init(PRNGKey(0), *args, **kwargs)`` as numpy: a real
+    init, its own draws, compiled with ``O0``."""
+    return to_numpy(compiled(lambda key, *a: module.init(key, *a, **kwargs), jax.random.PRNGKey(0), *args))
+
+
+def std_band(n: int) -> float:
+    """|std ratio - 1| allowed between two samples of n values each: five
+    standard errors of the ratio of two normal samples' stds (1/sqrt(n))."""
+    return 5.0 / np.sqrt(n)
+
+
+def sample(x: np.ndarray, n: int = 2**16) -> np.ndarray:
+    """At most `n` of x's values, a seeded random subset."""
+    return x if x.size <= n else x[np.random.default_rng(0).choice(x.size, n, replace=False)]
+
+
+def assert_fresh_like_jax(variables, model) -> dict:
+    """`model`, fresh from its constructor, against flax's init `variables`
+    of the same model, leaf by leaf through ``bridge.state_dict_from_jax``:
+    the key sets equal, every parameter drawn by ``models/init.py``, each
+    leaf its rule calls constant (and every buffer) equal bit for bit, and
+    each random leaf against flax's draw of it by a two-sample KS test at
+    p >= 1e-3 / (random leaves) and its std ratio within ``std_band``, on at
+    most 2^16 values a side (a seeded random subset of a larger leaf, whose
+    values are independent draws). -> {key: std ratio} of the random leaves."""
+    from scipy.stats import ks_2samp
+
+    from multimodalrouting_tpu_torch.models import init
+
+    ref = state_dict_from_jax(variables, model)
+    got = model.state_dict()
+    assert set(ref) == set(got)
+    rules = init.rules(model)
+    assert set(rules) == {name for name, _ in model.named_parameters()}
+    random = {k for k, (rule, shape) in rules.items() if rule.std(shape) > 0}
+    p_min = 1e-3 / max(1, len(random))
+    failures, ratios = [], {}
+    for key, value in got.items():
+        if key not in random:
+            if not torch.equal(value, ref[key]):
+                failures.append(f"{key}: constant leaf differs from flax's")
+            continue
+        g, r = (sample(x.double().flatten().numpy()) for x in (value, ref[key]))
+        ratios[key] = ratio = float(g.std() / r.std())
+        p = ks_2samp(g, r, method="asymp").pvalue
+        if p < p_min or abs(ratio - 1.0) > std_band(g.size):
+            failures.append(f"{key} {tuple(value.shape)}: KS p={p:.2e} (min {p_min:.1e}), "
+                            f"std ratio {ratio:.4f} (band {std_band(g.size):.4f})")
+    assert not failures, "\n".join(failures)
+    return ratios
