@@ -94,6 +94,20 @@ def _param_key(path: Tuple[str, ...], value, target: Mapping[str, torch.Tensor])
     raise KeyError(f"no state_dict key for JAX parameter {'/'.join(path)}")
 
 
+def _keyed(tree: Mapping[str, Any], target: Mapping[str, torch.Tensor], strict: bool):
+    """(state_dict key, tensor) of every leaf of `tree`; unless `strict`,
+    the leaves that map to no key of `target` are left out."""
+    for path, value in _leaves(tree):
+        try:
+            key, value = _param_key(path, value, target)
+        except KeyError:
+            if strict:
+                raise
+            continue
+        if strict or key in target:
+            yield key, value
+
+
 Target = Union[torch.nn.Module, Mapping[str, torch.Tensor]]
 
 
@@ -101,13 +115,18 @@ def _target(model: Target) -> Mapping[str, torch.Tensor]:
     return model.state_dict() if isinstance(model, torch.nn.Module) else model
 
 
-def state_dict_from_jax(variables: Mapping[str, Any], model: Target) -> Dict[str, torch.Tensor]:
+def state_dict_from_jax(variables: Mapping[str, Any], model: Target, *,
+                        strict: bool = True) -> Dict[str, torch.Tensor]:
     """Map JAX variables {"params" (or "ema_params"), "batch_stats"} as numpy
     or torch trees onto `model`'s state_dict (or the state_dict given)
-    keys, shapes and dtypes, as CPU tensors."""
+    keys, shapes and dtypes, as CPU tensors. With ``strict=False`` the
+    parameters the model lacks are left out, as flax's ``from_state_dict``
+    leaves out a checkpoint's weights that its template lacks (a loss-based
+    stage warm-started from a learned gate's checkpoint); a model key with
+    no JAX leaf raises either way."""
     target = _target(model)
     params = variables.get("ema_params") or variables["params"]
-    pairs = [_param_key(path, value, target) for path, value in _leaves(params)]
+    pairs = list(_keyed(params, target, strict))
     for path, value in _leaves(variables.get("batch_stats") or {}):
         pairs.append((".".join(path[:-1] + (_STATS[path[-1]],)), value))
     out: Dict[str, torch.Tensor] = {}
@@ -136,10 +155,11 @@ def rank_state_dict_from_jax(variables: Mapping[str, Any], model: Target, mesh, 
     return local_state_dict(state_dict_from_jax(variables, model), mesh, spec_for_name)
 
 
-def _converted(tree: Mapping[str, Any], target: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+def _converted(tree: Mapping[str, Any], target: Mapping[str, torch.Tensor],
+               strict: bool = True) -> Dict[str, torch.Tensor]:
     """A parameter tree (EMA or an Adam moment) by state_dict key, in its
     own dtype (a train state's load casts); masked frozen leaves skipped."""
-    return dict(_param_key(path, value, target) for path, value in _leaves(tree))
+    return dict(_keyed(tree, target, strict))
 
 
 def _adam_state(opt_state) -> Optional[Tuple[Any, Any, Any]]:
@@ -162,13 +182,16 @@ def _adam_state(opt_state) -> Optional[Tuple[Any, Any, Any]]:
     return None
 
 
-def train_state_dict_from_jax(jax_state: Mapping[str, Any], model: Target) -> Dict[str, Any]:
+def train_state_dict_from_jax(jax_state: Mapping[str, Any], model: Target, *,
+                              strict: bool = True) -> Dict[str, Any]:
     """A JAX TrainState's fields as numpy or torch trees ({"params",
     "batch_stats", "ema_params", "opt_state", "step", "route_loss_ema"}: in
     memory, or as a checkpoint restores them) -> the port's on-disk train
     state (``train/state.py:train_state_dict``'s form) over `model`'s
     state_dict keys. A JAX state carries no loop schedule: a resume from it
-    starts the schedule afresh at its step, as the JAX loop does."""
+    starts the schedule afresh at its step, as the JAX loop does.
+    ``strict=False`` leaves out the parameters the model lacks
+    (``state_dict_from_jax``), in every tree."""
     target = _target(model)
     adam = _adam_state(jax_state["opt_state"])
     if adam is None:
@@ -180,10 +203,10 @@ def train_state_dict_from_jax(jax_state: Mapping[str, Any], model: Target) -> Di
         "step": int(np.asarray(count if step is None else step)),
         "count": int(np.asarray(count)),
         "model": state_dict_from_jax({"params": jax_state["params"], "batch_stats": jax_state.get("batch_stats")},
-                                     target),
-        "mu": _converted(mu, target),
-        "nu": _converted(nu, target),
-        "ema": None if ema is None else _converted(ema, target),
+                                     target, strict=strict),
+        "mu": _converted(mu, target, strict),
+        "nu": _converted(nu, target, strict),
+        "ema": None if ema is None else _converted(ema, target, strict),
         "route_loss_ema": None if rle is None else _tensor(rle).float(),
         "loop": {},
     }

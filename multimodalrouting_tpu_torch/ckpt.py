@@ -317,7 +317,9 @@ def restore_train_state(ckpt_dir: str, state, *, name: Optional[str] = None, par
     target = state.model.state_dict()
     if fmt != PORT:
         tree = read_jax_state(fmt, path)
-        saved = train_state_dict_from_jax(tree, _in_jax_layout(tree["params"], target))
+        # a warm start leaves out the checkpoint's weights that the model
+        # lacks, as the JAX restore_checkpoint's from_state_dict does
+        saved = train_state_dict_from_jax(tree, _in_jax_layout(tree["params"], target), strict=not params_only)
     else:
         ts = os.path.join(path, TRAIN_STATE)
         if not os.path.exists(ts):

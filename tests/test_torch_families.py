@@ -10,8 +10,9 @@ tiny widths of tests/helpers.py (fp32, GroupNorm, dropouts 0):
   marks, mapped by name;
 - train steps against JAX ``make_train_step``: gated step2 (learned gates),
   gated step3 (loss-based gates), FAME++ loss-based at bi (frozen head
-  slices under weight decay, the route-loss EMA), FAME++ learned at tri
-  and TriMF (the baselines' fame loss with the fairness term): per leaf
+  slices under weight decay, the route-loss EMA) and at tri (mortality, two
+  logits), FAME++ learned at tri, TriMF (the baselines' fame loss with the
+  fairness term) and LateFusion (the fame loss, mortality): per leaf
   within 5e-4 in relative norm, as tests/test_torch_train.py holds the
   capsule family;
 - the JAX package's own tests of the same behaviour, on the port
@@ -239,6 +240,26 @@ def test_fame_loss_based_bi_step_matches_jax():
         assert not torch.equal(p.detach()[3:6], before[3:6]), name
 
 
+def test_fame_loss_based_tri_step_matches_jax():
+    """Mortality with two logits over FAME++'s 7 routes: the six route heads
+    outside the tri block stay bit-identical under weight decay, the LNI
+    head and the EMA move."""
+    jcfg, tcfg, model, variables, batch = case("fame", **{"model.smro_gate_mode": "loss_based",
+                                                             "train.weight_decay": 0.05})
+    ema = np.abs(np.random.default_rng(5).normal(size=7)).astype(np.float32)
+    init, tmodel, state, jstate = assert_step(tcfg, "fame", "fame", (jcfg, model, variables), batch, stage="tri",
+                                              ema=ema)
+    assert tuple(state.route_loss_ema.shape) == (7,)
+    assert_close(state.route_loss_ema, jstate.route_loss_ema)
+    assert not np.allclose(state.route_loss_ema.numpy(), ema)
+    heads = {n: p for n, p in tmodel.named_parameters() if n.startswith("route_heads.")}
+    assert heads
+    for name, p in heads.items():
+        before = torch.from_numpy(np.asarray(init["params"]["route_heads"][name.split(".")[-1]]))
+        assert torch.equal(p.detach()[:6], before[:6]), name
+        assert not torch.equal(p.detach()[6], before[6]), name
+
+
 def test_fame_learned_tri_step_matches_jax():
     jcfg, tcfg, model, variables, batch = case("fame", **{"train.fairness_gamma": 0.1,
                                                              "train.fairness_kind": "eq_odds"})
@@ -249,6 +270,14 @@ def test_trimf_step_matches_jax():
     """The baselines train under the fame loss family."""
     jcfg, tcfg, model, variables, batch = case("trimf", **{"train.fairness_gamma": 0.1})
     assert_step(tcfg, "fame", "trimf", (jcfg, model, variables), batch)
+
+
+def test_late_fusion_step_matches_jax():
+    """LateFusion trains under the fame loss; mortality gives it two logits."""
+    jcfg, tcfg, model, variables, batch = case("late_fusion")
+    init, tmodel, state, jstate = assert_step(tcfg, "fame", "late_fusion", (jcfg, model, variables), batch)
+    assert state.route_loss_ema is None and jstate.route_loss_ema is None
+    assert tcfg.model.task == "mort" and tcfg.model.num_classes == 2
 
 
 # --- the JAX package's behaviour tests, on the port ---------------------------------
