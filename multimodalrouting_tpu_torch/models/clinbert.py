@@ -83,6 +83,7 @@ from multimodalrouting_tpu_torch.parallel.mesh import (
 )
 from multimodalrouting_tpu_torch.parallel.pp import PipelinedBertLayers
 from multimodalrouting_tpu_torch.parallel.tp import row_parallel, tp_self_attention
+from multimodalrouting_tpu_torch.utils.profiling import count
 
 
 class BertSelfAttentionBlock(nn.Module):
@@ -246,6 +247,7 @@ class BioClinBERTEncoder(nn.Module):
             # valid chunks first (stable), then the capacity's padded slots
             pack_idx = torch.argsort(-chunk_mask.reshape(b * s), stable=True)[:note_pack]
             flat_ids, flat_attn = flat_ids[pack_idx], flat_attn[pack_idx]
+        count("notes.slots", flat_ids.shape[0])  # the rows BERT runs, from the shape
         mesh = get_active_mesh()
         if chunk_sharding(mesh):
             # the 'model' axis's default role: this rank's contiguous slice of

@@ -49,6 +49,7 @@ from multimodalrouting_tpu_torch.routing.gates import (
 )
 from multimodalrouting_tpu_torch.routing.smro import MMRouting, loss_based_fuse
 from multimodalrouting_tpu_torch.train.losses import bce_with_logits
+from multimodalrouting_tpu_torch.utils.profiling import annotate
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -116,9 +117,12 @@ class TriEncoder(nn.Module):
         )
 
     def forward(self, batch: Batch, train: bool = False, generator=None, note_pack: int = 0) -> EncodedModalities:
-        l_seq, l_mask, l_pool = self.behrt(batch.x_struct, batch.m_struct, generator)
-        n_seq, n_mask, n_pool = self.bbert(batch.notes_dict(), generator, note_pack)
-        i_seq, i_mask, i_pool, chexpert = self.imgenc(normalize_pixels(batch.image, batch.has_i), train)
+        with annotate("model.labs"):
+            l_seq, l_mask, l_pool = self.behrt(batch.x_struct, batch.m_struct, generator)
+        with annotate("model.notes", device=True):
+            n_seq, n_mask, n_pool = self.bbert(batch.notes_dict(), generator, note_pack)
+        with annotate("model.image"):
+            i_seq, i_mask, i_pool, chexpert = self.imgenc(normalize_pixels(batch.image, batch.has_i), train)
 
         def gate(seq, mask, pool, has):
             h = has.to(seq.dtype)
@@ -205,23 +209,26 @@ class CapsuleRoutingModel(nn.Module):
         enc = self.encoders(batch, train, gen, note_pack)
         if route_mask is None:
             route_mask = route_mask_from_presence(batch.has_l, batch.has_n, batch.has_i, self.routes)
-        if self.per_route_mult:
-            route_embs = self.route_mult(
-                enc.l_seq, enc.l_mask, enc.l_pool, enc.n_seq, enc.n_mask, enc.n_pool,
-                enc.i_seq, enc.i_mask, enc.i_pool, generator=gen,
+        with annotate("model.routes"):
+            if self.per_route_mult:
+                route_embs = self.route_mult(
+                    enc.l_seq, enc.l_mask, enc.l_pool, enc.n_seq, enc.n_mask, enc.n_pool,
+                    enc.i_seq, enc.i_mask, enc.i_pool, generator=gen,
+                )
+            elif m.routes == "10":
+                route_embs = self.mult(enc.l_seq, enc.n_seq, enc.i_seq, enc.l_mask, enc.n_mask, enc.i_mask,
+                                       generator=gen)
+            else:
+                route_embs = self.fusion(enc.l_pool, enc.n_pool, enc.i_pool, gen)
+        with annotate("model.head"):
+            poses, acts = self.projector(route_embs)
+            priors = compose_priors(
+                acts, route_mask=route_mask,
+                act_temperature=m.act_temperature if act_temperature is None else act_temperature,
+                prior_floor=m.route_prior_floor, prior_ceiling=m.route_prior_ceiling,
+                detach=m.detach_priors if detach_priors is None else detach_priors,
             )
-        elif m.routes == "10":
-            route_embs = self.mult(enc.l_seq, enc.n_seq, enc.i_seq, enc.l_mask, enc.n_mask, enc.i_mask, generator=gen)
-        else:
-            route_embs = self.fusion(enc.l_pool, enc.n_pool, enc.i_pool, gen)
-        poses, acts = self.projector(route_embs)
-        priors = compose_priors(
-            acts, route_mask=route_mask,
-            act_temperature=m.act_temperature if act_temperature is None else act_temperature,
-            prior_floor=m.route_prior_floor, prior_ceiling=m.route_prior_ceiling,
-            detach=m.detach_priors if detach_priors is None else detach_priors,
-        )
-        out = self.capsule_head(poses, priors, route_mask=route_mask, generator=gen)
+            out = self.capsule_head(poses, priors, route_mask=route_mask, generator=gen)
         return ModelOutput(
             logits=out.logits.float(),
             alpha=out.alpha.float(),

@@ -18,6 +18,10 @@ contract).
   rows; eager PyTorch needs no padding to a static batch. ``warmup`` runs
   one forward before the first request (``cli predict --port`` calls it).
 - ``make_http_server``: POST /predict, GET /health.
+- Spans (``utils/profiling.py``, kept only while a profile records) mark
+  a request's phases: ``serve.request`` around it, ``serve.assemble``,
+  ``serve.queue`` (the wait for the device lock), ``serve.to_device``,
+  ``serve.forward``, ``serve.readback`` and ``serve.rows``.
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ import torch
 
 from multimodalrouting_tpu_torch.configs import Config
 from multimodalrouting_tpu_torch.data.batches import Batch, batch_to, slice_batch
+from multimodalrouting_tpu_torch.utils.profiling import annotate, count, recording
 
 
 def _serving_shapes(cfg: Config) -> Dict[str, int]:
@@ -124,6 +129,8 @@ def batch_from_records(cfg: Config, records: Sequence[Dict]) -> Batch:
         if rec.get("sens") is not None:
             sens[i] = int(rec["sens"])
 
+    if recording():
+        count("serve.chunks", int((chunk_mask > 0).sum()))
     return Batch(
         x_struct=x_struct, m_struct=m_struct, note_ids=note_ids, note_attn=note_attn,
         chunk_mask=chunk_mask, image=image, has_l=has_l, has_n=has_n, has_i=has_i,
@@ -227,24 +234,33 @@ class Predictor:
         """The serving forward of a host Batch -> the model's ModelOutput."""
         kwargs = {} if self.route_loss_ema is None else {"route_losses_ema": self.route_loss_ema}
         with torch.inference_mode():
-            return self.model(batch_to(batch, self.device), **kwargs)
+            with annotate("serve.to_device"):
+                batch = batch_to(batch, self.device)
+            with annotate("serve.forward"):
+                return self.model(batch, **kwargs)
 
     def _forward(self, batch: Batch):
         out = self.forward(batch)
-        return tuple(None if x is None else x.cpu().numpy() for x in (out.logits, out.alpha, out.r_matrix))
+        with annotate("serve.readback"):
+            return tuple(None if x is None else x.cpu().numpy() for x in (out.logits, out.alpha, out.r_matrix))
 
     def predict(self, batch: Batch) -> Dict[str, np.ndarray]:
         """probs [N] or [N,K], pred, and where the family exposes routing
         alpha [N,R] and r_matrix [N,R,K]."""
         n = batch.batch_size
         parts = []
-        with self._lock:
+        with annotate("serve.queue"):  # the wait for the device: another request's forward
+            self._lock.acquire()
+        try:
             for start in range(0, n, self.batch_size):
                 sub = slice_batch(batch, start, self.batch_size)
                 parts.append(self._forward(sub))
-        logits, alpha, r_matrix = (None if xs[0] is None else np.concatenate(xs, 0) for xs in zip(*parts))
-        probs = calibrate_probs(probs_from_logits(logits, self.task), self.temperature)
-        out: Dict[str, np.ndarray] = {"probs": probs, "pred": decide(probs, self.thresholds)}
+        finally:
+            self._lock.release()
+        with annotate("serve.rows"):
+            logits, alpha, r_matrix = (None if xs[0] is None else np.concatenate(xs, 0) for xs in zip(*parts))
+            probs = calibrate_probs(probs_from_logits(logits, self.task), self.temperature)
+            out: Dict[str, np.ndarray] = {"probs": probs, "pred": decide(probs, self.thresholds)}
         if alpha is not None:
             out["alpha"] = alpha
         if r_matrix is not None:
@@ -252,11 +268,15 @@ class Predictor:
         return out
 
     def predict_records(self, records: Sequence[Dict]) -> List[Dict]:
-        out = self.predict(batch_from_records(self.cfg, records))
-        return self._rows_from_output(out, len(records))
+        with annotate("serve.request"):
+            with annotate("serve.assemble"):
+                batch = batch_from_records(self.cfg, records)
+            out = self.predict(batch)
+            return self._rows_from_output(out, len(records))
 
     def _rows_from_output(self, out: Dict[str, np.ndarray], n: int) -> List[Dict]:
-        return rows_from_output(out, n, self.routes, self.temperature)
+        with annotate("serve.rows"):
+            return rows_from_output(out, n, self.routes, self.temperature)
 
 
 def write_predictions_jsonl(predictor: Predictor, batch: Batch, out_path: str, stay_ids: Optional[np.ndarray] = None) -> int:
@@ -308,6 +328,10 @@ def make_http_server(predictor: Predictor, port: int = 0, host: str = "127.0.0.1
             if self.path != "/predict":
                 self._send(404, {"error": f"unknown path {self.path}"})
                 return
+            with annotate("serve.request"):
+                self._predict()
+
+        def _predict(self):
             try:
                 length = int(self.headers.get("Content-Length", "0"))
                 req = json.loads(self.rfile.read(length) or b"{}")
@@ -318,7 +342,8 @@ def make_http_server(predictor: Predictor, port: int = 0, host: str = "127.0.0.1
                 self._send(400, {"error": str(e)})
                 return
             try:
-                batch = batch_from_records(pred.cfg, records)
+                with annotate("serve.assemble"):
+                    batch = batch_from_records(pred.cfg, records)
             except (ValueError, TypeError, KeyError) as e:
                 self._send(400, {"error": str(e)})
                 return

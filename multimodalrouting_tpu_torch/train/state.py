@@ -54,6 +54,7 @@ import torch
 from torch import nn
 
 from multimodalrouting_tpu_torch.configs import Config
+from multimodalrouting_tpu_torch.utils.profiling import annotate
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 
@@ -171,7 +172,11 @@ def apply_gradients(
     g = [grads[n].float() for n in state.names]
     if z is not None:  # this rank's slices of the sharded leaves
         g = [x[z.slices[n]] if n in z.slices else x for n, x in zip(state.names, g)]
-    finite = bool(torch.stack([torch.isfinite(x).all() for x in g]).all()) if g else True
+    finite = True
+    if g:
+        all_finite = torch.stack([torch.isfinite(x).all() for x in g]).all()
+        with annotate("train.sync"):
+            finite = bool(all_finite)
     if shards is not None:  # the ranks hold different slices: one verdict for the world
         finite = _world_finite(finite, shards.mesh, next(state.model.parameters()).device)
     elif z is not None:
@@ -188,8 +193,12 @@ def apply_gradients(
         if shards is not None and shards.dims:  # a model-sharded leaf counted once
             norms = shards.sum_squares(norms * norms, state.names).sqrt()
         g_norm = torch.linalg.vector_norm(norms)
-    if g and not bool(g_norm < state.grad_clip):
-        g = torch._foreach_mul(torch._foreach_div(g, g_norm), state.grad_clip)
+    if g:
+        below = g_norm < state.grad_clip
+        with annotate("train.sync"):
+            clip = not bool(below)
+        if clip:
+            g = torch._foreach_mul(torch._foreach_div(g, g_norm), state.grad_clip)
     if z is not None:  # from here on the sharded leaves are this rank's rows
         full_params, params = params, [p.data[z.slices[n]] if n in z.slices else p for n, p in zip(state.names, params)]
     mu = [state.mu[n] for n in state.names]

@@ -42,6 +42,7 @@ microbatch's are kept, its pos_weight, its fairness and CheXpert terms).
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -67,6 +68,7 @@ from multimodalrouting_tpu_torch.train.losses import (
     soft_eq_odds_loss,
 )
 from multimodalrouting_tpu_torch.train.state import TrainState, apply_gradients, ema_weights
+from multimodalrouting_tpu_torch.utils.profiling import annotate
 
 
 class StepMetrics(NamedTuple):
@@ -237,8 +239,11 @@ def make_train_step(cfg: Config, model, family: str = "capsule", **apply_kwargs)
             per_route = None
             for i in range(n_micro):
                 sub = slice_batch(batch, i * mb, mb)
-                li, ti, ri, out, pi = forward_loss(state, sub, generator, route_gen, detach_priors, act_temperature, 0)
-                li.backward()
+                with annotate("train.forward"):
+                    li, ti, ri, out, pi = forward_loss(state, sub, generator, route_gen, detach_priors,
+                                                       act_temperature, 0)
+                with annotate("train.backward"):
+                    li.backward()
                 loss, task, reg = loss + li.detach(), task + ti.detach(), reg + ri.detach()
                 if pi is not None:
                     per_route = pi if per_route is None else per_route + pi
@@ -251,9 +256,11 @@ def make_train_step(cfg: Config, model, family: str = "capsule", **apply_kwargs)
                     if p.grad is not None:
                         p.grad.mul_(scale)
         else:
-            loss, task, reg, out, per_route = forward_loss(
-                state, batch, generator, route_gen, detach_priors, act_temperature, note_pack)
-            loss.backward()
+            with annotate("train.forward"):
+                loss, task, reg, out, per_route = forward_loss(
+                    state, batch, generator, route_gen, detach_priors, act_temperature, note_pack)
+            with annotate("train.backward"):
+                loss.backward()
             loss, task, reg = loss.detach(), task.detach(), reg.detach()
         # a parameter the loss does not reach has a zero gradient, as in JAX
         grads = {n: torch.zeros_like(p) if p.grad is None else p.grad for n, p in zip(state.names, params)}
@@ -271,10 +278,11 @@ def make_train_step(cfg: Config, model, family: str = "capsule", **apply_kwargs)
                 if "route_heads" in n.split("."):
                     update_mask[n] = head_keep.to(grads[n].device).reshape((-1,) + (1,) * (grads[n].dim() - 1))
                     grads[n] = grads[n] * update_mask[n]
-        finite = apply_gradients(
-            state, grads, lr_head=lr_head, lr_enc=lr_enc, ema_decay=t.ema_decay, new_batch_stats=out.batch_stats,
-            update_mask=update_mask,
-        )
+        with annotate("train.optimizer"):
+            finite = apply_gradients(
+                state, grads, lr_head=lr_head, lr_enc=lr_enc, ema_decay=t.ema_decay,
+                new_batch_stats=out.batch_stats, update_mask=update_mask,
+            )
         for p in params:
             p.grad = None
         alpha_mean = None if out.alpha is None else out.alpha.detach().mean(dim=0)
@@ -287,13 +295,22 @@ def make_train_step(cfg: Config, model, family: str = "capsule", **apply_kwargs)
             loss, task, reg, per_route, alpha_mean, gates_mean = (
                 None if x is None else next(it).view_as(x).to(x.dtype) for x in parts)
         ema = state.route_loss_ema
-        if per_route is not None and ema is not None and finite and bool(torch.isfinite(per_route).all()):
-            beta = t.route_loss_ema_beta
-            ema.mul_(beta).add_(per_route, alpha=1.0 - beta)
+        if per_route is not None and ema is not None and finite:
+            all_finite = torch.isfinite(per_route).all()
+            with annotate("train.sync"):
+                ema_finite = bool(all_finite)
+            if ema_finite:
+                beta = t.route_loss_ema_beta
+                ema.mul_(beta).add_(per_route, alpha=1.0 - beta)
         return StepMetrics(loss=loss, task_loss=task, reg_loss=reg, grad_finite=finite, alpha_mean=alpha_mean,
                            gates_mean=gates_mean)
 
-    return train_step
+    @functools.wraps(train_step)
+    def spanned_step(*args, **kwargs) -> StepMetrics:
+        with annotate("train.step"):
+            return train_step(*args, **kwargs)
+
+    return spanned_step
 
 
 def make_eval_step(cfg: Config, model, family: str = "capsule", use_ema: bool = True, **apply_kwargs):

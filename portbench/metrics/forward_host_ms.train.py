@@ -1,0 +1,8 @@
+"""The host ms a train step spends in its forward and loss: the
+``train.forward`` spans of the traced window's ``train.step`` spans, over
+their number."""
+from portbench.harness import spans
+
+
+def read(ctx):
+    return spans.host_ms_per_root("train.step", "train.forward")
